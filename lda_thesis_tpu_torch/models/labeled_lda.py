@@ -1,0 +1,310 @@
+"""Labeled LDA (Ramage '09) on PyTorch, with the fused merge-block sampler.
+
+Counterpart of ``lda_thesis_tpu/models/labeled_lda.py`` for
+``sweep="auto"|"fused"``: the same surface as the reference class
+(LabeledLDA.py:49-265) — ``run_training(iters, thinning)``,
+``run_test(newdocs, it, thinning)``, ``get_phi/get_theta``,
+``topwords_per_topic``, ``perplexity``, ``get_pred(s)`` — over the same
+length buckets and compact label slots as the JAX package.  Training runs in
+merge blocks of M sweeps (ops/gibbs_fused.py); one CUDA kernel launch per
+bucket per block on a card.
+
+The model runs on ``device`` (CUDA unless the caller passes ``"cpu"``) and
+draws from one ``torch.Generator`` on that device, seeded by ``seed``.  The
+draw stream differs from the JAX package's, so chains agree in
+distribution, not draw for draw.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..data.buckets import BucketedDocs, bucket_encode
+from ..data.encode import binarize_labels, build_labelmap, compact_labels, encode_bow_types
+from ..ops.gibbs import foldin_sweep, log_likelihood
+from ..ops.gibbs_fused import (
+    FusedBucketState,
+    fused_train_block_buckets,
+    init_fused_buckets,
+    select_merge_block,
+    theta_from_fused,
+)
+from .state import phi_from_counts, running_average
+
+__all__ = ["LabeledLDA"]
+
+
+def check_merge_block(model, merge: int) -> None:
+    """Resume guard: a model whose state was recorded under merge block M
+    (``_ckpt_merge_M``) refuses to continue under a different M, which
+    would draw a different chain; records the M in use as ``_merge_M``."""
+    ckpt = getattr(model, "_ckpt_merge_M", None)
+    if ckpt is not None and int(ckpt) != int(merge):
+        raise ValueError(
+            f"fused merge-block mismatch: checkpoint used M={ckpt}, this "
+            f"run selected M={merge} — pass total_iters= (the full planned "
+            f"sweep count of the original run) so the resumed chain is "
+            f"bit-identical")
+    model._merge_M = int(merge)
+
+
+class LabeledLDA:
+    """Labeled LDA with collapsed-Gibbs training on a CUDA device."""
+
+    def __init__(
+        self,
+        docs: Sequence[Sequence[str]],
+        labs: Sequence[Sequence[str]],
+        labelset: Sequence[str],
+        dicti,
+        alpha: float,
+        beta: float,
+        seed: int = 0,
+        k_pad: int = 128,
+        n_buckets: int = 4,
+        sweep: str = "auto",
+        merge_every: int = 25,
+        device=None,
+    ):
+        if sweep == "auto":
+            sweep = "fused"
+        if sweep in ("dense", "compact"):
+            raise NotImplementedError(
+                f"sweep={sweep!r} (the exact samplers) is not ported yet: "
+                "ROADMAP.md, Queue 1, exact samplers with kernel 2")
+        if sweep != "fused":
+            raise ValueError(f"unknown sweep {sweep!r}")
+        self.sweep = sweep
+        self.device = torch.device("cuda" if device is None else device)
+        self.alpha = float(alpha)
+        self.beta = float(beta)
+        self.merge_every = max(int(merge_every), 1)
+        self.dicti = dicti
+        self.labelmap = build_labelmap(labelset)
+        self.K = len(self.labelmap)
+        self.vocab = dicti.values()
+        self.w_to_v = dicti.token2id
+        self.v_to_w = dicti.id2token
+        self.V = len(dicti)
+        self.D = len(docs)
+
+        bows = [dicti.doc2bow(doc) for doc in docs]
+        lab_mask = binarize_labels(labs, self.labelmap)
+        # pad the topic axis; padded topics are masked off
+        self.Kp = ((self.K + k_pad - 1) // k_pad) * k_pad
+        lab_mask = np.pad(lab_mask, ((0, 0), (0, self.Kp - self.K)))
+        self.topic_mask = self._t(np.arange(self.Kp) < self.K, torch.float32)
+
+        self.buckets: BucketedDocs = bucket_encode(bows, n_buckets=n_buckets)
+        self.n_tokens = int(sum(int(x.sum()) for x in self.buckets.tok_f))
+        lab_ids, lab_valid = compact_labels(lab_mask)
+        self.A = lab_ids.shape[1]
+        ix = self.buckets.doc_idx
+        self.toks_v = tuple(self._t(x, torch.int64) for x in self.buckets.tok_v)
+        self.toks_f = tuple(self._t(x, torch.int64) for x in self.buckets.tok_f)
+        self._toks_v_t = tuple(tv.T.contiguous() for tv in self.toks_v)
+        self._toks_f_t = tuple(
+            self._t(x.T, torch.float32) for x in self.buckets.tok_f)
+        self.lab_ids_t = tuple(self._t(lab_ids[i], torch.int64) for i in ix)
+        self.lab_valid_t = tuple(self._t(lab_valid[i], torch.float32) for i in ix)
+        self._lab_valid_tt = tuple(lv.T.contiguous() for lv in self.lab_valid_t)
+
+        self._gen = torch.Generator(device=self.device)
+        self._gen.manual_seed(int(seed))
+        self.counts: FusedBucketState = init_fused_buckets(
+            self.toks_v, self.toks_f, self.lab_ids_t, self.lab_valid_t,
+            self.V, self.Kp, generator=self._gen)
+
+        self.ph_hat = torch.zeros((self.V, self.Kp), dtype=torch.float32,
+                                  device=self.device)
+        self._th_hat_t: Tuple[torch.Tensor, ...] = self._zeros_th()
+        self._avg_s = 0  # number of thinned saves folded into ph_hat/th_hat
+        self.cur_perplx: List[float] = []
+
+    def _t(self, x, dtype) -> torch.Tensor:
+        return torch.as_tensor(np.ascontiguousarray(x)).to(
+            device=self.device, dtype=dtype)
+
+    def _zeros_th(self) -> Tuple[torch.Tensor, ...]:
+        return tuple(
+            torch.zeros((len(ix), self.Kp), dtype=torch.float32, device=self.device)
+            for ix in self.buckets.doc_idx)
+
+    # ---------------------------------------------------------------- train
+
+    def _cur_estimates(self):
+        cur_ph = phi_from_counts(self.counts.n_vk, self.counts.n_k, self.beta,
+                                 self.topic_mask)
+        cur_th = tuple(
+            theta_from_fused(ndk, li, lv, self.alpha, self.Kp)
+            for ndk, li, lv in zip(self.counts.n_dk, self.lab_ids_t,
+                                   self.lab_valid_t))
+        return cur_ph, cur_th
+
+    def _block(self, M: int) -> None:
+        self.counts = fused_train_block_buckets(
+            self.counts, self._toks_v_t, self._toks_f_t, self.lab_ids_t,
+            self._lab_valid_tt, self.alpha, self.beta, M, generator=self._gen)
+
+    def run_training(
+        self,
+        iters: int,
+        thinning: int,
+        perplexity: bool = True,
+        continue_avg: bool = False,
+        total_iters: Optional[int] = None,
+    ) -> None:
+        """``iters`` Gibbs sweeps (reference run_training, LabeledLDA.py:127-153).
+
+        Sweeps run in merge blocks of M (a divisor of ``thinning``, see
+        ``select_merge_block``); thinned φ̂/θ̂ saves land at exact
+        ``thinning`` multiples on freshly committed counts, and the trailing
+        ``iters % thinning`` sweeps run unsaved, the last block cut short.
+        ``continue_avg=True`` carries the running means across calls;
+        ``total_iters`` is the full planned sweep count of a chunked run, so
+        its merge block matches the uninterrupted run's.
+        """
+        iters, thinning = int(iters), int(thinning)
+        budget = int(total_iters) if total_iters else iters
+        merge = select_merge_block(self.merge_every, thinning, budget)
+        check_merge_block(self, merge)
+        if not (continue_avg and self._avg_s > 0):
+            self.ph_hat = torch.zeros_like(self.ph_hat)
+            self._th_hat_t = self._zeros_th()
+            self._avg_s = 0
+        n_save_blocks = iters // thinning
+        for _ in range(n_save_blocks):
+            for _ in range(thinning // merge):
+                self._block(merge)
+            cur_ph, cur_th = self._cur_estimates()
+            self._avg_s += 1
+            s = self._avg_s
+            self.ph_hat = running_average(self.ph_hat, cur_ph, s)
+            self._th_hat_t = tuple(
+                running_average(t, c, s) for t, c in zip(self._th_hat_t, cur_th))
+            if perplexity:
+                perp = self._perplexity_of(cur_ph, cur_th)
+                if perp > 0:
+                    self.cur_perplx.append(perp)
+        left = iters - n_save_blocks * thinning
+        while left > 0:
+            m = min(merge, left)
+            self._block(m)
+            left -= m
+        self._check_ph_hat()
+
+    def _perplexity_of(self, phi, thetas) -> float:
+        ll = torch.zeros((), dtype=torch.float32, device=self.device)
+        n = torch.zeros((), dtype=torch.float32, device=self.device)
+        for th, tv, tf in zip(thetas, self.toks_v, self.toks_f):
+            llg, ng = log_likelihood(th, phi, tv, tf)
+            ll = ll + llg
+            n = n + ng.to(torch.float32)
+        return float(torch.exp(-ll / torch.clamp(n, min=1.0)))
+
+    @property
+    def th_hat(self) -> np.ndarray:
+        """(D, Kp) thinned θ̂ in original document order (host array)."""
+        return self.buckets.scatter_rows([t.cpu().numpy() for t in self._th_hat_t])
+
+    def _check_ph_hat(self) -> None:
+        """The reference's runtime guards (LabeledLDA.py:146-153)."""
+        ph = self.ph_hat[:, : self.K]
+        neg, nan, dead = torch.stack(
+            [(ph < 0).any(), torch.isnan(ph).any(), (ph.sum(dim=1) == 0).any()]
+        ).tolist()
+        if neg:
+            raise ValueError("A negative value occurred in ph_hat")
+        if nan:
+            raise ValueError("A nan has creeped into ph_hat")
+        if dead:
+            raise ValueError("A word in dictionary has no z-value")
+
+    # ----------------------------------------------------------------- test
+
+    def run_test(self, newdocs, it: int, thinning: int) -> np.ndarray:
+        """Fold-in θ̂ for held-out documents (LabeledLDA.py:155-212); returns
+        (n, K) including the root.
+
+        z is initialised from φ̂'s column for each type (uniform over the
+        real topics where that column is all zero); then ``it`` frozen-φ̂
+        sweeps, averaging the normalised doc-topic counts at multiples of
+        ``thinning``; trailing sweeps run unsaved, as in the reference.
+        """
+        bows = [self.dicti.doc2bow(doc) for doc in newdocs]
+        tv_np, tf_np = encode_bow_types(bows)
+        tok_v = self._t(tv_np, torch.int64)
+        tok_f = self._t(tf_np, torch.int64)
+        phi = self.ph_hat
+        D, U = tok_v.shape
+        ff = tok_f.to(torch.float32)
+
+        u = torch.rand((U, D), generator=self._gen, device=self.device)
+        n_dk = torch.zeros((D, self.Kp), dtype=torch.float32, device=self.device)
+        z = torch.empty((D, U), dtype=torch.int32, device=self.device)
+        for p in range(U):
+            w = phi[tok_v[:, p]]
+            dead = w.sum(dim=1, keepdim=True) <= 0.0
+            c = torch.cumsum(torch.where(dead, self.topic_mask[None, :], w), dim=1)
+            zp = (c < (u[p] * c[:, -1])[:, None]).sum(dim=1, dtype=torch.int32)
+            n_dk.scatter_add_(1, zp.long()[:, None], ff[:, p, None])
+            z[:, p] = zp
+
+        avg = torch.zeros_like(n_dk)
+        s = 0
+        for i in range(int(it)):
+            z, n_dk = foldin_sweep(z, n_dk, tok_v, tok_f, phi, self.alpha,
+                                   generator=self._gen)
+            if (i + 1) % int(thinning) == 0:
+                s += 1
+                cur = n_dk / torch.clamp(n_dk.sum(dim=1, keepdim=True), min=1.0)
+                avg = running_average(avg, cur, s)
+        return avg[:, : self.K].cpu().numpy()
+
+    # ------------------------------------------------------------ estimators
+
+    def get_phi(self) -> np.ndarray:
+        """(K, V) smoothed φ — reference orientation (LabeledLDA.py:231-234)."""
+        phi = phi_from_counts(self.counts.n_vk, self.counts.n_k, self.beta,
+                              self.topic_mask)
+        return phi[:, : self.K].T.cpu().numpy()
+
+    def get_theta(self) -> np.ndarray:
+        """(D, K) label-masked θ (LabeledLDA.py:236-239)."""
+        _, per_bucket = self._cur_estimates()
+        return self.buckets.scatter_rows(
+            [t.cpu().numpy() for t in per_bucket])[:, : self.K]
+
+    # ------------------------------------------------------------ diagnostics
+
+    def get_pred(self, single_th: np.ndarray, n: int = 5):
+        labels = np.array(list(self.labelmap.keys()))
+        top = np.argsort(-single_th)[:n]
+        return list(zip(labels[top], single_th[top]))
+
+    def get_preds(self, all_th: np.ndarray, n: int = 5):
+        return [self.get_pred(all_th[d], n) for d in range(all_th.shape[0])]
+
+    def topwords_per_topic(self, topwords: int = 10):
+        ph = self.get_phi()
+        labels = list(self.labelmap.keys())
+        out = []
+        for k in range(self.K):
+            idx = np.argsort(-ph[k])[:topwords]
+            out.append([labels[k]] + [self.v_to_w[int(v)] for v in idx])
+        return out
+
+    def perplexity(self) -> float:
+        """Training perplexity exp(−ll/N) of the current counts; the log
+        likelihood is summed per bucket on the host in float64, as in the
+        JAX model."""
+        phi, thetas = self._cur_estimates()
+        ll, n = 0.0, 0
+        for th, tv, tf in zip(thetas, self.toks_v, self.toks_f):
+            llg, ng = log_likelihood(th, phi, tv, tf)
+            ll += float(llg)
+            n += int(ng)
+        return float(np.exp(-ll / max(n, 1)))

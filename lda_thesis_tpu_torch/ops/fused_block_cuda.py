@@ -1,0 +1,201 @@
+"""Merge-block sampler kernel: CUDA wrapper and its plain PyTorch version.
+
+:func:`fused_block` runs ``M`` collapsed-Gibbs sweeps of every document
+against a topic-word table frozen at block start (the algorithm of
+``lda_thesis_tpu/ops/gibbs_fused.py``, whose Pallas kernel
+``_build_block_kernel`` the CUDA kernel ``csrc/fused_block.cu`` replaces).
+On a CUDA tensor it launches that kernel; on a CPU tensor it runs
+:func:`fused_block_torch`, which repeats the kernel's floating-point
+operations in the same order, so the two agree bit for bit.
+
+The kernel is compiled with ``nvcc`` at first use into
+``lda_thesis_tpu_torch/_build/`` (keyed by a hash of the source and flags)
+and loaded with ``ctypes``; importing this module needs neither ``nvcc``
+nor a card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+from typing import Tuple
+
+import torch
+
+__all__ = ["fused_block", "fused_block_torch", "build"]
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "fused_block.cu"
+BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
+# -fmad=false: no a*b+c contraction, so the kernel rounds every operation
+# where fused_block_torch does.  No fast-math: 1/x stays correctly rounded.
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+MAX_SLOTS = 32  # one lane per slot
+MAX_SMEM = 227 * 1024
+
+# Number of kernel launches since import (or since a caller reset it).
+launches = 0
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = Path(cuda_home) / "bin" / "nvcc"
+    if not path.exists():
+        raise RuntimeError("nvcc not found: the CUDA kernel cannot be built")
+    return str(path)
+
+
+def build() -> Tuple[Path, float, str]:
+    """Compile the kernel if its library is missing.
+
+    Returns ``(library path, seconds spent compiling, compiler output)``;
+    seconds is 0 and the output empty when the library was already built.
+    """
+    key = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    lib = BUILD_DIR / f"fused_block_{key.hexdigest()[:16]}.so"
+    if lib.exists():
+        return lib, 0.0, ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
+    os.close(fd)
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{proc.stdout}{proc.stderr}")
+        os.replace(tmp, lib)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return lib, time.perf_counter() - t0, proc.stdout + proc.stderr
+
+
+@functools.lru_cache(maxsize=1)
+def _library() -> ctypes.CDLL:
+    path, _, _ = build()
+    lib = ctypes.CDLL(str(path))
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.fused_block_launch.argtypes = [ptr] * 9 + [i32] * 4 + [f32, f32, ptr]
+    lib.fused_block_launch.restype = ctypes.c_int
+    lib.fused_block_smem_bytes.argtypes = [i32]
+    lib.fused_block_smem_bytes.restype = ctypes.c_size_t
+    return lib
+
+
+def _check_inputs(cv, f, uniforms, z0, nkg, valid, ndk0) -> Tuple[int, int, int, int]:
+    if cv.dim() != 3:
+        raise ValueError(f"cv must be (D, U, A), got shape {tuple(cv.shape)}")
+    D, U, A = cv.shape
+    M = uniforms.shape[0]
+    want = {
+        "f": (f, (U, D), torch.float32),
+        "uniforms": (uniforms, (M, U, D), torch.float32),
+        "z0": (z0, (U, D), torch.int32),
+        "nkg": (nkg, (A, D), torch.float32),
+        "valid": (valid, (A, D), torch.float32),
+        "ndk0": (ndk0, (A, D), torch.float32),
+        "cv": (cv, (D, U, A), torch.float32),
+    }
+    for name, (t, shape, dtype) in want.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+        if t.device != cv.device:
+            raise ValueError(f"{name} is on {t.device}, cv on {cv.device}")
+    return M, U, A, D
+
+
+def fused_block(cv, f, uniforms, z0, nkg, valid, ndk0, alpha: float,
+                beta: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``M`` frozen-table Gibbs sweeps; returns ``(z (U, D) int32, n_dk (A, D))``.
+
+    ``cv (D, U, A)`` per-slot block-start topic-word counts (doc-major),
+    ``f (U, D)`` type frequencies, ``uniforms (M, U, D)`` one uniform per
+    draw, ``z0 (U, D)`` block-start slots, ``nkg (A, D)`` block-start topic
+    totals pre-biased by V·β, ``valid (A, D)`` slot mask, ``ndk0 (A, D)``
+    doc-topic counts.  CPU tensors take :func:`fused_block_torch`; CUDA
+    tensors launch the kernel.
+    """
+    global launches
+    M, U, A, D = _check_inputs(cv, f, uniforms, z0, nkg, valid, ndk0)
+    if cv.device.type == "cpu":
+        return fused_block_torch(cv, f, uniforms, z0, nkg, valid, ndk0, alpha, beta)
+    if cv.device.type != "cuda":
+        raise ValueError(f"no kernel for device {cv.device}")
+    if not 1 <= A <= MAX_SLOTS:
+        raise ValueError(f"the kernel takes 1..{MAX_SLOTS} slots, got A={A}")
+    tensors = (cv, f, uniforms, z0, nkg, valid, ndk0)
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("fused_block inputs must be contiguous")
+    lib = _library()
+    if lib.fused_block_smem_bytes(U) > MAX_SMEM:
+        raise ValueError(f"U={U} positions do not fit the kernel's shared memory")
+    z_out = torch.empty((U, D), dtype=torch.int32, device=cv.device)
+    ndk_out = torch.empty((A, D), dtype=torch.float32, device=cv.device)
+    if D == 0:
+        return z_out, ndk_out
+    with torch.cuda.device(cv.device):
+        stream = torch.cuda.current_stream(cv.device).cuda_stream
+        err = lib.fused_block_launch(
+            *(t.data_ptr() for t in tensors), z_out.data_ptr(),
+            ndk_out.data_ptr(), M, U, A, D, float(alpha), float(beta), stream)
+    if err != 0:
+        raise RuntimeError(f"fused_block kernel launch failed: CUDA error {err}")
+    launches += 1
+    return z_out, ndk_out
+
+
+def _warp_scan(w: torch.Tensor) -> torch.Tensor:
+    """Inclusive scan over dim 0 in the kernel's warp-shuffle order."""
+    c = w
+    off = 1
+    while off < min(w.shape[0], 32):
+        c = torch.cat([c[:off], c[off:] + c[:-off]], dim=0)
+        off *= 2
+    return c
+
+
+def fused_block_torch(cv, f, uniforms, z0, nkg, valid, ndk0, alpha: float,
+                      beta: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`fused_block`, all documents at once.
+
+    Same operations in the same order as ``csrc/fused_block.cu`` (see its
+    header): the product is ``((valid·(n_dk+α))·((cv−own)+β))·(1/(nkg−own))``
+    with a correctly rounded reciprocal, and the cumsum is the warp scan's
+    Hillis–Steele order.  Positions with ``f == 0`` are computed and their
+    draw discarded, which leaves the same bits as the kernel's skip.
+    """
+    M, U, D = uniforms.shape
+    A = ndk0.shape[0]
+    slot = torch.arange(A, device=cv.device)[:, None]  # (A, 1)
+    cv_pos = cv.permute(1, 2, 0)  # (U, A, D) view
+    z = z0.clone()
+    ndk = ndk0.clone()
+    for m in range(M):
+        for p in range(U):
+            fp = f[p]
+            own = torch.where(slot == z0[p], fp, 0.0)
+            ndk_m = ndk - torch.where(slot == z[p], fp, 0.0)
+            w = valid * (ndk_m + alpha)
+            w = w * ((cv_pos[p] - own) + beta)
+            w = w * torch.reciprocal(nkg - own)
+            c = _warp_scan(w)
+            r = uniforms[m, p] * c[A - 1]
+            zn = (c < r).sum(dim=0, dtype=torch.int32)
+            zn = torch.where(fp > 0, zn, z[p])
+            ndk = ndk_m + torch.where(slot == zn, fp, 0.0)
+            z[p] = zn
+    return z, ndk

@@ -1,0 +1,234 @@
+"""Merge-block collapsed-Gibbs sampler for Labeled LDA, on tensors.
+
+Counterpart of ``lda_thesis_tpu/ops/gibbs_fused.py``.  A merge block runs
+``M`` sweeps against a topic-word table frozen at block start (each slot's
+own block-start count is excluded exactly), with the doc-topic counts live
+throughout; then one scatter commits the block's count deltas.  Per block:
+
+1. :func:`gather_cv` reads the frozen per-slot counts, one element gather;
+2. the frozen totals are picked per slot (``n_k[lab_ids]``, pre-biased by V·β);
+3. the block's uniforms are drawn;
+4. the sampler runs: the CUDA kernel on a card, its plain version on the
+   CPU (:mod:`.fused_block_cuda`);
+5. :func:`_scatter_deltas` commits ``f`` from each slot's first to its last
+   topic.
+
+All per-document state lives on the compact A-slot label axis; ``z`` is
+position-major ``(U, D)`` and ``n_dk`` is ``(A, D)``, as in the JAX package.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Sequence, Tuple
+
+import torch
+
+from .fused_block_cuda import fused_block
+from .gibbs import _uniforms, densify_ndk, init_counts_compact, theta_from_compact
+
+__all__ = [
+    "FusedLDAState",
+    "FusedBucketState",
+    "select_merge_block",
+    "init_fused",
+    "init_fused_buckets",
+    "fused_train_block",
+    "fused_train_block_buckets",
+    "gather_cv",
+    "slot_totals",
+    "theta_from_fused",
+    "densify_ndk_fused",
+]
+
+
+class FusedLDAState(NamedTuple):
+    """Gibbs state in the fused layout.
+
+    ``z (U, D)`` int32 compact slot of each type position, ``n_dk (A, D)``
+    compact doc-topic counts, ``n_vk (V, K)`` / ``n_k (K,)`` dense tables.
+    """
+
+    z: torch.Tensor
+    n_dk: torch.Tensor
+    n_vk: torch.Tensor
+    n_k: torch.Tensor
+
+
+class FusedBucketState(NamedTuple):
+    """Fused-layout state over length buckets: per-bucket ``z (U_g, D_g)``
+    and ``n_dk (A, D_g)``, shared global tables."""
+
+    z: Tuple[torch.Tensor, ...]
+    n_dk: Tuple[torch.Tensor, ...]
+    n_vk: torch.Tensor
+    n_k: torch.Tensor
+
+
+def select_merge_block(merge_every: int, thinning: int, budget: int) -> int:
+    """Merge-block size M for a training run.
+
+    Largest divisor of ``thinning`` ≤ ``merge_every`` — so thinned saves
+    always land on freshly committed counts — additionally capped at
+    ``budget // 8`` for tiny total budgets: freezing the table for half of
+    a 4-sweep run costs real AUC (measured ~−0.03 at the reference's (4; 4)
+    config, PARITY.md), while at thesis scale the cap is inactive.  Both
+    the single-chip model and the distributed trainer MUST use this one
+    function: chunk-invariant (bit-identical) resume requires the same M
+    for the chunked and the uninterrupted run, which is why ``budget`` is
+    the *total planned* sweeps, not the current call's.
+    """
+    cap = min(int(merge_every), max(1, int(budget) // 8))
+    return max((m for m in range(1, cap + 1) if int(thinning) % m == 0),
+               default=1)
+
+
+def gather_cv(n_vk: torch.Tensor, tok_v_t: torch.Tensor,
+              lab_ids: torch.Tensor) -> torch.Tensor:
+    """Per-slot topic-word counts ``n_vk[v_ud, lab_ids[d, a]]``, shape (D, U, A).
+
+    Doc-major, so the kernel reads one document's A slots at one position as
+    one contiguous row (the JAX function returns the (U, A, D) transpose).
+    An element gather is exact, so no one-hot contraction is needed.
+    """
+    return n_vk[tok_v_t.T.long()[:, :, None], lab_ids.long()[:, None, :]]
+
+
+def slot_totals(n_k: torch.Tensor, lab_ids: torch.Tensor, vbeta: float) -> torch.Tensor:
+    """(A, D) frozen topic totals per slot, ``n_k[lab_ids[d, a]] + V·β``."""
+    return (n_k[lab_ids.long()].T + vbeta).contiguous()
+
+
+def _scatter_deltas(n_vk, tok_v_t, tok_f_t, lab_ids, z0, z1):
+    """Commit a block's count deltas: only each slot's first and last z matter.
+
+    One accumulating scatter of −f at the block-start topic and +f at the
+    block-end topic into a copy of the table; exact in any order (integer
+    counts below 2^24), so ``index_add_``'s atomics on a card give the same
+    table as a sequential sum.
+    """
+    K = n_vk.shape[1]
+    lab_t = lab_ids.long().T  # (A, D)
+    row = tok_v_t.long() * K
+    flat = torch.cat([(row + torch.gather(lab_t, 0, z0.long())).reshape(-1),
+                      (row + torch.gather(lab_t, 0, z1.long())).reshape(-1)])
+    f = tok_f_t.reshape(-1)
+    n_vk = n_vk.clone()
+    n_vk.view(-1).index_add_(0, flat, torch.cat([-f, f]))
+    return n_vk, n_vk.sum(dim=0)
+
+
+def fused_train_block(
+    state: FusedLDAState,
+    tok_v_t: torch.Tensor,  # (U, D) int, position-major
+    tok_f_t: torch.Tensor,  # (U, D) float32
+    lab_ids: torch.Tensor,  # (D, A) int
+    lab_valid_t: torch.Tensor,  # (A, D) float32
+    alpha: float,
+    beta: float,
+    M: int,
+    uniforms: Optional[torch.Tensor] = None,  # (M, U, D)
+    generator: Optional[torch.Generator] = None,
+    vbeta: Optional[float] = None,
+) -> FusedLDAState:
+    """``M`` Gibbs sweeps against the block-start table + one delta commit.
+
+    ``vbeta`` — the posterior denominator's smoothing constant ``V*beta``
+    (LabeledLDA.py:116); defaults to the table's own row count times β,
+    which is exact for unpadded tables.
+    """
+    U, D = tok_v_t.shape
+    V = state.n_vk.shape[0]
+    if vbeta is None:
+        vbeta = float(V * beta)
+    cv = gather_cv(state.n_vk, tok_v_t, lab_ids)
+    nkg = slot_totals(state.n_k, lab_ids, vbeta)
+    u = _uniforms((M, U, D), tok_v_t, uniforms, generator)
+    z1, ndk = fused_block(cv, tok_f_t.contiguous(), u.contiguous(),
+                          state.z.contiguous(), nkg, lab_valid_t.contiguous(),
+                          state.n_dk.contiguous(), alpha, beta)
+    n_vk, n_k = _scatter_deltas(state.n_vk, tok_v_t, tok_f_t, lab_ids,
+                                state.z, z1)
+    return FusedLDAState(z=z1, n_dk=ndk, n_vk=n_vk, n_k=n_k)
+
+
+def init_fused(
+    tok_v: torch.Tensor,  # (D, U) int, doc-major
+    tok_f: torch.Tensor,  # (D, U) int
+    lab_ids: torch.Tensor,  # (D, A)
+    lab_valid: torch.Tensor,  # (D, A)
+    V: int,
+    K: int,
+    uniforms: Optional[torch.Tensor] = None,  # (U, D)
+    generator: Optional[torch.Generator] = None,
+) -> FusedLDAState:
+    """z ~ uniform over each doc's admissible labels (LabeledLDA.py:85-92),
+    in the fused (position-major / (A, D)) layout."""
+    c = init_counts_compact(tok_v, tok_f, lab_ids, lab_valid, V, K,
+                            uniforms=uniforms, generator=generator)
+    return FusedLDAState(z=c.z.T.contiguous(), n_dk=c.n_dk.T.contiguous(),
+                         n_vk=c.n_vk, n_k=c.n_k)
+
+
+def init_fused_buckets(
+    toks_v: Sequence[torch.Tensor],
+    toks_f: Sequence[torch.Tensor],
+    lab_ids_t: Sequence[torch.Tensor],
+    lab_valid_t: Sequence[torch.Tensor],
+    V: int,
+    K: int,
+    uniforms: Optional[Sequence[torch.Tensor]] = None,  # per bucket (U_g, D_g)
+    generator: Optional[torch.Generator] = None,
+) -> FusedBucketState:
+    """Per-bucket :func:`init_fused` with shared global tables."""
+    zs, ndks = [], []
+    n_vk = n_k = None
+    for g, (tv, tf, li, lv) in enumerate(zip(toks_v, toks_f, lab_ids_t, lab_valid_t)):
+        c = init_fused(tv, tf, li, lv, V, K,
+                       uniforms=None if uniforms is None else uniforms[g],
+                       generator=generator)
+        zs.append(c.z)
+        ndks.append(c.n_dk)
+        n_vk = c.n_vk if n_vk is None else n_vk + c.n_vk
+        n_k = c.n_k if n_k is None else n_k + c.n_k
+    return FusedBucketState(z=tuple(zs), n_dk=tuple(ndks), n_vk=n_vk, n_k=n_k)
+
+
+def fused_train_block_buckets(
+    state: FusedBucketState,
+    toks_v_t: Sequence[torch.Tensor],  # per bucket (U_g, D_g)
+    toks_f_t: Sequence[torch.Tensor],  # per bucket (U_g, D_g) float32
+    lab_ids_t: Sequence[torch.Tensor],  # per bucket (D_g, A)
+    lab_valid_tt: Sequence[torch.Tensor],  # per bucket (A, D_g)
+    alpha: float,
+    beta: float,
+    M: int,
+    uniforms: Optional[Sequence[torch.Tensor]] = None,  # per bucket (M, U_g, D_g)
+    generator: Optional[torch.Generator] = None,
+) -> FusedBucketState:
+    """One ``M``-sweep merge block over all buckets, one after another; each
+    bucket's delta commit lands before the next bucket gathers."""
+    n_vk, n_k = state.n_vk, state.n_k
+    zs, ndks = [], []
+    for g, (tv, tf, li, lv) in enumerate(
+        zip(toks_v_t, toks_f_t, lab_ids_t, lab_valid_tt)
+    ):
+        st = FusedLDAState(z=state.z[g], n_dk=state.n_dk[g], n_vk=n_vk, n_k=n_k)
+        st = fused_train_block(
+            st, tv, tf, li, lv, alpha, beta, M,
+            uniforms=None if uniforms is None else uniforms[g],
+            generator=generator,
+        )
+        n_vk, n_k = st.n_vk, st.n_k
+        zs.append(st.z)
+        ndks.append(st.n_dk)
+    return FusedBucketState(z=tuple(zs), n_dk=tuple(ndks), n_vk=n_vk, n_k=n_k)
+
+
+def densify_ndk_fused(n_dk_t: torch.Tensor, lab_ids: torch.Tensor, K: int) -> torch.Tensor:
+    """(A, D) compact counts -> dense (D, K)."""
+    return densify_ndk(n_dk_t.T, lab_ids, K)
+
+
+def theta_from_fused(n_dk_t, lab_ids, lab_valid, alpha: float, K: int) -> torch.Tensor:
+    """Dense (D, K) label-masked θ (LabeledLDA.py:236-239); ``lab_valid (D, A)``."""
+    return theta_from_compact(n_dk_t.T, lab_ids, lab_valid, alpha, K)

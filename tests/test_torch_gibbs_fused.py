@@ -1,0 +1,253 @@
+"""Port's merge-block sampler ops against the JAX package's, same inputs.
+
+Inputs are made with NumPy from a seed and fed to both packages; the JAX
+side runs on the CPU through its XLA twin (``fused_block_xla``), which its
+own tests hold bitwise to the Pallas kernel.  z and every count must be
+equal: the port's cumsum order differs from the twin's ``tril @ w``, so a
+draw could differ only on a CDF tie within a few ULPs, which is
+measure-zero at these sizes (as tests/test_fused.py argues for its NumPy
+oracle).  The CUDA kernel itself is held to ``fused_block_torch`` on the
+card (chip_smoke.py, and the ``cuda``-marked test here).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from lda_thesis_tpu.ops import gibbs as jgibbs
+from lda_thesis_tpu.ops import gibbs_fused as jfused
+from lda_thesis_tpu_torch.ops import fused_block_cuda as fbc
+from lda_thesis_tpu_torch.ops import gibbs as tgibbs
+from lda_thesis_tpu_torch.ops import gibbs_fused as tfused
+
+D, U, A, K, V = 16, 8, 8, 128, 40
+ALPHA, BETA = 0.1, 0.01
+
+
+@pytest.fixture(scope="module")
+def problem():
+    """tests/test_fused.py's problem: (tok_v, tok_f, lab_ids, lab_valid)."""
+    rng = np.random.default_rng(1)
+    tok_v = rng.integers(0, V, size=(D, U)).astype(np.int32)
+    n_types = rng.integers(2, U + 1, size=(D,))
+    tok_f = (np.arange(U)[None, :] < n_types[:, None]).astype(np.int32)
+    tok_f *= rng.integers(1, 4, size=(D, U)).astype(np.int32)
+    lab_ids = np.zeros((D, A), np.int32)
+    lab_valid = np.zeros((D, A), np.float32)
+    for d in range(D):
+        ids = np.sort(rng.choice(20, size=rng.integers(2, 5), replace=False))
+        lab_ids[d, : len(ids)] = ids
+        lab_valid[d, : len(ids)] = 1.0
+    return tok_v, tok_f, lab_ids, lab_valid
+
+
+def _t(*xs):
+    return tuple(torch.from_numpy(np.array(x)) for x in xs)
+
+
+def _jax_state(problem, seed=0):
+    tok_v, tok_f, lab_ids, lab_valid = problem
+    return jfused.init_fused(jax.random.PRNGKey(seed), jnp.asarray(tok_v),
+                             jnp.asarray(tok_f), jnp.asarray(lab_ids),
+                             jnp.asarray(lab_valid), V, K)
+
+
+def _to_torch_state(st):
+    return tfused.FusedLDAState(*_t(*(np.asarray(x) for x in st)))
+
+
+def _assert_state_equal(got, want):
+    for name, g, w in zip(("z", "n_dk", "n_vk", "n_k"), got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=name)
+
+
+def _kernel_inputs(problem, st):
+    """(U, A, D) cv for the JAX twin, (D, U, A) for the port, and nkg."""
+    tok_v, tok_f, lab_ids, lab_valid = problem
+    n_vk, n_k = np.asarray(st.n_vk), np.asarray(st.n_k)
+    cv_uad = n_vk[tok_v.T[:, None, :], lab_ids.T[None, :, :]]
+    nkg = (n_k[lab_ids].T + np.float32(V * BETA)).astype(np.float32)
+    return cv_uad, cv_uad.transpose(2, 0, 1), nkg
+
+
+@pytest.mark.parametrize("M", [1, 3])
+def test_fused_block_torch_matches_xla_twin(problem, M):
+    tok_v, tok_f, lab_ids, lab_valid = problem
+    st = _jax_state(problem)
+    cv_uad, cv_dua, nkg = _kernel_inputs(problem, st)
+    u = np.array(jax.random.uniform(jax.random.PRNGKey(7), (M, U, D)))
+    f_t = tok_f.T.astype(np.float32)
+    z_j, ndk_j = jfused.fused_block_xla(
+        jnp.asarray(cv_uad), jnp.asarray(f_t), jnp.asarray(u), st.z,
+        jnp.asarray(nkg), jnp.asarray(lab_valid.T), st.n_dk,
+        jnp.tril(jnp.ones((A, A), jnp.float32)), ALPHA, BETA, M)
+    args = _t(cv_dua, f_t, u, np.asarray(st.z), nkg, lab_valid.T, np.asarray(st.n_dk))
+    z_t, ndk_t = fbc.fused_block_torch(*args, ALPHA, BETA)
+    np.testing.assert_array_equal(z_t.numpy(), np.asarray(z_j))
+    np.testing.assert_array_equal(ndk_t.numpy(), np.asarray(ndk_j))
+    # on CPU tensors the wrapper is the plain version
+    z_w, ndk_w = fbc.fused_block(*args, ALPHA, BETA)
+    assert torch.equal(z_w, z_t) and torch.equal(ndk_w, ndk_t)
+
+
+@pytest.mark.parametrize("M", [1, 3])
+def test_fused_train_block_matches_jax(problem, M):
+    tok_v, tok_f, lab_ids, lab_valid = problem
+    st = _jax_state(problem)
+    key = jax.random.PRNGKey(7 + M)
+    want = jfused.fused_train_block(
+        key, st, jnp.asarray(tok_v.T), jnp.asarray(tok_f.T.astype(np.float32)),
+        jnp.asarray(lab_ids), jnp.asarray(lab_valid.T), ALPHA, BETA, M)
+    u = np.array(jax.random.uniform(key, (M, U, D), dtype=jnp.float32))
+    tv_t, tf_t, li, lv_t, u_t = _t(tok_v.T, tok_f.T.astype(np.float32), lab_ids,
+                                   lab_valid.T, u)
+    got = tfused.fused_train_block(_to_torch_state(st), tv_t, tf_t, li, lv_t,
+                                   ALPHA, BETA, M, uniforms=u_t)
+    _assert_state_equal(got, want)
+
+
+def test_init_counts_compact_matches_jax(problem):
+    tok_v, tok_f, lab_ids, lab_valid = problem
+    key = jax.random.PRNGKey(3)
+    want = jgibbs.init_counts_compact(key, jnp.asarray(tok_v), jnp.asarray(tok_f),
+                                      jnp.asarray(lab_ids), jnp.asarray(lab_valid),
+                                      V, K)
+    u = np.array(jax.random.uniform(key, (U, D), dtype=jnp.float32))
+    got = tgibbs.init_counts_compact(*_t(tok_v, tok_f, lab_ids, lab_valid), V, K,
+                                     uniforms=torch.from_numpy(u))
+    _assert_state_equal(got, want)
+    # the fused layout is its transpose
+    got_f = tfused.init_fused(*_t(tok_v, tok_f, lab_ids, lab_valid), V, K,
+                              uniforms=torch.from_numpy(u))
+    assert torch.equal(got_f.z, got.z.T) and torch.equal(got_f.n_dk, got.n_dk.T)
+
+
+def test_gather_cv_matches_jax(problem):
+    tok_v, tok_f, lab_ids, lab_valid = problem
+    rng = np.random.default_rng(5)
+    n_vk = rng.integers(0, 2**20, size=(V, K)).astype(np.float32)
+    want = np.asarray(jfused.gather_cv(jnp.asarray(n_vk), jnp.asarray(tok_v.T),
+                                       jnp.asarray(lab_ids)))  # (U, A, D)
+    got = tfused.gather_cv(*_t(n_vk, tok_v.T, lab_ids))  # (D, U, A)
+    np.testing.assert_array_equal(got.numpy(), want.transpose(2, 0, 1))
+
+
+def test_scatter_deltas_matches_jax(problem):
+    tok_v, tok_f, lab_ids, lab_valid = problem
+    st = _jax_state(problem)
+    rng = np.random.default_rng(9)
+    n_valid = lab_valid.sum(axis=1).astype(int)
+    z1 = (rng.random((U, D)) * n_valid[None, :]).astype(np.int32)
+    f_t = tok_f.T.astype(np.float32)
+    want = jfused._scatter_deltas(st.n_vk, jnp.asarray(tok_v.T), jnp.asarray(f_t),
+                                  jnp.asarray(lab_ids), st.z, jnp.asarray(z1))
+    got = tfused._scatter_deltas(*_t(np.asarray(st.n_vk), tok_v.T, f_t, lab_ids,
+                                     np.asarray(st.z), z1))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def test_theta_from_fused_matches_jax(problem):
+    tok_v, tok_f, lab_ids, lab_valid = problem
+    st = _jax_state(problem)
+    want = np.asarray(jfused.theta_from_fused(st.n_dk, jnp.asarray(lab_ids),
+                                              jnp.asarray(lab_valid), ALPHA, K))
+    got = tfused.theta_from_fused(*_t(np.asarray(st.n_dk), lab_ids, lab_valid),
+                                  ALPHA, K)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6)
+    dense = tfused.densify_ndk_fused(*_t(np.asarray(st.n_dk), lab_ids), K)
+    want_dense = jgibbs.densify_ndk(st.n_dk.T, jnp.asarray(lab_ids), K)
+    np.testing.assert_array_equal(dense.numpy(), np.asarray(want_dense))
+
+
+def test_select_merge_block_matches_jax():
+    for args in [(25, 25, 2000), (25, 25, 50), (25, 4, 4), (10, 25, 400), (1, 7, 9)]:
+        assert tfused.select_merge_block(*args) == jfused.select_merge_block(*args)
+
+
+# ---- invariants (tests/test_fused.py, on the port)
+
+
+def _port_state(problem, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return tfused.init_fused(*_t(*problem), V, K, generator=g)
+
+
+def test_init_invariants(problem):
+    tok_v, tok_f, lab_ids, lab_valid = problem
+    st = _port_state(problem)
+    total = float(tok_f.sum())
+    assert float(st.n_vk.sum()) == total
+    assert float(st.n_dk.sum()) == total
+    assert torch.equal(st.n_k, st.n_vk.sum(0))
+    valid_count = lab_valid.sum(axis=1).astype(int)
+    z = st.z.numpy()
+    f = tok_f.T
+    for d in range(D):
+        assert (z[f[:, d] > 0, d] < valid_count[d]).all()
+
+
+@pytest.mark.parametrize("M", [1, 2, 4])
+def test_block_invariants(problem, M):
+    tok_v, tok_f, lab_ids, lab_valid = problem
+    st = _port_state(problem)
+    total = float(tok_f.sum())
+    gen = torch.Generator().manual_seed(10)
+    tv_t, tf_t, li, lv_t = _t(tok_v.T, tok_f.T.astype(np.float32), lab_ids, lab_valid.T)
+    for _ in range(3):
+        st = tfused.fused_train_block(st, tv_t, tf_t, li, lv_t, ALPHA, BETA, M,
+                                      generator=gen)
+    assert float(st.n_vk.sum()) == total
+    assert float(st.n_dk.sum()) == total
+    assert float(st.n_vk.min()) >= 0
+    assert float(st.n_dk.min()) >= 0
+    assert torch.equal(st.n_k, st.n_vk.sum(0))
+
+
+# ---- the wrapper
+
+
+def _small_args(problem, M=2):
+    st = _jax_state(problem)
+    _, cv_dua, nkg = _kernel_inputs(problem, st)
+    u = np.random.default_rng(2).random((M, U, D)).astype(np.float32)
+    tok_v, tok_f, lab_ids, lab_valid = problem
+    return list(_t(cv_dua, tok_f.T.astype(np.float32), u, np.asarray(st.z), nkg,
+                   lab_valid.T, np.asarray(st.n_dk)))
+
+
+def test_fused_block_rejects_bad_inputs(problem):
+    args = _small_args(problem)
+    bad_dtype = list(args)
+    bad_dtype[3] = bad_dtype[3].long()
+    with pytest.raises(TypeError):
+        fbc.fused_block(*bad_dtype, ALPHA, BETA)
+    bad_shape = list(args)
+    bad_shape[4] = bad_shape[4][:, :-1]
+    with pytest.raises(ValueError):
+        fbc.fused_block(*bad_shape, ALPHA, BETA)
+
+
+def test_fused_block_has_no_plain_fallback_off_cpu(problem):
+    """A tensor off the CPU goes to the kernel or raises; it never takes
+    the plain version."""
+    args = [t.to("meta") for t in _small_args(problem)]
+    with pytest.raises(ValueError, match="no kernel"):
+        fbc.fused_block(*args, ALPHA, BETA)
+
+
+@pytest.mark.cuda
+def test_kernel_matches_plain_version_on_card(problem):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; chip_smoke.py runs this check on the card")
+    args = [t.cuda() for t in _small_args(problem, M=3)]
+    before = fbc.launches
+    z, ndk = fbc.fused_block(*args, ALPHA, BETA)
+    z_p, ndk_p = fbc.fused_block_torch(*args, ALPHA, BETA)
+    torch.cuda.synchronize()
+    assert fbc.launches == before + 1
+    assert torch.equal(z, z_p)
+    assert torch.equal(ndk.view(torch.int32), ndk_p.view(torch.int32))
