@@ -2,25 +2,39 @@
 
     python3 chip_smoke.py [--seed N]
 
-Builds the port's CUDA kernel from the sources in this checkout, holds it
-bitwise against its plain PyTorch version, then drives the Labeled-LDA main
-path (``LabeledLDA`` → ``run_training`` → ``run_test`` → ranking metrics)
-at the full width of the depth-3 abstracts split, on a synthetic labelled
-corpus made from ``--seed``.  Phases:
+Builds the port's CUDA kernels from the sources in this checkout, holds each
+bitwise against its plain PyTorch version, then drives the port's paths at
+the full width of the depth-3 abstracts split, on synthetic labelled corpora
+made from ``--seed``.  Phases:
 
 1. environment: torch, CUDA, the card's name and power limit;
-2. kernel build;
-3. the kernel against ``fused_block_torch`` at every bucket of the main
-   path's first merge block (A = 24, M = 25) and at one ragged case, and one
-   whole merge block on the card against the same block on the CPU; times
-   of the kernel, its plain version and the block's gather and scatter;
-4. the main path: 50 sweeps at (50; 25) within a 2000-sweep budget, so the
-   merge block is M = 25; count invariants, kernel launches, fold-in test
-   of the held-out split and its AUC;
-   then, with perplexity on (the CLI's default) and off (bench.py's
-   setting), five more timed training calls and one under torch.profiler
-   (device time by kernel, idle share);
-5. one JSON line of kernel records, the card's line, and the result line.
+2. kernel builds, one ``nvcc`` per source, all started together;
+3. the merge-block kernel against ``fused_block_torch`` at every bucket of
+   the fused path's first merge block (A = 24, M = 25) and at one ragged
+   case, and one whole merge block on the card against the same block on
+   the CPU; times of the kernel, its plain version and the block's gather
+   and scatter;
+4. the fused Labeled-LDA path (``LabeledLDA`` → ``run_training`` →
+   ``run_test`` → ranking metrics): 50 sweeps at (50; 25) within a
+   2000-sweep budget, so the merge block is M = 25; count invariants, kernel
+   launches, fold-in test of the held-out split and its AUC; then, with
+   perplexity on (the CLI's default) and off (bench.py's setting), more
+   timed training calls and one under torch.profiler (device time by
+   kernel, idle share);
+5. the draw-update kernel against ``draw_update_torch`` at the first and
+   last position of every bucket of the dense model (K = 512), at one
+   CascadeLDA level-2 batch and at one ragged case, and one whole exact
+   sweep of bucket 0 on the card against the same sweep on the CPU; times
+   of the kernel and its plain version;
+6. the dense Labeled-LDA path at (50; 25): invariants, kernel launches
+   (one per type position per sweep), AUC, tokens/s, and one (25; 25) call
+   under torch.profiler;
+7. the compact Labeled-LDA path at (10; 5): invariants and AUC, no kernel;
+8. CascadeLDA at the thesis config, ``go_down_tree(4, 2)`` (root level
+   (16; 4)) on a JEL-shaped corpus, ``test_down_tree_batch`` of the test
+   split and ``setup_theta``: macro AUC at each depth, kernel launches, rows
+   and topics per level;
+9. one JSON line of kernel records, the card's line, and the result line.
 
 Every check raises; the script exits non-zero without a CUDA device.
 """
@@ -32,15 +46,24 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
 SOURCE = "lda_thesis_tpu_torch/ops/csrc/fused_block.cu"
 REPLACES = "lda_thesis_tpu/ops/gibbs_fused.py:246"
+DRAW_SOURCE = "lda_thesis_tpu_torch/ops/csrc/draw_update.cu"
+DRAW_REPLACES = "lda_thesis_tpu/ops/gibbs_pallas.py:38"
+KERNEL2 = "draw_update_kernel"  # the CUDA kernel's name, as the profiler shows it
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12  # H100 SXM data sheet, fp32 outside the tensor cores
 OPS_PER_SLOT_DRAW = 12  # fp32 operations per (slot, position, sweep)
+# fp32 operations per (row, topic) of one exact-sweep position: the
+# decrement, +α, ·labs, +β, ·cv, ·recip, the cumsum add and the comparison
+OPS_PER_TOPIC_DRAW = 8
 TRAIN_ITERS, THINNING, TOTAL_ITERS = 50, 25, 2000
+COMPACT_ITERS, COMPACT_THINNING = 10, 5
+CASCADE_IT, CASCADE_S = 4, 2  # the thesis config; the root level runs (16; 4)
 MIN_AUC = 0.6
 STEADY_CALLS = 5
 DEVICE = "cuda"
@@ -60,6 +83,50 @@ def _median_ms(fn, reps: int) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def _device_ms(fn, reps: int, kernel: str) -> float:
+    """Mean device time of one launch of the CUDA kernel named ``kernel``
+    over ``reps`` calls of ``fn``, from torch.profiler.  A launch that takes
+    less time on the card than its call takes on the host cannot be timed
+    with events around the call; the profiler reads the kernel's own span."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    spans = [e for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and kernel in e.key]
+    count = sum(e.count for e in spans)
+    _check(count == reps, f"the profiler saw {count} launches of {kernel}, not {reps}")
+    return sum(e.self_device_time_total for e in spans) / 1e3 / count
+
+
+def _profile(train) -> dict:
+    """One call of ``train`` under torch.profiler: wall, device busy time,
+    idle share and the top kernels by device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        train()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    kernels.sort(key=lambda e: -e.self_device_time_total)
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    _check(busy_ms > 0, "the profiler recorded device time")
+    top = [[e.key[:80], e.count, e.self_device_time_total / 1e3] for e in kernels[:6]]
+    return dict(wall_ms=wall_ms, busy_ms=busy_ms, idle_share=1.0 - busy_ms / wall_ms,
+                top=top)
 
 
 def _card_line() -> str:
@@ -86,6 +153,26 @@ def _bitwise(got, want) -> bool:
     return all(g.dtype == w.dtype and g.shape == w.shape and torch.equal(
         g.contiguous().view(torch.int32), w.contiguous().view(torch.int32))
         for g, w in zip(got, want))
+
+
+def _auc(theta, labs, labelmap) -> dict:
+    """Ranking metrics of a fold-in θ (root column dropped), as the CLI."""
+    from lda_thesis_tpu_torch.eval.metrics import binary_yreal, evaluate_ranking
+
+    y_bin = binary_yreal(labs, labelmap)[:, 1:]
+    th = theta[:, 1:]
+    nonzero = th.sum(axis=1) != 0
+    return evaluate_ranking(th[nonzero], y_bin[nonzero])
+
+
+def _check_counts(st, total_f: float, what: str) -> None:
+    import torch
+
+    _check(float(st.n_vk.sum()) == total_f, f"{what}: sum n_vk == sum f")
+    _check(sum(float(x.sum()) for x in st.n_dk) == total_f, f"{what}: sum n_dk == sum f")
+    _check(float(st.n_vk.min()) >= 0 and min(float(x.min()) for x in st.n_dk) >= 0,
+           f"{what}: no negative count")
+    _check(torch.equal(st.n_k, st.n_vk.sum(dim=0)), f"{what}: n_k == n_vk.sum(0)")
 
 
 def ragged_case(device, seed: int):
@@ -219,11 +306,11 @@ def kernel_phase(model, seed: int) -> dict:
 def main_path(corpus, dicti, seed: int) -> dict:
     import torch
 
-    from lda_thesis_tpu_torch.eval.metrics import binary_yreal, evaluate_ranking
     from lda_thesis_tpu_torch.models.labeled_lda import LabeledLDA
+    from lda_thesis_tpu_torch.ops import draw_update_cuda as duc
     from lda_thesis_tpu_torch.ops import fused_block_cuda as fbc
 
-    fbc.launches = 0
+    fbc.launches = duc.launches = 0
     t0 = time.perf_counter()
     model = LabeledLDA(corpus.train_docs, corpus.train_labs, corpus.labelset,
                        dicti, alpha=0.1, beta=0.01, seed=seed, n_buckets=4,
@@ -237,25 +324,17 @@ def main_path(corpus, dicti, seed: int) -> dict:
     torch.cuda.synchronize()
     t3 = time.perf_counter()
     launches = fbc.launches
+    _check(duc.launches == 0, "the fused path launches no draw-update kernel")
 
     G = model.buckets.n_buckets
     st = model.counts
-    total_f = float(model.n_tokens)
     _check(model._merge_M == 25, f"merge block M == 25 (got {model._merge_M})")
     _check(launches == (TRAIN_ITERS // 25) * G,
            f"kernel launches == blocks x buckets ({launches})")
-    _check(float(st.n_vk.sum()) == total_f, "sum n_vk == sum f")
-    _check(sum(float(x.sum()) for x in st.n_dk) == total_f, "sum n_dk == sum f")
-    _check(float(st.n_vk.min()) >= 0 and min(float(x.min()) for x in st.n_dk) >= 0,
-           "no negative count")
-    _check(torch.equal(st.n_k, st.n_vk.sum(dim=0)), "n_k == n_vk.sum(0)")
+    _check_counts(st, float(model.n_tokens), "fused")
     _check(th.shape == (len(corpus.test_docs), model.K) and bool(np.isfinite(th).all()),
            "fold-in θ finite, (n_test, K)")
-
-    y_bin = binary_yreal(corpus.test_labs, model.labelmap)[:, 1:]
-    th = th[:, 1:]
-    nonzero = th.sum(axis=1) != 0
-    metrics = evaluate_ranking(th[nonzero], y_bin[nonzero])
+    metrics = _auc(th, corpus.test_labs, model.labelmap)
     _check(metrics["auc_roc"] > MIN_AUC, f"AUC {metrics['auc_roc']} > {MIN_AUC}")
     tokens_per_s = model.n_tokens * TRAIN_ITERS / (t2 - t1)
     print(f"main path: D={model.D} V={model.V} K={model.K} Kp={model.Kp} "
@@ -272,11 +351,9 @@ def main_path(corpus, dicti, seed: int) -> dict:
 def steady_training(model, perplexity: bool) -> dict:
     """More (50; 25) training calls on the trained model: ``STEADY_CALLS``
     timed on the host clock (median rate), one under torch.profiler for
-    device time by kernel and the device's idle share of the wall time.  ``perplexity`` on is the
-    CLI's default; off is bench.py's setting."""
+    device time by kernel and the device's idle share of the wall time.
+    ``perplexity`` on is the CLI's default; off is bench.py's setting."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     def train():
         model.run_training(TRAIN_ITERS, THINNING, perplexity=perplexity,
@@ -290,24 +367,311 @@ def steady_training(model, perplexity: bool) -> dict:
         train()
         rates.append(model.n_tokens * TRAIN_ITERS / (time.perf_counter() - t0))
     tokens_per_s = float(np.median(rates))
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        train()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    kernels.sort(key=lambda e: -e.self_device_time_total)
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    _check(busy_ms > 0, "the profiler recorded device time")
-    top = [[e.key[:80], e.count, e.self_device_time_total / 1e3] for e in kernels[:6]]
-    out = dict(tokens_per_s=tokens_per_s, profiled_wall_ms=wall_ms,
-               device_busy_ms=busy_ms, device_idle_share=1.0 - busy_ms / wall_ms)
+    prof = _profile(train)
+    out = dict(tokens_per_s=tokens_per_s, profiled_wall_ms=prof["wall_ms"],
+               device_busy_ms=prof["busy_ms"], device_idle_share=prof["idle_share"])
     print(f"steady training, perplexity {'on' if perplexity else 'off'}: "
           f"median {tokens_per_s:.1f} tokens/s over {len(rates)} calls "
-          f"{[round(r) for r in rates]}; profiled call {wall_ms:.3f} ms wall, "
-          f"device busy {busy_ms:.3f} ms (idle share {out['device_idle_share']:.4f})")
-    for name, count, ms in top:
+          f"{[round(r) for r in rates]}; profiled call {prof['wall_ms']:.3f} ms wall, "
+          f"device busy {prof['busy_ms']:.3f} ms (idle share {prof['idle_share']:.4f})")
+    for name, count, ms in prof["top"]:
         print(f"  {ms:10.4f} ms  {count:6d} x  {name}")
     return out
+
+
+# ---------------------------------------------------------------- kernel 2
+
+
+def draw_inputs(tok_v_t, tok_f_t, z_t, n_dk, n_vk, n_k, labs, p: int, vbeta: float, gen):
+    """The draw-update kernel's arguments at position ``p`` of an exact
+    sweep from the given state, formed as ``ops/gibbs.exact_sweep`` forms
+    them (the table decrement lands on a copy)."""
+    import torch
+
+    K = n_vk.shape[1]
+    z_old = z_t[p].contiguous()
+    f = tok_f_t[p].contiguous()
+    dec = torch.zeros((K,), dtype=torch.float32, device=n_k.device).index_add_(0, z_old, f)
+    table = n_vk.clone()
+    table.view(-1).index_add_(0, tok_v_t[p] * K + z_old, -f)
+    cv = table.index_select(0, tok_v_t[p])
+    recip = 1.0 / ((n_k - dec) + vbeta)
+    u = torch.rand(tuple(f.shape), generator=gen, device=f.device)
+    return [u, f, z_old, labs.contiguous(), n_dk.clone(), cv, recip]
+
+
+def draw_bound(args) -> tuple:
+    """(seconds bound by bytes, seconds bound by operations) for one launch.
+    A row with f = 0 only keeps its topic, so only the rows with f > 0 need
+    their n_dk read and written and their cv and labs read; the (D,) and
+    (K,) vectors are read or written once."""
+    u, f, z_old, labs, n_dk, cv, recip = args
+    D, K = n_dk.shape
+    live = int((f > 0).sum())
+    n_bytes = 4 * (4 * live * K + 4 * D + 2 * K)
+    n_ops = OPS_PER_TOPIC_DRAW * K * live
+    return n_bytes / HBM_BYTES_PER_S, n_ops / FP32_FLOP_PER_S
+
+
+def ragged_draw_case(device, seed: int):
+    """D = 37, K = 40 (not multiples of the warp), a third of f = 0, and
+    one all-zero label row with f = 0 (a padded row)."""
+    import torch
+
+    D, K = 37, 40
+    rng = np.random.default_rng(seed)
+    labs = (rng.random((D, K)) < 0.3).astype(np.float32)
+    labs[:, 0] = 1.0
+    f = rng.integers(1, 4, size=D).astype(np.float32)
+    f[rng.random(D) < 0.33] = 0.0
+    labs[5], f[5] = 0.0, 0.0
+    z_old = (rng.random(D) * K).astype(np.int32)
+    n_dk = rng.integers(0, 20, size=(D, K)).astype(np.float32)
+    n_dk[np.arange(D), z_old] += f
+    cv = rng.integers(0, 300, size=(D, K)).astype(np.float32)
+    recip = (1.0 / (rng.integers(1000, 9000, size=K) + 89.69)).astype(np.float32)
+    u = rng.random(D).astype(np.float32)
+    return [torch.from_numpy(x).to(device) for x in (u, f, z_old, labs, n_dk, cv, recip)]
+
+
+def _compare_draw(args, a, b, what: str) -> float:
+    """Kernel and plain version on clones of ``args``: bitwise equal
+    (n_dk, z_new, dnk); returns the largest absolute difference."""
+    import torch
+
+    from lda_thesis_tpu_torch.ops import draw_update_cuda as duc
+
+    got = duc.draw_update(*[t.clone() for t in args], a, b)
+    want = duc.draw_update_torch(*[t.clone() for t in args], a, b)
+    torch.cuda.synchronize()
+    _check(_bitwise(got, want), f"draw-update kernel == plain version, {what}")
+    _check(bool(torch.isfinite(got[0]).all()), f"finite n_dk, {what}")
+    return _max_abs_err(got, want)
+
+
+def draw_kernel_phase(corpus, dicti, jel, jel_dicti, seed: int) -> dict:
+    import torch
+
+    from lda_thesis_tpu_torch.models.cascade_lda import CascadeLDA
+    from lda_thesis_tpu_torch.models.labeled_lda import LabeledLDA
+    from lda_thesis_tpu_torch.ops import draw_update_cuda as duc
+    from lda_thesis_tpu_torch.ops.gibbs import (
+        LDACounts,
+        init_counts,
+        train_sweep,
+        train_sweep_buckets,
+    )
+
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed + 2)
+    model = LabeledLDA(corpus.train_docs, corpus.train_labs, corpus.labelset,
+                       dicti, alpha=0.1, beta=0.01, seed=seed, sweep="dense",
+                       device=DEVICE)
+    a, b = model.alpha, model.beta
+    vbeta = float(model.V * b)
+    st = model.counts
+    rec = dict(ms=0.0, call_ms=0.0, plain_ms=0.0, bytes_s=0.0, ops_s=0.0,
+               bound_ms=0.0, max_abs_err=0.0, buckets=[])
+    positions = 0
+    for g in range(model.buckets.n_buckets):
+        tv, tf = model._toks_v_t[g], model._toks_f_t[g]
+        U, D = tv.shape
+        z_t = st.z[g].T.contiguous()
+        times = []
+        for p in (0, U - 1):
+            args = draw_inputs(tv, tf, z_t, st.n_dk[g], st.n_vk, st.n_k,
+                               model.labs_t[g], p, vbeta, gen)
+            rec["max_abs_err"] = max(rec["max_abs_err"],
+                                     _compare_draw(args, a, b, f"bucket {g} position {p}"))
+            scratch = [t.clone() for t in args]
+            k_ms = _device_ms(lambda: duc.draw_update(*scratch, a, b), 20, KERNEL2)
+            c_ms = _median_ms(lambda: duc.draw_update(*scratch, a, b), 20)
+            p_ms = _median_ms(lambda: duc.draw_update_torch(*scratch, a, b), 3)
+            by_bytes, by_ops = draw_bound(args)
+            times.append((k_ms, c_ms, p_ms, by_bytes, by_ops))
+            print(f"bucket {g}: D={D} K={model.Kp} position {p}/{U}  kernel "
+                  f"{k_ms:.4f} ms on the card ({c_ms:.4f} ms per call)  plain "
+                  f"{p_ms:.3f} ms  bound {1e3 * max(by_bytes, by_ops):.5f} ms "
+                  f"({int((args[1] > 0).sum())} rows with f > 0)  bitwise equal")
+        k_ms, c_ms, p_ms, by_bytes, by_ops = (float(np.mean(x)) for x in zip(*times))
+        # weight each bucket by its positions: the path launches once per position
+        rec["ms"] += U * k_ms
+        rec["call_ms"] += U * c_ms
+        rec["plain_ms"] += U * p_ms
+        rec["bytes_s"] += U * by_bytes
+        rec["ops_s"] += U * by_ops
+        rec["bound_ms"] += U * 1e3 * max(by_bytes, by_ops)
+        rec["buckets"].append(dict(D=D, K=model.Kp, U=U, ms=k_ms, call_ms=c_ms,
+                                   plain_ms=p_ms, bound_ms=1e3 * max(by_bytes, by_ops)))
+        positions += U
+    for key in ("ms", "call_ms", "plain_ms", "bytes_s", "ops_s", "bound_ms"):
+        rec[key] /= positions
+    rec["bound_by"] = "operations" if rec["ops_s"] >= rec["bytes_s"] else "bytes"
+
+    # a CascadeLDA level-2 batch: (doc, two-char code) rows, its level topics
+    cm = CascadeLDA(jel.train_docs, jel.train_labs, jel.labelset, jel_dicti,
+                    seed=seed, device=DEVICE)
+    row_doc, mask, _, _, _ = cm._level_rows(cm.lablist_l2)
+    tok_v = torch.as_tensor(cm.tok_v[row_doc], device=DEVICE).long()
+    tok_f = torch.as_tensor(cm.tok_f[row_doc], device=DEVICE).long()
+    labs = torch.as_tensor(mask, device=DEVICE)
+    c = init_counts(tok_v, tok_f, labs, cm.V, generator=gen)
+    args = draw_inputs(tok_v.T.contiguous(), tok_f.T.float().contiguous(),
+                       c.z.T.contiguous(), c.n_dk, c.n_vk, c.n_k, labs, 0,
+                       float(cm.V * cm.beta), gen)
+    rec["max_abs_err"] = max(rec["max_abs_err"], _compare_draw(args, a, b, "cascade level 2"))
+    scratch = [t.clone() for t in args]
+    k_ms = _device_ms(lambda: duc.draw_update(*scratch, a, b), 20, KERNEL2)
+    by_bytes, by_ops = draw_bound(args)
+    rec["cascade_level2"] = dict(R=int(mask.shape[0]), K=int(mask.shape[1]), ms=k_ms,
+                                 bound_ms=1e3 * max(by_bytes, by_ops))
+    print(f"cascade level 2: R={mask.shape[0]} K={mask.shape[1]}  kernel {k_ms:.4f} ms  "
+          f"bound {1e3 * max(by_bytes, by_ops):.5f} ms  bitwise equal")
+
+    args = ragged_draw_case(DEVICE, seed)
+    rec["max_abs_err"] = max(rec["max_abs_err"], _compare_draw(args, a, b, "ragged case"))
+    print("ragged case (D=37, K=40, a third f=0, one all-zero label row): bitwise equal")
+
+    # one whole exact sweep of bucket 0: the card (kernel, index_add_, gather)
+    # against the CPU (plain version), the same uniforms
+    tv, tf, lb = model.toks_v[0], model.toks_f[0], model.labs_t[0]
+    u = torch.rand(tuple(tv.T.shape), generator=gen, device=DEVICE)
+    one = LDACounts(st.z[0], st.n_dk[0], st.n_vk, st.n_k)
+    on_card = train_sweep(one, tv, tf, lb, a, b, uniforms=u)
+    on_cpu = train_sweep(LDACounts(*(t.cpu() for t in one)), tv.cpu(), tf.cpu(),
+                         lb.cpu(), a, b, uniforms=u.cpu())
+    _check(_bitwise([x.cpu() for x in on_card], on_cpu),
+           "exact sweep on the card == the same sweep on the CPU")
+    _check(torch.equal(on_card.n_k, on_card.n_vk.sum(dim=0)), "sweep: n_k == n_vk.sum(0)")
+    print("exact sweep, bucket 0: card == CPU (z, n_dk, n_vk, n_k)")
+    # whole sweeps over all buckets: the count invariants after every sweep
+    state = model.counts
+    for i in range(5):
+        state = train_sweep_buckets(state, model.toks_v, model.toks_f, model.labs_t, a, b,
+                                    generator=gen)
+        _check_counts(state, float(model.n_tokens), f"dense sweep {i + 1}")
+    print("5 dense sweeps over all buckets: count invariants hold after each")
+    print(f"per launch, averaged over the dense path's {positions} positions: kernel "
+          f"{rec['ms']:.4f} ms on the card ({rec['call_ms']:.4f} ms per call), plain "
+          f"{rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.5f} ms ({rec['bound_by']})")
+    return rec
+
+
+def exact_path(corpus, dicti, seed: int, sweep: str, iters: int, thinning: int) -> dict:
+    """The exact Labeled-LDA path ``sweep`` at (iters; thinning): init,
+    training, fold-in test of the held-out split, with the kernel counters
+    set to 0 just before and read just after."""
+    import torch
+
+    from lda_thesis_tpu_torch.models.labeled_lda import LabeledLDA
+    from lda_thesis_tpu_torch.ops import draw_update_cuda as duc
+    from lda_thesis_tpu_torch.ops import fused_block_cuda as fbc
+
+    fbc.launches = duc.launches = 0
+    t0 = time.perf_counter()
+    model = LabeledLDA(corpus.train_docs, corpus.train_labs, corpus.labelset,
+                       dicti, alpha=0.1, beta=0.01, seed=seed, sweep=sweep,
+                       device=DEVICE)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    model.run_training(iters, thinning)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    th = model.run_test(corpus.test_docs, TRAIN_ITERS, THINNING)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    launches = dict(draw_update=duc.launches, fused_block=fbc.launches)
+
+    positions = sum(int(tv.shape[0]) for tv in model._toks_v_t)
+    planned = iters * positions if sweep == "dense" else 0
+    _check(launches == dict(draw_update=planned, fused_block=0),
+           f"{sweep}: kernel launches {launches}, planned {planned} draw-update")
+    _check_counts(model.counts, float(model.n_tokens), sweep)
+    _check(th.shape == (len(corpus.test_docs), model.K) and bool(np.isfinite(th).all()),
+           f"{sweep}: fold-in θ finite, (n_test, K)")
+    metrics = _auc(th, corpus.test_labs, model.labelmap)
+    _check(metrics["auc_roc"] > MIN_AUC, f"{sweep}: AUC {metrics['auc_roc']} > {MIN_AUC}")
+    tokens_per_s = model.n_tokens * iters / (t2 - t1)
+    print(f"{sweep} path: D={model.D} V={model.V} K={model.K} Kp={model.Kp} "
+          f"A={model.A} buckets={[tuple(z.shape) for z in model.counts.z]} "
+          f"positions/sweep={positions}")
+    print(f"  init {t1 - t0:.3f} s, train ({iters}; {thinning}) {t2 - t1:.3f} s "
+          f"({tokens_per_s:.1f} tokens/s with perplexity), fold-in test "
+          f"{t3 - t2:.3f} s")
+    print(f"  kernel launches {launches}; perplexity {model.cur_perplx}; "
+          f"test metrics {json.dumps(metrics)}")
+    return dict(model=model, launches=launches["draw_update"], positions=positions,
+                tokens_per_s=tokens_per_s, metrics=metrics)
+
+
+def dense_profile(model) -> dict:
+    """One (25; 25) call of the dense path, perplexity off, under
+    torch.profiler."""
+    from lda_thesis_tpu_torch.ops import draw_update_cuda as duc
+
+    before = duc.launches
+    prof = _profile(lambda: model.run_training(THINNING, THINNING, perplexity=False))
+    positions = sum(int(tv.shape[0]) for tv in model._toks_v_t)
+    _check(duc.launches - before == THINNING * positions, "profiled call's launches")
+    tokens_per_s = model.n_tokens * THINNING / (prof["wall_ms"] / 1e3)
+    print(f"dense (25; 25) under the profiler, perplexity off: {prof['wall_ms']:.3f} ms "
+          f"wall ({tokens_per_s:.1f} tokens/s), device busy {prof['busy_ms']:.3f} ms "
+          f"(idle share {prof['idle_share']:.4f})")
+    for name, count, ms in prof["top"]:
+        print(f"  {ms:10.4f} ms  {count:6d} x  {name}")
+    prof["tokens_per_s"] = tokens_per_s
+    return prof
+
+
+def cascade_path(jel, jel_dicti, seed: int) -> dict:
+    """CascadeLDA at the thesis config on the JEL-shaped corpus, with the
+    kernel counters set to 0 just before and read just after."""
+    import torch
+
+    from lda_thesis_tpu_torch.eval.cascade import setup_theta
+    from lda_thesis_tpu_torch.eval.metrics import binary_yreal, evaluate_ranking
+    from lda_thesis_tpu_torch.models.cascade_lda import CascadeLDA
+    from lda_thesis_tpu_torch.ops import draw_update_cuda as duc
+    from lda_thesis_tpu_torch.ops import fused_block_cuda as fbc
+
+    fbc.launches = duc.launches = 0
+    t0 = time.perf_counter()
+    model = CascadeLDA(jel.train_docs, jel.train_labs, jel.labelset, jel_dicti,
+                       alpha=0.001, beta=0.001, seed=seed, device=DEVICE)
+    model.go_down_tree(it=CASCADE_IT, s=CASCADE_S)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    l1, l2, l3 = model.test_down_tree_batch(jel.test_docs, CASCADE_IT, CASCADE_S)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = dict(draw_update=duc.launches, fused_block=fbc.launches)
+
+    planned = sum(s["sweeps"] * s["positions"] for s in model.level_stats)
+    _check(launches == dict(draw_update=planned, fused_block=0),
+           f"cascade: kernel launches {launches}, planned {planned} draw-update")
+    _check(len(model.level_stats) == 3, "cascade: three levels trained")
+    _check(bool(np.isfinite(model.ph).all()) and float(model.ph.min()) >= 0,
+           "cascade: φ finite and non-negative")
+    th_all = setup_theta(l1, l2, l3, model.labelmap)
+    y_all = binary_yreal(jel.test_labs, model.labelmap)
+    aucs = []
+    for depth in (1, 2, 3):
+        cols = np.array([len(x) == depth for x in model.labelmap])
+        y, th = y_all[:, cols], th_all[:, cols]
+        valid = (th.sum(axis=1) != 0) & (y.sum(axis=1) != 0)
+        aucs.append(evaluate_ranking(th[valid], y[valid])["auc_roc"])
+    _check(aucs[0] > MIN_AUC, f"cascade: depth-1 AUC {aucs[0]} > {MIN_AUC}")
+    _check(all(np.isfinite(aucs)), f"cascade: finite AUCs {aucs}")
+    print(f"cascade: D={model.D} V={model.V} K={model.K}; go_down_tree({CASCADE_IT}, "
+          f"{CASCADE_S}) {t1 - t0:.3f} s, test_down_tree_batch of "
+          f"{len(jel.test_docs)} docs {t2 - t1:.3f} s")
+    for name, st in zip(("root", "level 1", "level 2"), model.level_stats):
+        print(f"  {name}: R={st['rows']} U={st['positions']} K={st['topics']} "
+              f"sweeps={st['sweeps']} draw-update launches "
+              f"{st['draw_update_launches']} ({st['seconds']:.3f} s)")
+    print(f"  macro AUC by depth {aucs}")
+    return dict(launches=launches["draw_update"], aucs=aucs, levels=model.level_stats,
+                train_s=t1 - t0, test_s=t2 - t1)
 
 
 def main(argv=None) -> int:
@@ -320,10 +684,20 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    from lda_thesis_tpu_torch.data.synthetic import planted_corpus
+    from lda_thesis_tpu_torch.data.synthetic import jel_corpus, planted_corpus
     from lda_thesis_tpu_torch.data.vocab import prune_dict
     from lda_thesis_tpu_torch.models.labeled_lda import LabeledLDA
+    from lda_thesis_tpu_torch.ops import draw_update_cuda as duc
     from lda_thesis_tpu_torch.ops import fused_block_cuda as fbc
+
+    seconds = {}
+    clock = [time.perf_counter()]
+
+    def phase_done(name: str) -> None:
+        now = time.perf_counter()
+        seconds[name] = now - clock[0]
+        clock[0] = now
+        print(f"[phase {name}: {seconds[name]:.2f} s]")
 
     # 1. environment
     card = _card_line()
@@ -332,30 +706,60 @@ def main(argv=None) -> int:
     print(f"card: {card} ({torch.cuda.get_device_name(0)}, "
           f"{torch.cuda.device_count()} visible)")
     _check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmul is off")
+    phase_done("environment")
 
-    # 2. kernel build
-    _, secs, log = fbc.build()
-    print(f"kernel build: {secs:.2f} s")
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line:
-            print("  " + line.strip())
+    # 2. kernel builds: one nvcc per source, started together
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        builds = {name: pool.submit(mod.build)
+                  for name, mod in (("fused_block", fbc), ("draw_update", duc))}
+        for name, fut in builds.items():
+            _, secs, log = fut.result()
+            print(f"kernel build {name}: {secs:.2f} s")
+            for line in log.splitlines():
+                if "registers" in line or "spill" in line:
+                    print("  " + line.strip())
+    phase_done("build")
 
-    # 3. kernel against its plain version
-    t0 = time.perf_counter()
+    # 3. merge-block kernel against its plain version
     corpus = planted_corpus(args.seed)
     dicti = prune_dict(corpus.train_docs, lower=0, upper=1)
-    print(f"synthetic corpus: {time.perf_counter() - t0:.2f} s")
     probe = LabeledLDA(corpus.train_docs, corpus.train_labs, corpus.labelset,
                        dicti, alpha=0.1, beta=0.01, seed=args.seed, device=DEVICE)
     rec = kernel_phase(probe, args.seed)
     del probe
+    phase_done("fused_block kernel")
 
-    # 4. main path
+    # 4. fused path
     run = main_path(corpus, dicti, args.seed)
     model = run.pop("model")
     steady = {p: steady_training(model, p) for p in (True, False)}
+    del model
+    phase_done("fused path")
 
-    # 5. records
+    # 5. draw-update kernel against its plain version
+    jel = jel_corpus(args.seed)
+    jel_dicti = prune_dict(jel.train_docs, lower=0, upper=1)
+    draw = draw_kernel_phase(corpus, dicti, jel, jel_dicti, args.seed)
+    phase_done("draw_update kernel")
+
+    # 6. dense path
+    dense = exact_path(corpus, dicti, args.seed, "dense", TRAIN_ITERS, THINNING)
+    _check(dense["launches"] == TRAIN_ITERS * dense["positions"],
+           "dense: one draw-update launch per position per sweep")
+    dense_prof = dense_profile(dense.pop("model"))
+    phase_done("dense path")
+
+    # 7. compact path
+    compact = exact_path(corpus, dicti, args.seed, "compact", COMPACT_ITERS,
+                         COMPACT_THINNING)
+    compact.pop("model")
+    phase_done("compact path")
+
+    # 8. CascadeLDA
+    cascade = cascade_path(jel, jel_dicti, args.seed)
+    phase_done("cascade path")
+
+    # 9. records
     kernels = [{
         "name": "fused_block",
         "route": "cuda",
@@ -378,7 +782,36 @@ def main(argv=None) -> int:
         "device_idle_share": steady[True]["device_idle_share"],
         "device_idle_share_no_perplexity": steady[False]["device_idle_share"],
         "auc_roc": run["metrics"]["auc_roc"],
+    }, {
+        "name": "draw_update",
+        "route": "cuda",
+        "source": DRAW_SOURCE,
+        "replaces": DRAW_REPLACES,
+        "launches": dense["launches"],
+        "bitwise_equal": True,
+        "max_abs_err": draw["max_abs_err"],
+        "ms": draw["ms"],
+        "plain_ms": draw["plain_ms"],
+        "bound_ms": draw["bound_ms"],
+        "bound_by": draw["bound_by"],
+        "library_ms": None,
+        "per": f"launch, mean over the dense path's {dense['positions']} positions "
+               "per sweep; ms is device time (torch.profiler), call_ms the call's",
+        "call_ms": draw["call_ms"],
+        "buckets": draw["buckets"],
+        "cascade_level2": draw["cascade_level2"],
+        "launches_cascade": cascade["launches"],
+        "dense_train_tokens_per_s": dense["tokens_per_s"],
+        "dense_profiled_tokens_per_s_no_perplexity": dense_prof["tokens_per_s"],
+        "dense_device_idle_share_no_perplexity": dense_prof["idle_share"],
+        "dense_auc_roc": dense["metrics"]["auc_roc"],
+        "compact_train_tokens_per_s": compact["tokens_per_s"],
+        "compact_auc_roc": compact["metrics"]["auc_roc"],
+        "cascade_auc_by_depth": cascade["aucs"],
+        "cascade_train_s": cascade["train_s"],
+        "cascade_test_s": cascade["test_s"],
     }]
+    print(json.dumps({"phase_seconds": seconds}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

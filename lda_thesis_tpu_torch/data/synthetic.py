@@ -1,11 +1,16 @@
-"""Synthetic labelled corpus with planted per-label word distributions.
+"""Synthetic labelled corpora with planted per-label word distributions.
 
-Stands in for the abstracts corpus where the CSV is absent.  The defaults
-give the shape of the depth-3 abstracts split that ``bench.py`` trains on:
-4,171 training and 464 test documents, a vocabulary of exactly 8,969 words
-over the training documents, 391 labels (392 topics with the root), 1–128
-token types per document with a mean of about 45, about 250k tokens, and a
-largest label set of 23 codes (24 slots with the root).
+Stand in for the abstracts corpus where the CSV is absent.  Both default to
+the shape of the depth-3 abstracts split: 4,171 training and 464 test
+documents, a vocabulary of exactly 8,969 words over the training documents,
+391 labels, 1–128 token types per document with a mean of about 45.
+
+* :func:`planted_corpus` — flat labels (the shape ``bench.py`` trains
+  Labeled LDA on): about 250k tokens and a largest label set of 23 codes
+  (24 slots with the root).
+* :func:`jel_corpus` — JEL-shaped three-level codes for CascadeLDA: 20
+  letters, 120 letter+digit codes and 251 letter+two-digit codes, every
+  document carrying its codes' ancestors, as the real label lists do.
 
 Each label owns a small set of words; a document's types are drawn without
 replacement from a mixture of a Zipfian background (the root topic) and its
@@ -19,7 +24,10 @@ from typing import List, NamedTuple
 
 import numpy as np
 
-__all__ = ["PlantedCorpus", "planted_corpus"]
+__all__ = ["PlantedCorpus", "planted_corpus", "jel_corpus", "JEL_LETTERS"]
+
+# the 20 first-level letters of the JEL classification
+JEL_LETTERS = "ABCDEFGHIJKLMNOPQRYZ"
 
 
 class PlantedCorpus(NamedTuple):
@@ -88,11 +96,20 @@ def planted_corpus(
     train, train_labs = draw(n_train, True)
     test, test_labs = draw(n_test, False)
 
-    # every word occurs in training: add each missing one to a short doc
+    _cover_vocabulary(train, V, max_types, rng)
+    as_tokens = lambda docs: [words[doc].tolist() for doc in docs]
+    return PlantedCorpus(as_tokens(train), train_labs, as_tokens(test),
+                         test_labs, labelset)
+
+
+def _cover_vocabulary(train, V: int, max_types: int, rng) -> None:
+    """Every word occurs in training: add each missing one to a short doc
+    (one after the first two, which carry the widest label set and the most
+    types)."""
     seen = np.zeros(V, bool)
     for doc in train:
         seen[doc] = True
-    short = [d for d in range(2, n_train)
+    short = [d for d in range(2, len(train))
              if len(np.unique(train[d])) < max_types]
     for v in np.flatnonzero(~seen):
         d = short[rng.integers(len(short))]
@@ -100,6 +117,96 @@ def planted_corpus(
         if len(np.unique(train[d])) == max_types:
             short.remove(d)
 
+
+def _split(total: int, parts: int, cap: int, rng) -> np.ndarray:
+    """``total`` children over ``parts`` parents, each 1..``cap``."""
+    counts = np.ones(parts, int)
+    for _ in range(total - parts):
+        open_ = np.flatnonzero(counts < cap)
+        counts[open_[rng.integers(len(open_))]] += 1
+    return counts
+
+
+def jel_corpus(
+    seed: int,
+    n_train: int = 4171,
+    n_test: int = 464,
+    V: int = 8969,
+    n_l2: int = 120,
+    n_l3: int = 251,
+    mean_types: float = 45.0,
+    max_types: int = 128,
+    words_per_code: int = 25,
+    leaf_rate: float = 1.0,
+    level_weights=(0.2, 0.2, 0.2),
+) -> PlantedCorpus:
+    """A JEL-shaped corpus: documents as token lists plus label lists that
+    hold each document's leaf codes (letter+two digits) and their ancestors.
+
+    The tree has the 20 JEL letters, ``n_l2`` letter+digit codes (1–10 per
+    letter) and ``n_l3`` leaf codes (1–10 per parent).  A document has
+    ``1 + Poisson(leaf_rate)`` leaves, drawn by a Zipfian popularity; every
+    leaf labels some training document.  Its word distribution mixes a
+    Zipfian background with each level's codes' own words, weighted by
+    ``level_weights`` (letters, letter+digit, leaves), so every level carries
+    signal.  ``labelset`` lists all 20 + ``n_l2`` + ``n_l3`` codes.
+    """
+    rng = np.random.default_rng(seed)
+    letters = list(JEL_LETTERS)
+    l2, l2_parent = [], []
+    for i, n in enumerate(_split(n_l2, len(letters), 10, rng)):
+        for digit in np.sort(rng.choice(10, n, replace=False)):
+            l2.append(f"{letters[i]}{digit}")
+            l2_parent.append(i)
+    l3, l3_parent = [], []
+    for j, n in enumerate(_split(n_l3, len(l2), 10, rng)):
+        for digit in np.sort(rng.choice(10, n, replace=False)):
+            l3.append(f"{l2[j]}{digit}")
+            l3_parent.append(j)
+    levels = [letters, l2, l3]
+    labelset = letters + l2 + l3
+    words = np.array([f"w{v}" for v in range(V)])
+
+    background = 1.0 / (np.arange(V) + 10.0)
+    background = background[rng.permutation(V)]
+    background /= background.sum()
+    own = [np.stack([rng.choice(V, words_per_code, replace=False) for _ in lvl])
+           for lvl in levels]
+    own_w = [rng.dirichlet(np.ones(words_per_code), size=len(lvl)) for lvl in levels]
+    popularity = 1.0 / (np.arange(n_l3) + 2.0) ** 0.8
+    popularity = popularity[rng.permutation(n_l3)]
+    popularity /= popularity.sum()
+    cover = rng.permutation(n_l3)  # the first n_l3 training docs carry one each
+    sigma = 0.6
+    mu = np.log(mean_types) - sigma ** 2 / 2
+
+    def draw(n_docs: int, first: bool):
+        docs, labs = [], []
+        for d in range(n_docs):
+            n_leaf = min(1 + rng.poisson(leaf_rate), 10)
+            n_t = int(np.clip(np.rint(rng.lognormal(mu, sigma)), 1, max_types))
+            if first and d == 1:
+                n_t = max_types
+            leaves = rng.choice(n_l3, n_leaf, replace=False, p=popularity)
+            if first and d < n_l3 and cover[d] not in leaves:
+                leaves[0] = cover[d]
+            mid = np.unique([l3_parent[x] for x in leaves])
+            top = np.unique([l2_parent[x] for x in mid])
+            codes = [top, mid, np.unique(leaves)]
+            p = (1.0 - sum(level_weights)) * background
+            for lvl, ids, weight in zip(range(3), codes, level_weights):
+                for c in ids:
+                    np.add.at(p, own[lvl][c], weight / len(ids) * own_w[lvl][c])
+            keys = np.log(p) + rng.gumbel(size=V)
+            types = np.argpartition(-keys, n_t - 1)[:n_t]
+            freq = 1 + rng.poisson(0.33, size=n_t)
+            docs.append(np.repeat(types, freq))
+            labs.append([levels[lvl][c] for lvl, ids in enumerate(codes) for c in ids])
+        return docs, labs
+
+    train, train_labs = draw(n_train, True)
+    test, test_labs = draw(n_test, False)
+    _cover_vocabulary(train, V, max_types, rng)
     as_tokens = lambda docs: [words[doc].tolist() for doc in docs]
     return PlantedCorpus(as_tokens(train), train_labs, as_tokens(test),
                          test_labs, labelset)

@@ -1,13 +1,24 @@
-"""Labeled LDA (Ramage '09) on PyTorch, with the fused merge-block sampler.
+"""Labeled LDA (Ramage '09) on PyTorch.
 
-Counterpart of ``lda_thesis_tpu/models/labeled_lda.py`` for
-``sweep="auto"|"fused"``: the same surface as the reference class
-(LabeledLDA.py:49-265) — ``run_training(iters, thinning)``,
-``run_test(newdocs, it, thinning)``, ``get_phi/get_theta``,
+Counterpart of ``lda_thesis_tpu/models/labeled_lda.py``: the same surface as
+the reference class (LabeledLDA.py:49-265) — ``run_training(iters,
+thinning)``, ``run_test(newdocs, it, thinning)``, ``get_phi/get_theta``,
 ``topwords_per_topic``, ``perplexity``, ``get_pred(s)`` — over the same
-length buckets and compact label slots as the JAX package.  Training runs in
-merge blocks of M sweeps (ops/gibbs_fused.py); one CUDA kernel launch per
-bucket per block on a card.
+length buckets (``n_buckets=4``) and label slots as the JAX package, with
+its three samplers:
+
+* ``sweep="fused"`` (``"auto"``): merge blocks of M sweeps against a
+  block-frozen table (ops/gibbs_fused.py); one launch of the CUDA merge-block
+  kernel per bucket per block on a card;
+* ``sweep="dense"``: the exact per-position sweep over (D, K) lanes
+  (ops/gibbs.exact_sweep); one launch of the CUDA draw-update kernel per
+  type position per bucket per sweep;
+* ``sweep="compact"``: the same exact sampler on each document's compact
+  label slots (ops/gibbs.compact_sweep), in plain PyTorch.
+
+The exact samplers keep their state position-major (``z_t (U_g, D_g)``)
+for the whole of a ``run_training`` call and write ``counts.z`` back in the
+JAX package's (D_g, U_g) layout at its end.
 
 The model runs on ``device`` (CUDA unless the caller passes ``"cpu"``) and
 draws from one ``torch.Generator`` on that device, seeded by ``seed``.  The
@@ -24,15 +35,22 @@ import torch
 
 from ..data.buckets import BucketedDocs, bucket_encode
 from ..data.encode import binarize_labels, build_labelmap, compact_labels, encode_bow_types
-from ..ops.gibbs import foldin_sweep, log_likelihood
+from ..ops.gibbs import (
+    compact_sweep,
+    exact_sweep,
+    foldin_sweep,
+    init_bucket_counts,
+    init_bucket_counts_compact,
+    log_likelihood,
+    theta_from_compact,
+)
 from ..ops.gibbs_fused import (
-    FusedBucketState,
     fused_train_block_buckets,
     init_fused_buckets,
     select_merge_block,
     theta_from_fused,
 )
-from .state import phi_from_counts, running_average
+from .state import phi_from_counts, running_average, theta_from_counts
 
 __all__ = ["LabeledLDA"]
 
@@ -52,7 +70,11 @@ def check_merge_block(model, merge: int) -> None:
 
 
 class LabeledLDA:
-    """Labeled LDA with collapsed-Gibbs training on a CUDA device."""
+    """Labeled LDA with collapsed-Gibbs training on a CUDA device.
+
+    ``counts`` is a ``FusedBucketState`` (fused), ``BucketLDAState``
+    (dense) or ``CompactBucketState`` (compact), as in the JAX package.
+    """
 
     def __init__(
         self,
@@ -71,11 +93,7 @@ class LabeledLDA:
     ):
         if sweep == "auto":
             sweep = "fused"
-        if sweep in ("dense", "compact"):
-            raise NotImplementedError(
-                f"sweep={sweep!r} (the exact samplers) is not ported yet: "
-                "ROADMAP.md, Queue 1, exact samplers with kernel 2")
-        if sweep != "fused":
+        if sweep not in ("fused", "dense", "compact"):
             raise ValueError(f"unknown sweep {sweep!r}")
         self.sweep = sweep
         self.device = torch.device("cuda" if device is None else device)
@@ -114,9 +132,18 @@ class LabeledLDA:
 
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(int(seed))
-        self.counts: FusedBucketState = init_fused_buckets(
-            self.toks_v, self.toks_f, self.lab_ids_t, self.lab_valid_t,
-            self.V, self.Kp, generator=self._gen)
+        if sweep == "dense":
+            self.labs_t = tuple(self._t(lab_mask[i], torch.float32) for i in ix)
+            self.counts = init_bucket_counts(
+                self.toks_v, self.toks_f, self.labs_t, self.V, generator=self._gen)
+        elif sweep == "compact":
+            self.counts = init_bucket_counts_compact(
+                self.toks_v, self.toks_f, self.lab_ids_t, self.lab_valid_t,
+                self.V, self.Kp, generator=self._gen)
+        else:
+            self.counts = init_fused_buckets(
+                self.toks_v, self.toks_f, self.lab_ids_t, self.lab_valid_t,
+                self.V, self.Kp, generator=self._gen)
 
         self.ph_hat = torch.zeros((self.V, self.Kp), dtype=torch.float32,
                                   device=self.device)
@@ -135,19 +162,42 @@ class LabeledLDA:
 
     # ---------------------------------------------------------------- train
 
+    def _theta(self, g: int) -> torch.Tensor:
+        """(D_g, Kp) label-masked θ of bucket ``g`` from the current counts."""
+        ndk = self.counts.n_dk[g]
+        if self.sweep == "dense":
+            return theta_from_counts(ndk, self.labs_t[g], self.alpha)
+        theta = theta_from_compact if self.sweep == "compact" else theta_from_fused
+        return theta(ndk, self.lab_ids_t[g], self.lab_valid_t[g], self.alpha, self.Kp)
+
     def _cur_estimates(self):
         cur_ph = phi_from_counts(self.counts.n_vk, self.counts.n_k, self.beta,
                                  self.topic_mask)
-        cur_th = tuple(
-            theta_from_fused(ndk, li, lv, self.alpha, self.Kp)
-            for ndk, li, lv in zip(self.counts.n_dk, self.lab_ids_t,
-                                   self.lab_valid_t))
-        return cur_ph, cur_th
+        return cur_ph, tuple(self._theta(g) for g in range(self.buckets.n_buckets))
 
     def _block(self, M: int) -> None:
-        self.counts = fused_train_block_buckets(
-            self.counts, self._toks_v_t, self._toks_f_t, self.lab_ids_t,
-            self._lab_valid_tt, self.alpha, self.beta, M, generator=self._gen)
+        """``M`` sweeps: one merge block (fused) or ``M`` exact sweeps."""
+        if self.sweep == "fused":
+            self.counts = fused_train_block_buckets(
+                self.counts, self._toks_v_t, self._toks_f_t, self.lab_ids_t,
+                self._lab_valid_tt, self.alpha, self.beta, M, generator=self._gen)
+            return
+        st = self.counts
+        n_vk, n_k = st.n_vk, st.n_k
+        vbeta = float(self.V * self.beta)
+        for _ in range(M):
+            for g in range(self.buckets.n_buckets):
+                tv, tf = self._toks_v_t[g], self._toks_f_t[g]
+                u = torch.rand(tuple(tv.shape), generator=self._gen, device=self.device)
+                if self.sweep == "dense":
+                    self._z_t[g], n_k = exact_sweep(
+                        self._z_t[g], st.n_dk[g], n_vk, n_k, tv, tf, self.labs_t[g],
+                        self.alpha, self.beta, vbeta, u)
+                else:
+                    self._z_t[g] = compact_sweep(
+                        self._z_t[g], st.n_dk[g], n_vk, n_k, tv, tf, self.lab_ids_t[g],
+                        self.lab_valid_t[g], self.alpha, self.beta, vbeta, u)
+        self.counts = st._replace(n_k=n_k)
 
     def run_training(
         self,
@@ -159,18 +209,28 @@ class LabeledLDA:
     ) -> None:
         """``iters`` Gibbs sweeps (reference run_training, LabeledLDA.py:127-153).
 
-        Sweeps run in merge blocks of M (a divisor of ``thinning``, see
-        ``select_merge_block``); thinned φ̂/θ̂ saves land at exact
-        ``thinning`` multiples on freshly committed counts, and the trailing
-        ``iters % thinning`` sweeps run unsaved, the last block cut short.
-        ``continue_avg=True`` carries the running means across calls;
-        ``total_iters`` is the full planned sweep count of a chunked run, so
-        its merge block matches the uninterrupted run's.
+        Thinned φ̂/θ̂ saves land at exact ``thinning`` multiples and the
+        trailing ``iters % thinning`` sweeps run unsaved.  The fused sampler
+        runs in merge blocks of M (a divisor of ``thinning``, see
+        ``select_merge_block``), so each save sees freshly committed counts
+        and the last block is cut short; ``total_iters`` is the full planned
+        sweep count of a chunked run, so its merge block matches the
+        uninterrupted run's.  The exact samplers run sweep by sweep.
+        ``continue_avg=True`` carries the running means across calls.
         """
         iters, thinning = int(iters), int(thinning)
-        budget = int(total_iters) if total_iters else iters
-        merge = select_merge_block(self.merge_every, thinning, budget)
-        check_merge_block(self, merge)
+        if self.sweep == "fused":
+            budget = int(total_iters) if total_iters else iters
+            merge = select_merge_block(self.merge_every, thinning, budget)
+            check_merge_block(self, merge)
+        else:
+            merge = 1
+            # position-major z and private copies of the counts, which the
+            # exact sweeps update in place for the rest of this call
+            st = self.counts
+            self._z_t = [z.T.contiguous() for z in st.z]
+            self.counts = type(st)(z=st.z, n_dk=tuple(x.clone() for x in st.n_dk),
+                                   n_vk=st.n_vk.clone(), n_k=st.n_k.clone())
         if not (continue_avg and self._avg_s > 0):
             self.ph_hat = torch.zeros_like(self.ph_hat)
             self._th_hat_t = self._zeros_th()
@@ -194,6 +254,10 @@ class LabeledLDA:
             m = min(merge, left)
             self._block(m)
             left -= m
+        if self.sweep != "fused":
+            self.counts = self.counts._replace(
+                z=tuple(z.T.contiguous() for z in self._z_t))
+            del self._z_t
         self._check_ph_hat()
 
     def _perplexity_of(self, phi, thetas) -> float:
@@ -274,9 +338,9 @@ class LabeledLDA:
 
     def get_theta(self) -> np.ndarray:
         """(D, K) label-masked θ (LabeledLDA.py:236-239)."""
-        _, per_bucket = self._cur_estimates()
-        return self.buckets.scatter_rows(
-            [t.cpu().numpy() for t in per_bucket])[:, : self.K]
+        per_bucket = [self._theta(g).cpu().numpy()
+                      for g in range(self.buckets.n_buckets)]
+        return self.buckets.scatter_rows(per_bucket)[:, : self.K]
 
     # ------------------------------------------------------------ diagnostics
 

@@ -8,35 +8,24 @@ On a CUDA tensor it launches that kernel; on a CPU tensor it runs
 :func:`fused_block_torch`, which repeats the kernel's floating-point
 operations in the same order, so the two agree bit for bit.
 
-The kernel is compiled with ``nvcc`` at first use into
-``lda_thesis_tpu_torch/_build/`` (keyed by a hash of the source and flags)
-and loaded with ``ctypes``; importing this module needs neither ``nvcc``
-nor a card.
+The kernel is compiled with ``nvcc`` at first use and loaded with ``ctypes``
+(:mod:`._nvcc`); importing this module needs neither ``nvcc`` nor a card.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import time
 from pathlib import Path
 from typing import Tuple
 
 import torch
 
+from . import _nvcc
+
 __all__ = ["fused_block", "fused_block_torch", "build"]
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "fused_block.cu"
-BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-# -fmad=false: no a*b+c contraction, so the kernel rounds every operation
-# where fused_block_torch does.  No fast-math: 1/x stays correctly rounded.
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+SOURCE = _nvcc.CSRC / "fused_block.cu"
 MAX_SLOTS = 32  # one lane per slot
 MAX_SMEM = 227 * 1024
 
@@ -44,48 +33,14 @@ MAX_SMEM = 227 * 1024
 launches = 0
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = Path(cuda_home) / "bin" / "nvcc"
-    if not path.exists():
-        raise RuntimeError("nvcc not found: the CUDA kernel cannot be built")
-    return str(path)
-
-
 def build() -> Tuple[Path, float, str]:
-    """Compile the kernel if its library is missing.
-
-    Returns ``(library path, seconds spent compiling, compiler output)``;
-    seconds is 0 and the output empty when the library was already built.
-    """
-    key = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    lib = BUILD_DIR / f"fused_block_{key.hexdigest()[:16]}.so"
-    if lib.exists():
-        return lib, 0.0, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
-    os.close(fd)
-    t0 = time.perf_counter()
-    try:
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, lib)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return lib, time.perf_counter() - t0, proc.stdout + proc.stderr
+    """Compile the kernel if its library is missing; see :func:`._nvcc.build`."""
+    return _nvcc.build(SOURCE)
 
 
 @functools.lru_cache(maxsize=1)
 def _library() -> ctypes.CDLL:
-    path, _, _ = build()
-    lib = ctypes.CDLL(str(path))
+    lib = _nvcc.load(SOURCE)
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.fused_block_launch.argtypes = [ptr] * 9 + [i32] * 4 + [f32, f32, ptr]
     lib.fused_block_launch.restype = ctypes.c_int

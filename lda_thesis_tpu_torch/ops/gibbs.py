@@ -1,10 +1,20 @@
-"""Collapsed-Gibbs pieces of the Labeled-LDA fused path, on tensors.
+"""Collapsed-Gibbs sweeps and their helpers, on tensors.
 
-Counterpart of ``lda_thesis_tpu/ops/gibbs.py``, limited to what the fused
-training path and the fold-in test use: the compact-support init, the
-compact → dense doc-topic helpers, the frozen-φ fold-in sweep and the
-training log-likelihood.  Counts are float32 tensors holding integers
-below 2^24, so every count update is exact in any order.
+Counterpart of ``lda_thesis_tpu/ops/gibbs.py``: the dense and compact-support
+inits, the exact per-position sweeps (dense through the CUDA draw-update
+kernel, :mod:`.draw_update_cuda`; compact in plain PyTorch) and their bucket
+variants, the compact → dense doc-topic helpers, the frozen-φ fold-in sweep,
+CascadeLDA's batched node-level fold-in and the training log-likelihood.
+Counts are float32 tensors holding integers below 2^24, so every count
+update is exact in any order.
+
+An exact sweep visits the type positions in order; at each position all
+documents decrement their counts, draw, and increment, so documents that
+share a word at one position see each other's decrements before the draw
+(``lda_thesis_tpu/ops/gibbs.py:202-221``).  The sweeps run position-major
+internally (``z_t (U, D)``): the public functions take and return the JAX
+package's doc-major ``z (D, U)`` and transpose once per call; a model keeps
+the position-major layout for a whole training call.
 
 Every function that draws takes an optional ``uniforms`` tensor of the JAX
 function's shape and otherwise draws from ``generator`` (a
@@ -13,18 +23,56 @@ function's shape and otherwise draws from ``generator`` (a
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
+from .draw_update_cuda import draw_update
+from .sampling import gumbel_argmax, mask_to_logits
+
 __all__ = [
+    "LDACounts",
+    "BucketLDAState",
     "CompactLDACounts",
+    "CompactBucketState",
+    "init_counts",
+    "init_bucket_counts",
     "init_counts_compact",
+    "init_bucket_counts_compact",
+    "train_sweep",
+    "train_sweep_buckets",
+    "train_sweep_compact",
+    "train_sweep_buckets_compact",
+    "exact_sweep",
+    "compact_sweep",
     "densify_ndk",
     "theta_from_compact",
     "foldin_sweep",
+    "cascade_test_loop",
     "log_likelihood",
 ]
+
+
+class LDACounts(NamedTuple):
+    """Dense Gibbs state: ``z (D, U)`` int32 topic of each type slot,
+    ``n_dk (D, K)``, ``n_vk (V, K)``, ``n_k (K,)`` float32 counts."""
+
+    z: torch.Tensor
+    n_dk: torch.Tensor
+    n_vk: torch.Tensor
+    n_k: torch.Tensor
+
+
+class BucketLDAState(NamedTuple):
+    """Dense state over length buckets: per-bucket ``z (D_g, U_g)`` and
+    ``n_dk (D_g, K)``, shared global tables.  Buckets are swept one after
+    another, which is just a document visiting order."""
+
+    z: Tuple[torch.Tensor, ...]
+    n_dk: Tuple[torch.Tensor, ...]
+    n_vk: torch.Tensor
+    n_k: torch.Tensor
 
 
 class CompactLDACounts(NamedTuple):
@@ -36,6 +84,16 @@ class CompactLDACounts(NamedTuple):
 
     z: torch.Tensor
     n_dk: torch.Tensor
+    n_vk: torch.Tensor
+    n_k: torch.Tensor
+
+
+class CompactBucketState(NamedTuple):
+    """Compact-support state over length buckets: per-bucket
+    ``z (D_g, U_g)`` slot indices and ``n_dk (D_g, A)``, shared tables."""
+
+    z: Tuple[torch.Tensor, ...]
+    n_dk: Tuple[torch.Tensor, ...]
     n_vk: torch.Tensor
     n_k: torch.Tensor
 
@@ -85,6 +143,272 @@ def init_counts_compact(
                             n_k=n_vk.sum(dim=0))
 
 
+def _table_counts(tok_v, tok_f, z_global, V: int, K: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``n_vk (V, K)`` and ``n_k (K,)`` of an assignment, by one exact
+    ``index_add_`` on the flat table (integer counts below 2^24)."""
+    n_vk = torch.zeros((V, K), dtype=torch.float32, device=tok_v.device)
+    flat = (tok_v.long() * K + z_global.long()).reshape(-1)
+    n_vk.view(-1).index_add_(0, flat, tok_f.to(torch.float32).reshape(-1))
+    return n_vk, n_vk.sum(dim=0)
+
+
+def init_counts(
+    tok_v: torch.Tensor,  # (D, U) int
+    tok_f: torch.Tensor,  # (D, U) int
+    labs: torch.Tensor,  # (D, K) float mask
+    V: int,
+    uniforms: Optional[torch.Tensor] = None,  # (U, D)
+    generator: Optional[torch.Generator] = None,
+) -> LDACounts:
+    """z ~ uniform over each document's admissible labels, and its counts
+    (reference init, LabeledLDA.py:85-92).
+
+    The draw is #{k : cumsum(labs)[k] < u·Σlabs}, the JAX function's
+    inverse CDF; the cumsum of a 0/1 mask is exact, so a sorted search gives
+    the same count for all positions at once.
+    """
+    D, U = tok_v.shape
+    K = labs.shape[1]
+    u = _uniforms((U, D), tok_v, uniforms, generator)
+    c_labs = torch.cumsum(labs, dim=1).contiguous()  # (D, K)
+    r = (u * c_labs[:, -1][None, :]).T.contiguous()  # (D, U)
+    z = torch.searchsorted(c_labs, r, side="left").clamp_(max=K - 1)
+    ff = tok_f.to(torch.float32)
+    n_dk = torch.zeros((D, K), dtype=torch.float32, device=tok_v.device)
+    n_dk.scatter_add_(1, z, ff)
+    n_vk, n_k = _table_counts(tok_v, tok_f, z, V, K)
+    return LDACounts(z=z.to(torch.int32), n_dk=n_dk, n_vk=n_vk, n_k=n_k)
+
+
+def _per_bucket(uniforms, g):
+    return None if uniforms is None else uniforms[g]
+
+
+def init_bucket_counts(toks_v, toks_f, labs_t, V: int,
+                       uniforms: Optional[Sequence[torch.Tensor]] = None,
+                       generator: Optional[torch.Generator] = None) -> BucketLDAState:
+    """Per-bucket :func:`init_counts` with a shared topic-word table;
+    ``uniforms`` per bucket ``(U_g, D_g)``."""
+    zs, ndks = [], []
+    n_vk = n_k = None
+    for g, (tv, tf, lb) in enumerate(zip(toks_v, toks_f, labs_t)):
+        c = init_counts(tv, tf, lb, V, uniforms=_per_bucket(uniforms, g),
+                        generator=generator)
+        zs.append(c.z)
+        ndks.append(c.n_dk)
+        n_vk = c.n_vk if n_vk is None else n_vk + c.n_vk
+        n_k = c.n_k if n_k is None else n_k + c.n_k
+    return BucketLDAState(z=tuple(zs), n_dk=tuple(ndks), n_vk=n_vk, n_k=n_k)
+
+
+def init_bucket_counts_compact(toks_v, toks_f, lab_ids_t, lab_valid_t, V: int, K: int,
+                               uniforms: Optional[Sequence[torch.Tensor]] = None,
+                               generator: Optional[torch.Generator] = None
+                               ) -> CompactBucketState:
+    """Per-bucket :func:`init_counts_compact` with shared global tables."""
+    zs, ndks = [], []
+    n_vk = n_k = None
+    for g, (tv, tf, li, lv) in enumerate(zip(toks_v, toks_f, lab_ids_t, lab_valid_t)):
+        c = init_counts_compact(tv, tf, li, lv, V, K,
+                                uniforms=_per_bucket(uniforms, g), generator=generator)
+        zs.append(c.z)
+        ndks.append(c.n_dk)
+        n_vk = c.n_vk if n_vk is None else n_vk + c.n_vk
+        n_k = c.n_k if n_k is None else n_k + c.n_k
+    return CompactBucketState(z=tuple(zs), n_dk=tuple(ndks), n_vk=n_vk, n_k=n_k)
+
+
+def exact_sweep(
+    z_t: torch.Tensor,  # (U, D) int32, position-major
+    n_dk: torch.Tensor,  # (D, K), updated in place
+    n_vk: torch.Tensor,  # (V, K), updated in place
+    n_k: torch.Tensor,  # (K,)
+    tok_v_t: torch.Tensor,  # (U, D) int64
+    tok_f_t: torch.Tensor,  # (U, D) float32
+    labs: torch.Tensor,  # (D, K) float32
+    alpha: float,
+    beta: float,
+    vbeta: float,
+    uniforms: torch.Tensor,  # (U, D)
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One exact dense sweep in the position-major layout; returns
+    ``(z_t, n_k)`` and leaves ``n_dk`` and ``n_vk`` updated in place.
+
+    Per position, as the reference (``lda_thesis_tpu/ops/gibbs.py:175-188``):
+    every document's decrement of ``n_vk[v, z_old]`` lands before the gather
+    ``cv = n_vk[v]``; ``recip = 1/(n_k − dec + V·β)``; the kernel draws and
+    updates ``n_dk``; the increments land on ``n_vk``; ``n_k += Δn_k``.
+    """
+    U = tok_v_t.shape[0]
+    K = n_vk.shape[1]
+    flat = n_vk.view(-1)
+    row = tok_v_t * K
+    neg_f = -tok_f_t
+    zs = []
+    for p in range(U):
+        z_old = z_t[p]
+        dec = torch.zeros((K,), dtype=torch.float32, device=n_k.device)
+        dec.index_add_(0, z_old, tok_f_t[p])
+        flat.index_add_(0, row[p] + z_old, neg_f[p])
+        cv = n_vk.index_select(0, tok_v_t[p])
+        recip = 1.0 / ((n_k - dec) + vbeta)
+        n_dk, z_new, dnk = draw_update(uniforms[p], tok_f_t[p], z_old, labs, n_dk,
+                                       cv, recip, alpha, beta)
+        flat.index_add_(0, row[p] + z_new, tok_f_t[p])
+        n_k = n_k + dnk
+        zs.append(z_new)
+    z_t = torch.stack(zs) if zs else z_t.clone()
+    return z_t, n_k
+
+
+def _vbeta(V: int, beta: float, vbeta: Optional[float]) -> float:
+    return float(V * beta) if vbeta is None else float(vbeta)
+
+
+def _position_major(tok_v, tok_f) -> Tuple[torch.Tensor, torch.Tensor]:
+    return tok_v.T.long().contiguous(), tok_f.T.to(torch.float32).contiguous()
+
+
+def train_sweep(
+    counts: LDACounts,
+    tok_v: torch.Tensor,  # (D, U)
+    tok_f: torch.Tensor,  # (D, U)
+    labs: torch.Tensor,  # (D, K)
+    alpha: float,
+    beta: float,
+    vbeta: Optional[float] = None,
+    uniforms: Optional[torch.Tensor] = None,  # (U, D)
+    generator: Optional[torch.Generator] = None,
+) -> LDACounts:
+    """One full exact collapsed-Gibbs sweep over all (doc, type) slots.
+
+    Posterior per slot (reference LabeledLDA.py:113-117):
+    p(z=k) ∝ labs_k · (n_dk + α) · (n_vk[v] + β) / (n_k + V·β).
+    ``vbeta`` is V·β; it defaults to the table's row count × β, and a caller
+    whose table pads the vocabulary must pass the true V·β.  The input
+    counts are not modified.
+    """
+    D, U = tok_v.shape
+    V = counts.n_vk.shape[0]
+    u = _uniforms((U, D), tok_v, uniforms, generator)
+    tv_t, tf_t = _position_major(tok_v, tok_f)
+    n_dk = counts.n_dk.to(torch.float32).clone()
+    n_vk = counts.n_vk.to(torch.float32).clone()
+    z_t, n_k = exact_sweep(counts.z.T.to(torch.int32).contiguous(), n_dk, n_vk,
+                           counts.n_k.to(torch.float32), tv_t, tf_t,
+                           labs.contiguous(), alpha, beta, _vbeta(V, beta, vbeta), u)
+    return LDACounts(z=z_t.T.contiguous(), n_dk=n_dk, n_vk=n_vk, n_k=n_k)
+
+
+def train_sweep_buckets(state: BucketLDAState, toks_v, toks_f, labs_t, alpha: float,
+                        beta: float,
+                        uniforms: Optional[Sequence[torch.Tensor]] = None,
+                        generator: Optional[torch.Generator] = None) -> BucketLDAState:
+    """One full sweep over all buckets, one after another (exact counts)."""
+    n_vk, n_k = state.n_vk, state.n_k
+    zs, ndks = [], []
+    for g, (tv, tf, lb) in enumerate(zip(toks_v, toks_f, labs_t)):
+        c = train_sweep(LDACounts(state.z[g], state.n_dk[g], n_vk, n_k), tv, tf, lb,
+                        alpha, beta, uniforms=_per_bucket(uniforms, g),
+                        generator=generator)
+        n_vk, n_k = c.n_vk, c.n_k
+        zs.append(c.z)
+        ndks.append(c.n_dk)
+    return BucketLDAState(z=tuple(zs), n_dk=tuple(ndks), n_vk=n_vk, n_k=n_k)
+
+
+def compact_sweep(
+    z_t: torch.Tensor,  # (U, D) int32 slot indices, position-major
+    n_dk: torch.Tensor,  # (D, A), updated in place
+    n_vk: torch.Tensor,  # (V, K), updated in place
+    n_k: torch.Tensor,  # (K,), updated in place
+    tok_v_t: torch.Tensor,  # (U, D) int64
+    tok_f_t: torch.Tensor,  # (U, D) float32
+    lab_ids: torch.Tensor,  # (D, A) int
+    lab_valid: torch.Tensor,  # (D, A) float32
+    alpha: float,
+    beta: float,
+    vbeta: float,
+    uniforms: torch.Tensor,  # (U, D)
+) -> torch.Tensor:
+    """One exact sweep on the compact label support, position-major, in
+    plain PyTorch; returns ``z_t`` and updates the counts in place.
+
+    The same sampler as :func:`exact_sweep` with the zero lanes removed
+    (``lda_thesis_tpu/ops/gibbs.py:465-524``): with ascending slot ids the
+    draw lands on the same global topic as the dense sweep's.
+    """
+    U = tok_v_t.shape[0]
+    K = n_vk.shape[1]
+    flat = n_vk.view(-1)
+    ids = lab_ids.long()
+    neg_f = -tok_f_t
+    zs = []
+    for p in range(U):
+        v, f = tok_v_t[p], tok_f_t[p]
+        zc_old = z_t[p].long()
+        zg_old = ids.gather(1, zc_old[:, None])[:, 0]
+        n_dk.scatter_add_(1, zc_old[:, None], neg_f[p][:, None])
+        flat.index_add_(0, v * K + zg_old, neg_f[p])
+        n_k.index_add_(0, zg_old, neg_f[p])
+        cv = flat[v[:, None] * K + ids]
+        w = lab_valid * (n_dk + alpha) * (cv + beta) * (1.0 / (n_k[ids] + vbeta))
+        c = torch.cumsum(w, dim=1)
+        r = uniforms[p] * c[:, -1]
+        zc_new = (c < r[:, None]).sum(dim=1)
+        zc_new = torch.where(f > 0, zc_new, zc_old)
+        zg_new = ids.gather(1, zc_new[:, None])[:, 0]
+        n_dk.scatter_add_(1, zc_new[:, None], f[:, None])
+        flat.index_add_(0, v * K + zg_new, f)
+        n_k.index_add_(0, zg_new, f)
+        zs.append(zc_new)
+    return torch.stack(zs).to(torch.int32) if zs else z_t.clone()
+
+
+def train_sweep_compact(
+    counts: CompactLDACounts,
+    tok_v: torch.Tensor,
+    tok_f: torch.Tensor,
+    lab_ids: torch.Tensor,  # (D, A)
+    lab_valid: torch.Tensor,  # (D, A)
+    alpha: float,
+    beta: float,
+    vbeta: Optional[float] = None,
+    uniforms: Optional[torch.Tensor] = None,  # (U, D)
+    generator: Optional[torch.Generator] = None,
+) -> CompactLDACounts:
+    """One exact sweep on the compact support (see :func:`compact_sweep`);
+    the input counts are not modified."""
+    D, U = tok_v.shape
+    V = counts.n_vk.shape[0]
+    u = _uniforms((U, D), tok_v, uniforms, generator)
+    tv_t, tf_t = _position_major(tok_v, tok_f)
+    n_dk = counts.n_dk.to(torch.float32).clone()
+    n_vk = counts.n_vk.to(torch.float32).clone()
+    n_k = counts.n_k.to(torch.float32).clone()
+    z_t = compact_sweep(counts.z.T.to(torch.int32).contiguous(), n_dk, n_vk, n_k, tv_t,
+                        tf_t, lab_ids, lab_valid, alpha, beta, _vbeta(V, beta, vbeta), u)
+    return CompactLDACounts(z=z_t.T.contiguous(), n_dk=n_dk, n_vk=n_vk, n_k=n_k)
+
+
+def train_sweep_buckets_compact(state: CompactBucketState, toks_v, toks_f, lab_ids_t,
+                                lab_valid_t, alpha: float, beta: float,
+                                uniforms: Optional[Sequence[torch.Tensor]] = None,
+                                generator: Optional[torch.Generator] = None
+                                ) -> CompactBucketState:
+    """One full compact sweep over all buckets, one after another."""
+    n_vk, n_k = state.n_vk, state.n_k
+    zs, ndks = [], []
+    for g, (tv, tf, li, lv) in enumerate(zip(toks_v, toks_f, lab_ids_t, lab_valid_t)):
+        c = train_sweep_compact(CompactLDACounts(state.z[g], state.n_dk[g], n_vk, n_k),
+                                tv, tf, li, lv, alpha, beta,
+                                uniforms=_per_bucket(uniforms, g), generator=generator)
+        n_vk, n_k = c.n_vk, c.n_k
+        zs.append(c.z)
+        ndks.append(c.n_dk)
+    return CompactBucketState(z=tuple(zs), n_dk=tuple(ndks), n_vk=n_vk, n_k=n_k)
+
+
 def densify_ndk(n_dk_c: torch.Tensor, lab_ids: torch.Tensor, K: int) -> torch.Tensor:
     """Scatter compact (D, A) doc-topic values into dense (D, K)."""
     D = n_dk_c.shape[0]
@@ -132,6 +456,89 @@ def foldin_sweep(
         n_dk.scatter_add_(1, z_new.long()[:, None], f_p[:, None])
         z[:, p] = z_new
     return z, n_dk
+
+
+def cascade_test_loop(
+    tok_v: torch.Tensor,  # (R, U) one row per (doc, tree-node) task
+    tok_f: torch.Tensor,  # (R, U)
+    phi_vk: torch.Tensor,  # (V, Kglob) trained global topic-word table
+    lab_ids: torch.Tensor,  # (R, Kt) task-local topic -> global topic id
+    lab_mask: torch.Tensor,  # (R, Kt) 1 valid local topic, 0 padding
+    it: int,
+    thinning: int,
+    alpha: float,
+    beta: float,
+    init_gumbels: Optional[torch.Tensor] = None,  # (U, R, Kt)
+    sweep_gumbels: Optional[torch.Tensor] = None,  # (it, U, R, Kt)
+    generator: Optional[torch.Generator] = None,
+) -> torch.Tensor:
+    """Batched CascadeLDA node-level fold-in (CascadeLDA.py:186-247).
+
+    Each row is one (document, tree-node) task whose local topic axis is an
+    indexed slice of the global φ (slot 0 = the node's local root).  The
+    reference's semantics, as in the JAX function:
+
+    * init (``prep4test``): z ~ Categorical over ``(φ[v]+β)/Σ`` with the
+      local root's probability forced to ``1/ld`` (ld = # unique types),
+    * sweeps: p(z=k) ∝ (n_dk+α)·φ[v, k]; a row whose posterior is all zero
+      falls back to (n_dk+α)·(φ[v, k]+β) (CascadeLDA.py:224-229),
+    * the thinned running average of the normalised local counts.
+
+    Draws are Gumbel-max in the log domain.  ``init_gumbels`` and
+    ``sweep_gumbels`` are the noise of each position's draw; without them
+    the noise comes from ``generator``.  Returns ``avg (R, Kt)``.
+    """
+    R, U = tok_v.shape
+    Kt = lab_ids.shape[1]
+    mask_logits = mask_to_logits(lab_mask)
+    ld = torch.clamp((tok_f > 0).sum(dim=1), min=1).to(torch.float32)
+    ids = lab_ids.long()
+    tv = tok_v.long()
+    ff = tok_f.to(torch.float32)
+
+    def local_phi(p):  # (R, Kt) φ of each task's word at position p
+        return phi_vk[tv[:, p][:, None], ids]
+
+    def noise(g, *index):
+        return None if g is None else g[index]
+
+    n_dk = torch.zeros((R, Kt), dtype=torch.float32, device=tok_v.device)
+    z = torch.zeros((U, R), dtype=torch.int64, device=tok_v.device)
+    for p in range(U):
+        q = local_phi(p) + beta
+        q = q / torch.clamp((q * lab_mask).sum(dim=1, keepdim=True), min=1e-38)
+        q[:, 0] = 1.0 / ld
+        logits = torch.log(torch.clamp(q, min=1e-38)) + mask_logits
+        z[p] = gumbel_argmax(logits, 1, gumbels=noise(init_gumbels, p),
+                             generator=generator)
+        n_dk.scatter_add_(1, z[p][:, None], ff[:, p, None])
+
+    avg = torch.zeros((R, Kt), dtype=torch.float32, device=tok_v.device)
+    s = 0
+    for i in range(int(it)):
+        for p in range(U):
+            f = ff[:, p]
+            z_old = z[p]
+            n_dk.scatter_add_(1, z_old[:, None], -f[:, None])
+            lp_doc = torch.log(n_dk + alpha)
+            phi_l = local_phi(p)
+            logp = (lp_doc + torch.log(torch.clamp(phi_l, min=0.0))) + mask_logits
+            dead = ~torch.isfinite(logp).any(dim=1, keepdim=True)
+            logp_fb = (lp_doc + torch.log(phi_l + beta)) + mask_logits
+            logp = torch.where(dead, logp_fb, logp)
+            z_new = gumbel_argmax(logp, 1, gumbels=noise(sweep_gumbels, i, p),
+                                  generator=generator)
+            z[p] = torch.where(f > 0, z_new, z_old)
+            n_dk.scatter_add_(1, z[p][:, None], f[:, None])
+        if (i + 1) % int(thinning) == 0:
+            s += 1
+            cur = n_dk / torch.clamp(n_dk.sum(dim=1, keepdim=True), min=1.0)
+            if s == 1:
+                avg = cur
+            else:
+                s32 = np.float32(s)
+                avg = float((s32 - np.float32(1.0)) / s32) * avg + cur / float(s32)
+    return avg
 
 
 def log_likelihood(theta, phi_vk, tok_v, tok_f) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -112,8 +112,23 @@ def test_merge_block_guard(corpus):
 
 @pytest.mark.parametrize("sweep", ["dense", "compact"])
 def test_exact_sweeps_not_ported(corpus, sweep):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _port(corpus, sweep=sweep)
+    """The exact samplers, once refused here, now run: thinned saves at
+    exact multiples, trailing sweeps unsaved, count invariants, and z back
+    in the (D_g, U_g) layout of the JAX package."""
+    m = _port(corpus, seed=2, sweep=sweep)
+    assert m.sweep == sweep and m.buckets.n_buckets == 4
+    m.run_training(7, 3)
+    assert m._avg_s == 2 and len(m.cur_perplx) == 2
+    assert not hasattr(m, "_merge_M")
+    st = m.counts
+    for z, tv in zip(st.z, m.toks_v):
+        assert z.shape == tv.shape and z.dtype == torch.int32
+    assert float(st.n_vk.sum()) == m.n_tokens
+    assert sum(float(x.sum()) for x in st.n_dk) == m.n_tokens
+    assert float(st.n_vk.min()) >= 0
+    assert torch.equal(st.n_k, st.n_vk.sum(0))
+    th = m.run_test(corpus.test_docs, 4, 2)
+    np.testing.assert_allclose(th.sum(axis=1), 1.0, rtol=1e-5)
 
 
 def test_default_device_is_cuda(corpus):
