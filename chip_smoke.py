@@ -403,12 +403,13 @@ def draw_inputs(tok_v_t, tok_f_t, z_t, n_dk, n_vk, n_k, labs, p: int, vbeta: flo
 def draw_bound(args) -> tuple:
     """(seconds bound by bytes, seconds bound by operations) for one launch.
     A row with f = 0 only keeps its topic, so only the rows with f > 0 need
-    their n_dk read and written and their cv and labs read; the (D,) and
-    (K,) vectors are read or written once."""
+    their n_dk, cv and labs rows read, and each writes back two n_dk
+    elements (at z_old and z_new); the (D,) vectors u, f, z_old and z_new
+    and the (K,) vectors recip and Δn_k are read or written once."""
     u, f, z_old, labs, n_dk, cv, recip = args
     D, K = n_dk.shape
     live = int((f > 0).sum())
-    n_bytes = 4 * (4 * live * K + 4 * D + 2 * K)
+    n_bytes = 4 * (3 * live * K + 2 * live + 4 * D + 2 * K)
     n_ops = OPS_PER_TOPIC_DRAW * K * live
     return n_bytes / HBM_BYTES_PER_S, n_ops / FP32_FLOP_PER_S
 
@@ -668,7 +669,7 @@ def cascade_path(jel, jel_dicti, seed: int) -> dict:
     for name, st in zip(("root", "level 1", "level 2"), model.level_stats):
         print(f"  {name}: R={st['rows']} U={st['positions']} K={st['topics']} "
               f"sweeps={st['sweeps']} draw-update launches "
-              f"{st['draw_update_launches']} ({st['seconds']:.3f} s)")
+              f"{st['sweeps'] * st['positions']} ({st['seconds']:.3f} s)")
     print(f"  macro AUC by depth {aucs}")
     return dict(launches=launches["draw_update"], aucs=aucs, levels=model.level_stats,
                 train_s=t1 - t0, test_s=t2 - t1)

@@ -49,7 +49,7 @@ def labeled_lda_state_from_numpy(arrays: Mapping[str, np.ndarray], model,
         a = np.asarray(arrays[name])
         if a.shape != tuple(shape):
             raise ValueError(f"{name} has shape {a.shape}, model needs {tuple(shape)}")
-        return torch.as_tensor(np.ascontiguousarray(a)).to(device=model.device, dtype=dtype)
+        return torch.tensor(a, dtype=dtype, device=model.device)  # a copy: sweeps update in place
 
     zs, ndks = [], []
     for g in range(G):

@@ -151,6 +151,8 @@ def jel_corpus(
     ``level_weights`` (letters, letter+digit, leaves), so every level carries
     signal.  ``labelset`` lists all 20 + ``n_l2`` + ``n_l3`` codes.
     """
+    if sum(level_weights) > 1.0:
+        raise ValueError(f"level_weights {level_weights} sum past 1")
     rng = np.random.default_rng(seed)
     letters = list(JEL_LETTERS)
     l2, l2_parent = [], []

@@ -38,7 +38,6 @@ import numpy as np
 import torch
 
 from ..data.encode import compact_labels, encode_bow_types
-from ..ops import draw_update_cuda
 from ..ops.gibbs import (
     cascade_test_loop,
     compact_sweep,
@@ -104,18 +103,16 @@ class _LevelChain:
                                            self.lv_t, md.alpha, md.beta, m,
                                            generator=md._gen, vbeta=self.vbeta)
             return
-        n_k = st.n_k
         for _ in range(m):
             u = torch.rand(tuple(self.tv_t.shape), generator=md._gen, device=md.device)
             if md.sweep == "dense":
-                self.z_t, n_k = exact_sweep(self.z_t, st.n_dk, st.n_vk, n_k, self.tv_t,
-                                            self.tf_t, self.labs, md.alpha, md.beta,
-                                            self.vbeta, u)
+                self.z_t = exact_sweep(self.z_t, st.n_dk, st.n_vk, st.n_k, self.tv_t,
+                                       self.tf_t, self.labs, md.alpha, md.beta,
+                                       self.vbeta, u)
             else:
-                self.z_t = compact_sweep(self.z_t, st.n_dk, st.n_vk, n_k, self.tv_t,
+                self.z_t = compact_sweep(self.z_t, st.n_dk, st.n_vk, st.n_k, self.tv_t,
                                          self.tf_t, self.li, self.lv, md.alpha,
                                          md.beta, self.vbeta, u)
-        self.state = st._replace(n_k=n_k)
 
 
 class CascadeLDA:
@@ -167,8 +164,8 @@ class CascadeLDA:
 
         # global label-word table, reference orientation (K, V)
         self.ph = np.zeros((self.K, self.V), dtype=np.float32)
-        # one record per trained level: rows, positions, topics, sweeps,
-        # draw-update kernel launches and wall seconds
+        # one record per trained level: rows, positions, topics, sweeps and
+        # wall seconds
         self.level_stats: List[dict] = []
 
         self._gen = torch.Generator(device=self.device)
@@ -230,7 +227,6 @@ class CascadeLDA:
         """
         it, s = int(it), int(s)
         t0 = time.perf_counter()
-        launches0 = draw_update_cuda.launches
         tv = self._t(tok_v, torch.int64)
         tf = self._t(tok_f, torch.int64)
         chain = _LevelChain(self, tv, tf, mask, it, s)
@@ -249,10 +245,8 @@ class CascadeLDA:
             left -= m
         out = ph_hat.cpu().numpy()
         R, U = tok_v.shape
-        self.level_stats.append(dict(
-            rows=R, positions=U, topics=mask.shape[1], sweeps=it,
-            draw_update_launches=draw_update_cuda.launches - launches0,
-            seconds=time.perf_counter() - t0))
+        self.level_stats.append(dict(rows=R, positions=U, topics=mask.shape[1], sweeps=it,
+                                     seconds=time.perf_counter() - t0))
         return out
 
     def _train_level(self, parents: List[str], it: int, s: int) -> None:

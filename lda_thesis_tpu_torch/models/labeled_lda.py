@@ -183,21 +183,20 @@ class LabeledLDA:
                 self._lab_valid_tt, self.alpha, self.beta, M, generator=self._gen)
             return
         st = self.counts
-        n_vk, n_k = st.n_vk, st.n_k
         vbeta = float(self.V * self.beta)
         for _ in range(M):
             for g in range(self.buckets.n_buckets):
                 tv, tf = self._toks_v_t[g], self._toks_f_t[g]
                 u = torch.rand(tuple(tv.shape), generator=self._gen, device=self.device)
                 if self.sweep == "dense":
-                    self._z_t[g], n_k = exact_sweep(
-                        self._z_t[g], st.n_dk[g], n_vk, n_k, tv, tf, self.labs_t[g],
+                    self._z_t[g] = exact_sweep(
+                        self._z_t[g], st.n_dk[g], st.n_vk, st.n_k, tv, tf, self.labs_t[g],
                         self.alpha, self.beta, vbeta, u)
                 else:
                     self._z_t[g] = compact_sweep(
-                        self._z_t[g], st.n_dk[g], n_vk, n_k, tv, tf, self.lab_ids_t[g],
-                        self.lab_valid_t[g], self.alpha, self.beta, vbeta, u)
-        self.counts = st._replace(n_k=n_k)
+                        self._z_t[g], st.n_dk[g], st.n_vk, st.n_k, tv, tf,
+                        self.lab_ids_t[g], self.lab_valid_t[g], self.alpha, self.beta,
+                        vbeta, u)
 
     def run_training(
         self,

@@ -29,13 +29,14 @@
 // applies the two count updates and the two atomics.  A row with f == 0 only
 // copies z_old.  Rows past D are not launched; there is no padding.
 //
-// Bound on this card.  The launch must read n_dk, cv and labs ((D, K) float32
-// each) and write n_dk back, so it moves about 16*D*K bytes against about 8
-// fp32 operations per (row, topic): the bytes bound it (3.35 TB/s), e.g.
-// 1.4 us for the largest dense Labeled-LDA bucket (D ~ 660, K = 512).  The
-// launch overhead is of the same order, and the exact sweep makes one launch
-// per type position with a handful of small PyTorch ops around it, so the
-// path is bound by the host, not by this kernel (PERF.md).
+// Bound on this card.  Each live row (f > 0) must read its n_dk, cv and labs
+// rows ((K,) float32 each) and write two n_dk elements, so a launch moves
+// about 12*live*K bytes against about 8 fp32 operations per (row, topic): the
+// bytes bound it (3.35 TB/s), e.g. 3.0 us at the first position of the
+// widest dense Labeled-LDA bucket (1,653 live rows, K = 512).  The launch
+// overhead is of the same order, and the exact sweep makes one launch per
+// type position with a handful of small PyTorch ops around it, so the path
+// is bound by the host, not by this kernel (PERF.md).
 
 #include <cuda_runtime.h>
 #include <stddef.h>

@@ -222,7 +222,7 @@ def exact_sweep(
     z_t: torch.Tensor,  # (U, D) int32, position-major
     n_dk: torch.Tensor,  # (D, K), updated in place
     n_vk: torch.Tensor,  # (V, K), updated in place
-    n_k: torch.Tensor,  # (K,)
+    n_k: torch.Tensor,  # (K,), updated in place
     tok_v_t: torch.Tensor,  # (U, D) int64
     tok_f_t: torch.Tensor,  # (U, D) float32
     labs: torch.Tensor,  # (D, K) float32
@@ -230,9 +230,9 @@ def exact_sweep(
     beta: float,
     vbeta: float,
     uniforms: torch.Tensor,  # (U, D)
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One exact dense sweep in the position-major layout; returns
-    ``(z_t, n_k)`` and leaves ``n_dk`` and ``n_vk`` updated in place.
+) -> torch.Tensor:
+    """One exact dense sweep in the position-major layout; returns ``z_t``
+    and updates the counts in place.
 
     Per position, as the reference (``lda_thesis_tpu/ops/gibbs.py:175-188``):
     every document's decrement of ``n_vk[v, z_old]`` lands before the gather
@@ -255,10 +255,9 @@ def exact_sweep(
         n_dk, z_new, dnk = draw_update(uniforms[p], tok_f_t[p], z_old, labs, n_dk,
                                        cv, recip, alpha, beta)
         flat.index_add_(0, row[p] + z_new, tok_f_t[p])
-        n_k = n_k + dnk
+        n_k.add_(dnk)
         zs.append(z_new)
-    z_t = torch.stack(zs) if zs else z_t.clone()
-    return z_t, n_k
+    return torch.stack(zs) if zs else z_t.clone()
 
 
 def _vbeta(V: int, beta: float, vbeta: Optional[float]) -> float:
@@ -294,9 +293,9 @@ def train_sweep(
     tv_t, tf_t = _position_major(tok_v, tok_f)
     n_dk = counts.n_dk.to(torch.float32).clone()
     n_vk = counts.n_vk.to(torch.float32).clone()
-    z_t, n_k = exact_sweep(counts.z.T.to(torch.int32).contiguous(), n_dk, n_vk,
-                           counts.n_k.to(torch.float32), tv_t, tf_t,
-                           labs.contiguous(), alpha, beta, _vbeta(V, beta, vbeta), u)
+    n_k = counts.n_k.to(torch.float32).clone()
+    z_t = exact_sweep(counts.z.T.to(torch.int32).contiguous(), n_dk, n_vk, n_k, tv_t,
+                      tf_t, labs.contiguous(), alpha, beta, _vbeta(V, beta, vbeta), u)
     return LDACounts(z=z_t.T.contiguous(), n_dk=n_dk, n_vk=n_vk, n_k=n_k)
 
 
