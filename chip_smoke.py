@@ -10,10 +10,11 @@ made from ``--seed``.  Phases:
 1. environment: torch, CUDA, the card's name and power limit;
 2. kernel builds, one ``nvcc`` per source, all started together;
 3. the merge-block kernel against ``fused_block_torch`` at every bucket of
-   the fused path's first merge block (A = 24, M = 25) and at one ragged
-   case, and one whole merge block on the card against the same block on
-   the CPU; times of the kernel, its plain version and the block's gather
-   and scatter;
+   the fused path's first merge block (A = 24, M = 25) and at the edge
+   cases (``edge_cases``), and one whole merge block on the card against
+   the same block on the CPU; the kernel's device time, its chain steps
+   (M × the most live positions of a document) and time per step, and the
+   times of its call, its plain version and the block's gather and scatter;
 4. the fused Labeled-LDA path (``LabeledLDA`` → ``run_training`` →
    ``run_test`` → ranking metrics): 50 sweeps at (50; 25) within a
    2000-sweep budget, so the merge block is M = 25; count invariants, kernel
@@ -85,11 +86,31 @@ def _median_ms(fn, reps: int) -> float:
     return float(np.median(times))
 
 
+def _batch_ms(fn, reps: int) -> float:
+    """Device time per call of ``fn`` from CUDA events around ``reps`` calls
+    made back to back: where each call's kernel outlasts the host's time to
+    make the next call, the device never waits on the host."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def _device_ms(fn, reps: int, kernel: str) -> float:
     """Mean device time of one launch of the CUDA kernel named ``kernel``
     over ``reps`` calls of ``fn``, from torch.profiler.  A launch that takes
     less time on the card than its call takes on the host cannot be timed
-    with events around the call; the profiler reads the kernel's own span."""
+    with events around the call; the profiler reads the kernel's own span.
+    The profiler may drop some records of a run, so the mean is over the
+    launches it recorded."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -103,7 +124,7 @@ def _device_ms(fn, reps: int, kernel: str) -> float:
     spans = [e for e in prof.key_averages()
              if e.device_type == DeviceType.CUDA and kernel in e.key]
     count = sum(e.count for e in spans)
-    _check(count == reps, f"the profiler saw {count} launches of {kernel}, not {reps}")
+    _check(0 < count <= reps, f"the profiler saw {count} launches of {kernel} in {reps}")
     return sum(e.self_device_time_total for e in spans) / 1e3 / count
 
 
@@ -175,17 +196,22 @@ def _check_counts(st, total_f: float, what: str) -> None:
     _check(torch.equal(st.n_k, st.n_vk.sum(dim=0)), f"{what}: n_k == n_vk.sum(0)")
 
 
-def ragged_case(device, seed: int):
-    """D not a multiple of the kernel's documents per block, A < 24, and a
-    third of the frequencies 0 (padding and gaps inside documents)."""
+def block_case(device, seed: int, D: int, U: int, A: int, M: int,
+               gaps: float = 0.3, zero_doc: bool = False):
+    """Merge-block kernel inputs: documents of 1..U types with trailing
+    padding, a share ``gaps`` of f = 0 positions inside them and, with
+    ``zero_doc``, a first document whose f is all zero."""
     import torch
 
-    D, U, A, M = 37, 20, 13, 3
     rng = np.random.default_rng(seed)
     n_valid = rng.integers(1, A + 1, size=D)
     valid = (np.arange(A)[:, None] < n_valid[None, :]).astype(np.float32)
+    length = rng.integers(1, U + 1, size=D)
     f = rng.integers(1, 4, size=(U, D)).astype(np.float32)
-    f[rng.random((U, D)) < 0.3] = 0
+    f[np.arange(U)[:, None] >= length[None, :]] = 0
+    f[rng.random((U, D)) < gaps] = 0
+    if zero_doc:
+        f[:, 0] = 0
     z0 = (rng.random((U, D)) * n_valid[None, :]).astype(np.int32)
     ndk0 = np.zeros((A, D), np.float32)
     own = np.zeros((D, U, A), np.float32)
@@ -196,6 +222,24 @@ def ragged_case(device, seed: int):
     nkg = rng.integers(5000, 20000, size=(A, D)).astype(np.float32) + 89.69
     u = rng.random((M, U, D)).astype(np.float32)
     return tuple(torch.from_numpy(x).to(device) for x in (cv, f, u, z0, nkg, valid, ndk0))
+
+
+def edge_cases(sms: int) -> dict:
+    """name -> (D, U, A, M, gaps, zero_doc): D not a multiple of the
+    kernel's documents per CTA (the last CTA holds one document), one and 32
+    slots, a document with no live position, interior gaps, U = 512, and
+    documents of one or two positions."""
+    return {
+        "ragged D=37 U=20 A=13": (37, 20, 13, 3, 0.3, False),
+        "partial last CTA": (32 * sms + 1, 8, 8, 2, 0.3, True),
+        "A=1": (301, 40, 1, 4, 0.2, False),
+        "A=32": (301, 40, 32, 4, 0.2, False),
+        "all-zero document": (64, 24, 13, 3, 0.0, True),
+        "interior gaps": (200, 64, 24, 5, 0.5, False),
+        "U=512 A=32": (150, 512, 32, 3, 0.3, True),
+        "U=1": (67, 1, 7, 3, 0.0, True),
+        "U=2": (101, 2, 10, 4, 0.0, False),
+    }
 
 
 def bucket_inputs(model, g: int, M: int, gen):
@@ -241,8 +285,10 @@ def kernel_phase(model, seed: int) -> dict:
     gen.manual_seed(seed + 1)
     a, b = model.alpha, model.beta
     M = 25
-    rec = dict(ms=0.0, plain_ms=0.0, gather_ms=0.0, scatter_ms=0.0,
-               bytes_s=0.0, ops_s=0.0, bound_ms=0.0, max_abs_err=0.0)
+    rec = dict(ms=0.0, call_ms=0.0, plain_ms=0.0, gather_ms=0.0, scatter_ms=0.0,
+               bytes_s=0.0, ops_s=0.0, bound_ms=0.0, chain_steps=0, max_abs_err=0.0,
+               buckets=[])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for g in range(model.buckets.n_buckets):
         args = bucket_inputs(model, g, M, gen)
         got = fbc.fused_block(*args, a, b)
@@ -250,7 +296,8 @@ def kernel_phase(model, seed: int) -> dict:
         torch.cuda.synchronize()
         _check(_bitwise(got, want), f"kernel == plain version, bucket {g}")
         rec["max_abs_err"] = max(rec["max_abs_err"], _max_abs_err(got, want))
-        k_ms = _median_ms(lambda: fbc.fused_block(*args, a, b), 20)
+        k_ms = _batch_ms(lambda: fbc.fused_block(*args, a, b), 20)
+        c_ms = _median_ms(lambda: fbc.fused_block(*args, a, b), 20)
         p_ms = _median_ms(lambda: fbc.fused_block_torch(*args, a, b), 3)
         st = model.counts
         tv, tf, li = model._toks_v_t[g], model._toks_f_t[g], model.lab_ids_t[g]
@@ -258,24 +305,42 @@ def kernel_phase(model, seed: int) -> dict:
         s_ms = _median_ms(lambda: _scatter_deltas(st.n_vk, tv, tf, li, st.z[g], got[0]), 20)
         by_bytes, by_ops = bound(args)
         D, U, A = args[0].shape
-        print(f"bucket {g}: D={D} U={U} A={A} M={M}  kernel {k_ms:.4f} ms  "
-              f"plain {p_ms:.2f} ms  bound {1e3 * max(by_bytes, by_ops):.5f} ms  "
-              f"gather {g_ms:.4f} ms  scatter {s_ms:.4f} ms  bitwise equal")
+        # the longest dependent chain: M draws per live position of the
+        # document with the most
+        steps = M * int((args[1] > 0).sum(dim=0).max())
+        W = fbc.docs_per_cta(D, U, A, sms)
+        print(f"bucket {g}: D={D} U={U} A={A} M={M} W={W}  kernel {k_ms:.4f} ms on the "
+              f"card ({c_ms:.4f} ms per call), {steps} chain steps, "
+              f"{1e6 * k_ms / steps:.1f} ns per step  plain {p_ms:.2f} ms  bound "
+              f"{1e3 * max(by_bytes, by_ops):.5f} ms  gather {g_ms:.4f} ms  scatter "
+              f"{s_ms:.4f} ms  bitwise equal")
         rec["ms"] += k_ms
+        rec["call_ms"] += c_ms
         rec["plain_ms"] += p_ms
         rec["gather_ms"] += g_ms
         rec["scatter_ms"] += s_ms
         rec["bytes_s"] += by_bytes
         rec["ops_s"] += by_ops
         rec["bound_ms"] += 1e3 * max(by_bytes, by_ops)
+        rec["chain_steps"] += steps
+        rec["buckets"].append(dict(D=D, U=U, A=A, W=W, steps=steps, ms=k_ms, call_ms=c_ms,
+                                   ns_per_step=1e6 * k_ms / steps,
+                                   bound_ms=1e3 * max(by_bytes, by_ops)))
+    rec["ns_per_step"] = 1e6 * rec["ms"] / rec["chain_steps"]
 
-    args = ragged_case(DEVICE, seed)
-    got = fbc.fused_block(*args, a, b)
-    want = fbc.fused_block_torch(*args, a, b)
-    torch.cuda.synchronize()
-    _check(_bitwise(got, want), "kernel == plain version, ragged case")
-    rec["max_abs_err"] = max(rec["max_abs_err"], _max_abs_err(got, want))
-    print("ragged case (D=37, U=20, A=13, M=3, 30% f=0): bitwise equal")
+    for i, (name, shape) in enumerate(edge_cases(sms).items()):
+        args = block_case(DEVICE, seed + i, *shape)
+        got = fbc.fused_block(*args, a, b)
+        want = fbc.fused_block_torch(*args, a, b)
+        torch.cuda.synchronize()
+        _check(_bitwise(got, want), f"kernel == plain version, {name}")
+        if shape[-1]:
+            _check(torch.equal(got[0][:, 0], args[3][:, 0]) and _bitwise([got[1][:, 0]],
+                   [args[6][:, 0]]), f"{name}: the all-zero document is unchanged")
+        rec["max_abs_err"] = max(rec["max_abs_err"], _max_abs_err(got, want))
+        D, U, A, M_e = shape[:4]
+        print(f"{name} (D={D} U={U} A={A} M={M_e} W={fbc.docs_per_cta(D, U, A, sms)}): "
+              f"bitwise equal")
 
     # one whole merge block of the first bucket: card (kernel, gather and
     # scatter on CUDA) against CPU (plain version), the same uniforms
@@ -295,7 +360,9 @@ def kernel_phase(model, seed: int) -> dict:
 
     rec["bound_by"] = "operations" if rec["ops_s"] >= rec["bytes_s"] else "bytes"
     print(f"per merge block ({model.buckets.n_buckets} buckets): kernel "
-          f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.2f} ms, bound "
+          f"{rec['ms']:.4f} ms on the card ({rec['call_ms']:.4f} ms per call), "
+          f"{rec['chain_steps']} chain steps, {rec['ns_per_step']:.1f} ns per step, "
+          f"plain {rec['plain_ms']:.2f} ms, bound "
           f"{rec['bound_ms']:.5f} ms ({rec['bound_by']}; "
           f"{rec['bytes_s'] * HBM_BYTES_PER_S / 1e6:.1f} MB, "
           f"{rec['ops_s'] * FP32_FLOP_PER_S / 1e9:.3f} GFLOP), gather "
@@ -774,7 +841,12 @@ def main(argv=None) -> int:
         "bound_ms": rec["bound_ms"],
         "bound_by": rec["bound_by"],
         "library_ms": None,
-        "per": "merge block (4 bucket launches, M=25)",
+        "per": "merge block (4 bucket launches, M=25); ms is device time "
+               "(CUDA events around 20 back-to-back calls), call_ms the calls'",
+        "call_ms": rec["call_ms"],
+        "chain_steps": rec["chain_steps"],
+        "ns_per_step": rec["ns_per_step"],
+        "buckets": rec["buckets"],
         "gather_ms": rec["gather_ms"],
         "scatter_ms": rec["scatter_ms"],
         "train_tokens_per_s": run["tokens_per_s"],

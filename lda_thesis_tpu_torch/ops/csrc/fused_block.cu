@@ -12,43 +12,156 @@
 //   own     = (a == z0[p]) ? f : 0          own token's block-start count
 //   ndk_m   = n_dk - ((a == z[p]) ? f : 0)  live doc-topic count, minus own
 //   w       = ((valid * (ndk_m + alpha)) * ((cv - own) + beta)) * rcp_rn(nkg - own)
-//   c       = inclusive Hillis-Steele scan of w over the slots: offsets
-//             1, 2, 4, 8, 16, each step c[a] = c[a] + c[a - off] for a >= off
+//   c       = inclusive scan of w over the slots, in this order: a
+//             Hillis-Steele scan within each group of eight slots (offsets
+//             1, 2, 4: l[a] = l[a] + l[a - off] for a % 8 >= off), then
+//             c[a] = P[a / 8] + l[a] with the group totals T = l[8h + 7]
+//             and P[0] = 0, P[1] = T[0], P[2] = T[0] + T[1],
+//             P[3] = (T[0] + T[1]) + T[2]
 //   z'      = #{a < A : c[a] < u * c[A-1]}
 //   n_dk    = ndk_m + ((a == z') ? f : 0)
 // A position with f == 0 keeps its z and leaves n_dk unchanged, so it is
 // skipped (the plain version computes it and discards the draw: the same
 // bits, since x - 0 + 0 == x).
 //
-// Design.  Documents are independent within a block (the table is frozen), so
-// one warp owns one document and lane a owns slot a (A <= 32).  n_dk, valid
-// and nkg live in one register per lane for the whole block; the document's
-// z, z0 and f sit in shared memory.  The cumsum is a warp scan of shuffles, the
-// draw one ballot + popc.  Inputs per position are one contiguous A-float row
-// of cv (layout (D, U, A)) and one uniform.
+// Bound on this card.  Counted as the function's traffic and arithmetic, the
+// block reads cv (4·A·U·D bytes) and the uniforms (4·M·U·D bytes) once and
+// does about a dozen fp32 operations per (slot, position with f > 0, sweep):
+// at the main path's shapes (depth-3 abstracts, A = 24, M = 25, four buckets)
+// 51 MB and 1.34 GFLOP per merge block, 20 us at 67 TFLOP/s.  No design that
+// keeps the sampler's semantics reaches that: each draw reads the n_dk the
+// draw before it left, so a document's M·L draws (L = its positions with
+// f > 0) form one dependent chain, and a bucket's kernel takes at least its
+// longest chain times the latency of one step: 25 x (32 + 48 + 80 + 128) =
+// 7,200 steps per merge block where each bucket's longest document fills its
+// width.  A step's chain is five float operations, three shuffle-and-add
+// scan levels, one round of four shuffles issued together, two or three
+// adds, a multiply and a compare, a ballot and a popc, and the update's
+// compare, select and add: some 230 cycles, so the chain floor is about
+// 0.85 ms per merge block at 1.98 GHz.
 //
-// Bound on this card.  The block reads cv (4·A·U·D bytes) and the uniforms
-// (4·M·U·D bytes) once and does about a dozen fp32 operations per (slot,
-// position with f > 0, sweep).  At the main path's shapes (depth-3 abstracts,
-// A = 24, M = 25, four buckets) that is 51 MB and 1.34 GFLOP per merge block,
-// so the fp32 rate (67 TFLOP/s) bounds it at 20 us; the bytes alone would take
-// 15 us at 3.35 TB/s.  This design does not approach that (2.8 ms per block
-// on an H100 SXM at 700 W, PERF.md): each warp walks M·U positions one after
-// another, each step a chain of dependent shuffles behind two loads, so the
-// kernel is bound by that latency chain and by the number of resident warps
-// (one per document, ~1k per bucket against 132 SMs x 64 warps).  Keeping cv
-// in shared memory across the M sweeps, or overlapping several documents per
-// warp, is work for a later change.
+// Design: a step costs only its compute chain.
+//   * A CTA owns W consecutive documents, one warp each, lane a on slot a
+//     (A <= 32).  The wrapper picks W from (D, U, A) and the SM count so
+//     that all documents are resident in as few waves as possible.
+//   * Frozen operands are staged in shared memory once per launch.  The
+//     CTA's cv slab (W·U·A contiguous floats, doc-major) lands with one
+//     cp.async.bulk completing on an mbarrier (a cooperative copy where the
+//     slab is not 16-byte aligned).  Each warp builds its document's list of
+//     live positions (f > 0) and, per live position and slot, the pair
+//     (cvb, r) = ((cv - own) + beta, rcp_rn(nkg - own)): own uses the
+//     block-start slot, fixed for the whole block, so neither depends on the
+//     chain.  The plain version computes them per step: the same operations
+//     on the same values give the same bits.
+//   * The step loop walks exactly the live positions, interior gaps
+//     included: an outer loop over sweeps, an inner one over live positions,
+//     with no branch on f and no guard in the scan (lanes >= A only change
+//     lanes above them, which take no part in the draw).  The scan runs in
+//     groups of eight lanes, three shuffle levels instead of five, and one
+//     round of shuffles gathers the group totals and slot A-1's sum, from
+//     which every lane forms both its prefix and u * c[A-1].  (f, current
+//     slot) of each live position is one 8-byte word; every lane writes the
+//     same draw into it, so each lane reads back its own write and no warp
+//     barrier sits in the loop.
+//   * The uniforms stream two sweeps ahead through a ring of three buffers:
+//     4-byte cp.async gathers sweep m+2's values for the live positions at
+//     the start of sweep m (the (M, U, D) layout puts a document's values
+//     D floats apart, too narrow a stride for TMA).
+//   * Step s+1's operands (its (cvb, r) pair, (f, slot) and u) are loaded
+//     from shared memory before step s's draw, from addresses that need no
+//     load, and consumed a step later.  The step loop makes no load from
+//     device memory or L2.
+// n_dk and valid stay in registers for the block.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kWarpsPerBlock = 4;
+constexpr int kMaxWarps = 16;  // documents per CTA, W: one warp each
+constexpr int kGroup = 8;      // the scan's lane groups
 constexpr unsigned kFullMask = 0xffffffffu;
 
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+__host__ __device__ inline size_t round16(size_t bytes) { return (bytes + 15) / 16 * 16; }
+
+// The landing slab of the CTA's cv, W·U·A floats.
+__host__ __device__ inline size_t landing_bytes(int W, int U, int A) {
+  return round16((size_t)W * U * A * 4);
+}
+
+// Per-document shared memory after the landing slab: the (cvb, r) pairs of
+// its live positions (U x A float2), (f, current slot) per live position
+// (int2), the position of each live position, the slot per position, three
+// sweeps of uniforms, 32 block-start totals.
+__host__ __device__ inline size_t doc_bytes(int U, int A) {
+  return round16((size_t)U * A * 8 + (size_t)U * (8 + 4 + 4 + 12) + 32 * 4);
+}
+
+__host__ __device__ inline size_t smem_bytes(int W, int U, int A) {
+  return landing_bytes(W, U, A) + (size_t)W * doc_bytes(U, A) + 8;  // + mbarrier
+}
+
+__device__ inline uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ inline void cp_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               :: "r"(smem_addr(dst)), "l"(src) : "memory");
+}
+
+__device__ inline void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ inline void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Sweep m's uniforms of the live positions into buf[0..L), as one group.
+__device__ inline void stage_uniforms(float* buf, const int* pos, int L,
+                                      const float* __restrict__ uni, int m,
+                                      int M, int U, int D, int d, int lane) {
+  if (m < M)
+    for (int i = lane; i < L; i += 32)
+      cp_async4(buf + i, uni + ((size_t)m * U + pos[i]) * D + d);
+  cp_async_commit();
+}
+
+// One draw at a position of frequency fp whose slot is zo, from its frozen
+// (cvb, r): returns the new slot and leaves the live counts in ndk.  g is
+// the lane's group of eight slots, gl that of slot A-1.
+__device__ __forceinline__ int draw(float& ndk, float vl, float2 cr, float u,
+                                   float fp, int zo, int lane, int g, int gl,
+                                   int A, unsigned live_bits, float alpha) {
+  const float ndk_m = ndk - ((lane == zo) ? fp : 0.0f);
+  float c = vl * (ndk_m + alpha);
+  c = c * cr.x;
+  c = c * cr.y;
+  // inclusive scan within each group of eight lanes
+#pragma unroll
+  for (int off = 1; off < kGroup; off <<= 1) {
+    const float y = __shfl_up_sync(kFullMask, c, off, kGroup);
+    if ((lane & (kGroup - 1)) >= off) c = c + y;
+  }
+  // the group totals and slot A-1's in-group sum, gathered together
+  const float t0 = __shfl_sync(kFullMask, c, kGroup - 1);
+  const float t1 = __shfl_sync(kFullMask, c, 2 * kGroup - 1);
+  const float t2 = __shfl_sync(kFullMask, c, 3 * kGroup - 1);
+  const float c_last = __shfl_sync(kFullMask, c, A - 1);
+  const float t01 = t0 + t1;
+  const float t012 = t01 + t2;
+  const float before = g == 0 ? 0.0f : g == 1 ? t0 : g == 2 ? t01 : t012;
+  const float before_last = gl == 0 ? 0.0f : gl == 1 ? t0 : gl == 2 ? t01 : t012;
+  c = before + c;
+  const float r = u * (before_last + c_last);  // u * c[A-1]
+  const int zn = __popc(__ballot_sync(kFullMask, c < r) & live_bits);
+  ndk = ndk_m + ((lane == zn) ? fp : 0.0f);
+  return zn;
+}
+
+__global__ void __launch_bounds__(kMaxWarps * 32)
 fused_block_kernel(const float* __restrict__ cv,     // (D, U, A)
                    const float* __restrict__ f,      // (U, D)
                    const float* __restrict__ uni,    // (M, U, D)
@@ -58,91 +171,180 @@ fused_block_kernel(const float* __restrict__ cv,     // (D, U, A)
                    const float* __restrict__ ndk0,   // (A, D)
                    int* __restrict__ z_out,          // (U, D)
                    float* __restrict__ ndk_out,      // (A, D)
-                   int M, int U, int A, int D, float alpha, float beta) {
-  extern __shared__ int smem[];
+                   int W, int M, int U, int A, int D, float alpha, float beta) {
+  extern __shared__ __align__(16) unsigned char smem[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int d = blockIdx.x * kWarpsPerBlock + warp;
-  if (d >= D) return;  // warp-uniform: the whole warp leaves together
+  const int d0 = blockIdx.x * W;
+  const int n_docs = min(W, D - d0);
+  const int d = d0 + warp;
+  const bool has_doc = warp < n_docs;
+  const bool live = lane < A;
+  const unsigned live_bits = A == 32 ? kFullMask : (1u << A) - 1u;
+  const int g = lane / kGroup;
+  const int gl = (A - 1) / kGroup;
 
-  int* z_cur = smem + warp * 3 * U;  // current slot of each position
-  int* z_start = z_cur + U;          // block-start slot of each position
-  float* f_doc = reinterpret_cast<float*>(z_start + U);
-  for (int p = lane; p < U; p += 32) {
-    const int z = z0[(size_t)p * D + d];
-    z_cur[p] = z;
-    z_start[p] = z;
-    f_doc[p] = f[(size_t)p * D + d];
+  float* landing = reinterpret_cast<float*>(smem);  // (W, U, A) cv
+  unsigned char* docs = smem + landing_bytes(W, U, A);
+  float2* rows = reinterpret_cast<float2*>(docs + (size_t)(has_doc ? warp : 0) * doc_bytes(U, A));
+  int2* fz = reinterpret_cast<int2*>(rows + (size_t)U * A);  // (f, slot) per live position
+  int* pos = reinterpret_cast<int*>(fz + U);                 // position per live position
+  int* zp = pos + U;                                         // slot per position
+  float* ubuf = reinterpret_cast<float*>(zp + U);            // (3, U) uniforms
+  float* nk = ubuf + 3 * U;                                  // (32,) block-start totals
+  uint64_t* mbar = reinterpret_cast<uint64_t*>(docs + (size_t)W * doc_bytes(U, A));
+
+  // 1. the CTA's cv slab: one bulk copy where it is 16-byte aligned
+  const float* cv_src = cv + (size_t)d0 * U * A;
+  const uint32_t slab_bytes = (uint32_t)((size_t)n_docs * U * A * sizeof(float));
+  const bool bulk = ((reinterpret_cast<uintptr_t>(cv_src) & 15) == 0) &&
+                    ((slab_bytes & 15) == 0);
+  if (bulk && threadIdx.x == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
+                 :: "r"(smem_addr(mbar)) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();  // the barrier is initialised before anyone waits on it
+  if (bulk) {
+    if (threadIdx.x == 0) {
+      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                   :: "r"(smem_addr(mbar)), "r"(slab_bytes) : "memory");
+      asm volatile(
+          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+          "[%0], [%1], %2, [%3];\n"
+          :: "r"(smem_addr(landing)), "l"(cv_src), "r"(slab_bytes),
+             "r"(smem_addr(mbar)) : "memory");
+    }
+  } else {
+    const size_t n = (size_t)n_docs * U * A;
+    for (size_t e = threadIdx.x; e < n; e += blockDim.x) landing[e] = cv_src[e];
+  }
+
+  // 2. per document, while the slab is in flight: the live positions, the
+  //    slots, the registers, and the first two sweeps of uniforms
+  int L = 0;
+  float ndk = 0.0f, vl = 0.0f;
+  if (has_doc) {
+    for (int base = 0; base < U; base += 32) {
+      const int p = base + lane;
+      float fv = 0.0f;
+      int zv = 0;
+      if (p < U) {
+        fv = f[(size_t)p * D + d];
+        zv = z0[(size_t)p * D + d];
+        zp[p] = zv;
+      }
+      const unsigned mask = __ballot_sync(kFullMask, fv > 0.0f);
+      if (fv > 0.0f) {
+        const int i = L + __popc(mask & ((1u << lane) - 1u));
+        fz[i] = make_int2(__float_as_int(fv), zv);
+        pos[i] = p;
+      }
+      L += __popc(mask);
+    }
+    if (live) {
+      ndk = ndk0[(size_t)lane * D + d];
+      vl = valid[(size_t)lane * D + d];
+      nk[lane] = nkg[(size_t)lane * D + d];
+    }
+    __syncwarp();
+    stage_uniforms(ubuf, pos, L, uni, 0, M, U, D, d, lane);
+    stage_uniforms(ubuf + U, pos, L, uni, 1, M, U, D, d, lane);
+  }
+
+  if (bulk) {
+    uint32_t done = 0;
+    while (!done) {
+      asm volatile(
+          "{\n .reg .pred p;\n"
+          " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
+          " selp.u32 %0, 1, 0, p;\n}\n"
+          : "=r"(done) : "r"(smem_addr(mbar)) : "memory");
+    }
+  } else {
+    __syncthreads();
+  }
+  if (!has_doc) return;
+
+  // 3. the frozen constants of the live positions, by live position
+  const float* my_cv = landing + (size_t)warp * U * A;
+  for (int e = lane; e < L * A; e += 32) {
+    const int i = e / A;
+    const int a = e - i * A;
+    const int p = pos[i];
+    const float own = (a == zp[p]) ? __int_as_float(fz[i].x) : 0.0f;
+    rows[e] = make_float2((my_cv[p * A + a] - own) + beta, __frcp_rn(nk[a] - own));
+  }
+  cp_async_wait_all();  // sweeps 0 and 1
   __syncwarp();
 
-  const bool live = lane < A;
-  float ndk = live ? ndk0[(size_t)lane * D + d] : 0.0f;
-  const float vl = live ? valid[(size_t)lane * D + d] : 0.0f;
-  const float nk = live ? nkg[(size_t)lane * D + d] : 1.0f;
-  const float* cv_doc = cv + (size_t)d * U * A;
-
-  for (int m = 0; m < M; ++m) {
-    const float* u_sweep = uni + (size_t)m * U * D + d;
-    for (int p = 0; p < U; ++p) {
-      const float fp = f_doc[p];
-      if (fp == 0.0f) continue;  // warp-uniform
-      const float up = u_sweep[(size_t)p * D];
-      const float cvp = live ? cv_doc[(size_t)p * A + lane] : 0.0f;
-      const int zs = z_start[p];
-      const int zo = z_cur[p];
-
-      const float own = (lane == zs) ? fp : 0.0f;
-      const float ndk_m = ndk - ((lane == zo) ? fp : 0.0f);
-      const float cv_eff = cvp - own;
-      const float nk_eff = nk - own;
-      float w = vl * (ndk_m + alpha);
-      w = w * (cv_eff + beta);
-      w = w * __frcp_rn(nk_eff);
-
-      float c = w;
-#pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const float y = __shfl_up_sync(kFullMask, c, off);
-        if (lane >= off) c = c + y;
-      }
-      const float r = up * __shfl_sync(kFullMask, c, A - 1);
-      const int zn = __popc(__ballot_sync(kFullMask, live && c < r));
-
-      ndk = ndk_m + ((lane == zn) ? fp : 0.0f);
-      if (lane == 0) z_cur[p] = zn;
+  // 4. M sweeps over the live positions, an outer loop over sweeps and an
+  //    inner one over positions.  Registers hold step s's operands and the
+  //    loads for step s+1 are made before step s's draw.  Every lane writes
+  //    the same draw into fz, so each lane reads back its own write; when
+  //    L == 1 the next step is this position again and takes the draw
+  //    itself.
+  int zn = 0;
+  if (L > 0) {
+    float2 cr = rows[lane];
+    int2 fzs = fz[0];
+    float u = ubuf[0];
+    for (int m = 0; m < M; ++m) {
+      // sweep m+1's uniforms landed a sweep ago; sweep m-1's buffer is free
+      cp_async_wait_all();
       __syncwarp();
+      stage_uniforms(ubuf + ((m + 2) % 3) * U, pos, L, uni, m + 2, M, U, D, d, lane);
+      const float* u_cur = ubuf + (m % 3) * U;
+      const float* u_next = ubuf + ((m + 1) % 3) * U;
+      for (int i = 0; i < L; ++i) {
+        const bool wrap = i + 1 == L;
+        const int i1 = wrap ? 0 : i + 1;
+        const float2 cr1 = rows[i1 * A + lane];
+        const int2 fzs1 = fz[i1];
+        const float u1 = (wrap ? u_next : u_cur)[i1];
+        zn = draw(ndk, vl, cr, u, __int_as_float(fzs.x), fzs.y, lane, g, gl, A,
+                  live_bits, alpha);
+        fz[i].y = zn;
+        cr = cr1;
+        fzs = fzs1;
+        if (L == 1) fzs.y = zn;
+        u = u1;
+      }
     }
+    __syncwarp();
+    for (int j = lane; j < L; j += 32) zp[pos[j]] = fz[j].y;
+    __syncwarp();
   }
 
-  for (int p = lane; p < U; p += 32) z_out[(size_t)p * D + d] = z_cur[p];
+  for (int p = lane; p < U; p += 32) z_out[(size_t)p * D + d] = zp[p];
   if (live) ndk_out[(size_t)lane * D + d] = ndk;
 }
 
 }  // namespace
 
-extern "C" size_t fused_block_smem_bytes(int U) {
-  return (size_t)kWarpsPerBlock * 3 * U * sizeof(int);
+extern "C" size_t fused_block_smem_bytes(int W, int U, int A) {
+  return smem_bytes(W, U, A);
 }
 
-// Launches the kernel on `stream`; returns cudaGetLastError() as an int.
+// Launches the kernel on `stream` with W documents per CTA; returns
+// cudaGetLastError() as an int.
 extern "C" int fused_block_launch(const float* cv, const float* f,
                                   const float* uni, const int* z0,
                                   const float* nkg, const float* valid,
                                   const float* ndk0, int* z_out,
-                                  float* ndk_out, int M, int U, int A, int D,
-                                  float alpha, float beta, void* stream) {
-  const size_t smem = fused_block_smem_bytes(U);
+                                  float* ndk_out, int W, int M, int U, int A,
+                                  int D, float alpha, float beta, void* stream) {
+  if (W < 1 || W > kMaxWarps || A < 1 || A > 32) return (int)cudaErrorInvalidValue;
+  const size_t smem = smem_bytes(W, U, A);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         fused_block_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  const int blocks = (D + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  fused_block_kernel<<<blocks, kWarpsPerBlock * 32, smem,
-                       static_cast<cudaStream_t>(stream)>>>(
-      cv, f, uni, z0, nkg, valid, ndk0, z_out, ndk_out, M, U, A, D, alpha,
+  const int blocks = (D + W - 1) / W;
+  fused_block_kernel<<<blocks, W * 32, smem, static_cast<cudaStream_t>(stream)>>>(
+      cv, f, uni, z0, nkg, valid, ndk0, z_out, ndk_out, W, M, U, A, D, alpha,
       beta);
   return (int)cudaGetLastError();
 }

@@ -6,7 +6,10 @@ against a topic-word table frozen at block start (the algorithm of
 ``_build_block_kernel`` the CUDA kernel ``csrc/fused_block.cu`` replaces).
 On a CUDA tensor it launches that kernel; on a CPU tensor it runs
 :func:`fused_block_torch`, which repeats the kernel's floating-point
-operations in the same order, so the two agree bit for bit.
+operations in the same order, so the two agree bit for bit.  The kernel
+stages each document's frozen operands and uniforms in shared memory and
+walks only its positions with f > 0; :func:`docs_per_cta` picks how many
+documents share a CTA.
 
 The kernel is compiled with ``nvcc`` at first use and loaded with ``ctypes``
 (:mod:`._nvcc`); importing this module needs neither ``nvcc`` nor a card.
@@ -23,11 +26,18 @@ import torch
 
 from . import _nvcc
 
-__all__ = ["fused_block", "fused_block_torch", "build"]
+__all__ = ["fused_block", "fused_block_torch", "build", "docs_per_cta",
+           "max_positions", "smem_bytes"]
 
 SOURCE = _nvcc.CSRC / "fused_block.cu"
 MAX_SLOTS = 32  # one lane per slot
-MAX_SMEM = 227 * 1024
+MAX_DOCS_PER_CTA = 16  # W, one warp per document
+# Hopper (sm_90): shared memory a CTA may use, the SM's total, and what the
+# runtime reserves per resident CTA; resident CTAs and warps per SM.
+SMEM_PER_CTA = 232_448
+SMEM_PER_SM = 233_472
+SMEM_RESERVED_PER_CTA = 1024
+CTAS_PER_SM, WARPS_PER_SM = 32, 64
 
 # Number of kernel launches since import (or since a caller reset it).
 launches = 0
@@ -42,11 +52,65 @@ def build() -> Tuple[Path, float, str]:
 def _library() -> ctypes.CDLL:
     lib = _nvcc.load(SOURCE)
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.fused_block_launch.argtypes = [ptr] * 9 + [i32] * 4 + [f32, f32, ptr]
+    lib.fused_block_launch.argtypes = [ptr] * 9 + [i32] * 5 + [f32, f32, ptr]
     lib.fused_block_launch.restype = ctypes.c_int
-    lib.fused_block_smem_bytes.argtypes = [i32]
+    lib.fused_block_smem_bytes.argtypes = [i32] * 3
     lib.fused_block_smem_bytes.restype = ctypes.c_size_t
     return lib
+
+
+def _round16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def smem_bytes(W: int, U: int, A: int) -> int:
+    """Shared memory of one CTA of ``W`` documents (``csrc/fused_block.cu``):
+    the landing slab of cv, 4·W·U·A bytes; per document the (cvb, r) pairs
+    of its live positions (8·U·A bytes), 28 bytes per position ((f, slot)
+    and the position of each live position, the slot per position, three
+    sweeps of uniforms) and 32 totals; one mbarrier."""
+    doc = _round16(8 * U * A + 28 * U + 128)
+    return _round16(4 * W * U * A) + W * doc + 8
+
+
+def max_positions(A: int) -> int:
+    """The largest U the kernel takes at ``A`` slots: one document's staging
+    must fit one CTA's shared memory (563 positions at A = 32)."""
+    U = (SMEM_PER_CTA - 8 - 128) // (12 * A + 28)
+    while smem_bytes(1, U, A) > SMEM_PER_CTA:  # the 16-byte roundings
+        U -= 1
+    return U
+
+
+def docs_per_cta(D: int, U: int, A: int, sms: int) -> int:
+    """W, the documents per CTA (one warp each): the fewest waves of CTAs
+    over ``sms`` SMs (a bucket's kernel time is its waves times its longest
+    chain), then the smallest W, which spreads the warps most evenly over
+    the SMs."""
+    if not 1 <= A <= MAX_SLOTS:
+        raise ValueError(f"the kernel takes 1..{MAX_SLOTS} slots, got A={A}")
+    if U > max_positions(A):
+        raise ValueError(
+            f"U={U} positions at A={A} do not fit the kernel's shared memory: it "
+            f"takes at most {max_positions(A)} positions at A={A} "
+            f"({max_positions(MAX_SLOTS)} at A={MAX_SLOTS})")
+    best = None
+    for W in range(1, MAX_DOCS_PER_CTA + 1):
+        nbytes = smem_bytes(W, U, A)
+        if nbytes > SMEM_PER_CTA:
+            break
+        per_sm = min(SMEM_PER_SM // (nbytes + SMEM_RESERVED_PER_CTA),
+                     WARPS_PER_SM // W, CTAS_PER_SM)
+        ctas = -(-D // W)
+        key = (-(-ctas // (sms * per_sm)), W)
+        best = min(best or key, key)
+    return best[1]
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(D: int, U: int, A: int, index: int) -> int:
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    return docs_per_cta(D, U, A, sms)
 
 
 def _check_inputs(cv, f, uniforms, z0, nkg, valid, ndk0) -> Tuple[int, int, int, int]:
@@ -82,7 +146,9 @@ def fused_block(cv, f, uniforms, z0, nkg, valid, ndk0, alpha: float,
     draw, ``z0 (U, D)`` block-start slots, ``nkg (A, D)`` block-start topic
     totals pre-biased by V·β, ``valid (A, D)`` slot mask, ``ndk0 (A, D)``
     doc-topic counts.  CPU tensors take :func:`fused_block_torch`; CUDA
-    tensors launch the kernel.
+    tensors launch the kernel, which takes 1..32 slots and at most
+    :func:`max_positions` ``(A)`` positions (563 at A = 32) and raises
+    beyond them.
     """
     global launches
     M, U, A, D = _check_inputs(cv, f, uniforms, z0, nkg, valid, ndk0)
@@ -90,14 +156,11 @@ def fused_block(cv, f, uniforms, z0, nkg, valid, ndk0, alpha: float,
         return fused_block_torch(cv, f, uniforms, z0, nkg, valid, ndk0, alpha, beta)
     if cv.device.type != "cuda":
         raise ValueError(f"no kernel for device {cv.device}")
-    if not 1 <= A <= MAX_SLOTS:
-        raise ValueError(f"the kernel takes 1..{MAX_SLOTS} slots, got A={A}")
     tensors = (cv, f, uniforms, z0, nkg, valid, ndk0)
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("fused_block inputs must be contiguous")
+    W = _plan(D, U, A, cv.device.index)
     lib = _library()
-    if lib.fused_block_smem_bytes(U) > MAX_SMEM:
-        raise ValueError(f"U={U} positions do not fit the kernel's shared memory")
     z_out = torch.empty((U, D), dtype=torch.int32, device=cv.device)
     ndk_out = torch.empty((A, D), dtype=torch.float32, device=cv.device)
     if D == 0:
@@ -106,21 +169,32 @@ def fused_block(cv, f, uniforms, z0, nkg, valid, ndk0, alpha: float,
         stream = torch.cuda.current_stream(cv.device).cuda_stream
         err = lib.fused_block_launch(
             *(t.data_ptr() for t in tensors), z_out.data_ptr(),
-            ndk_out.data_ptr(), M, U, A, D, float(alpha), float(beta), stream)
+            ndk_out.data_ptr(), W, M, U, A, D, float(alpha), float(beta), stream)
     if err != 0:
         raise RuntimeError(f"fused_block kernel launch failed: CUDA error {err}")
     launches += 1
     return z_out, ndk_out
 
 
-def _warp_scan(w: torch.Tensor) -> torch.Tensor:
-    """Inclusive scan over dim 0 in the kernel's warp-shuffle order."""
-    c = w
+GROUP = 8  # the kernel's scan groups of lanes
+
+
+def _group_scan(w: torch.Tensor) -> torch.Tensor:
+    """Inclusive scan over dim 0 in the kernel's order: a Hillis–Steele scan
+    within each group of eight slots (zero-padded), then each slot adds the
+    sum of the groups before it, ``P = [0, T0, T0+T1, (T0+T1)+T2]``."""
+    A, D = w.shape
+    n_groups = -(-A // GROUP)
+    c = torch.cat([w, w.new_zeros((n_groups * GROUP - A, D))]).view(n_groups, GROUP, D)
     off = 1
-    while off < min(w.shape[0], 32):
-        c = torch.cat([c[:off], c[off:] + c[:-off]], dim=0)
+    while off < GROUP:
+        c = torch.cat([c[:, :off], c[:, off:] + c[:, :-off]], dim=1)
         off *= 2
-    return c
+    before = [w.new_zeros((D,))]
+    for h in range(n_groups - 1):
+        before.append(before[-1] + c[h, GROUP - 1])  # 0 + T0 == T0
+    c = torch.stack(before)[:, None, :] + c
+    return c.reshape(n_groups * GROUP, D)[:A]
 
 
 def fused_block_torch(cv, f, uniforms, z0, nkg, valid, ndk0, alpha: float,
@@ -129,9 +203,10 @@ def fused_block_torch(cv, f, uniforms, z0, nkg, valid, ndk0, alpha: float,
 
     Same operations in the same order as ``csrc/fused_block.cu`` (see its
     header): the product is ``((valid·(n_dk+α))·((cv−own)+β))·(1/(nkg−own))``
-    with a correctly rounded reciprocal, and the cumsum is the warp scan's
-    Hillis–Steele order.  Positions with ``f == 0`` are computed and their
-    draw discarded, which leaves the same bits as the kernel's skip.
+    with a correctly rounded reciprocal, and the cumsum is the kernel's
+    grouped order (:func:`_group_scan`).  Positions with ``f == 0`` are
+    computed and their draw discarded, which leaves the same bits as the
+    kernel's skip.
     """
     M, U, D = uniforms.shape
     A = ndk0.shape[0]
@@ -147,7 +222,7 @@ def fused_block_torch(cv, f, uniforms, z0, nkg, valid, ndk0, alpha: float,
             w = valid * (ndk_m + alpha)
             w = w * ((cv_pos[p] - own) + beta)
             w = w * torch.reciprocal(nkg - own)
-            c = _warp_scan(w)
+            c = _group_scan(w)
             r = uniforms[m, p] * c[A - 1]
             zn = (c < r).sum(dim=0, dtype=torch.int32)
             zn = torch.where(fp > 0, zn, z[p])

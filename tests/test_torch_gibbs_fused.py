@@ -27,9 +27,10 @@ D, U, A, K, V = 16, 8, 8, 128, 40
 ALPHA, BETA = 0.1, 0.01
 
 
-@pytest.fixture(scope="module")
-def problem():
-    """tests/test_fused.py's problem: (tok_v, tok_f, lab_ids, lab_valid)."""
+def _make_problem(D=D, U=U, A=A, gaps=0.0, zero_doc=False):
+    """tests/test_fused.py's problem: (tok_v, tok_f, lab_ids, lab_valid);
+    optionally a share ``gaps`` of f = 0 positions inside the documents and
+    a first document whose f is all zero."""
     rng = np.random.default_rng(1)
     tok_v = rng.integers(0, V, size=(D, U)).astype(np.int32)
     n_types = rng.integers(2, U + 1, size=(D,))
@@ -38,10 +39,19 @@ def problem():
     lab_ids = np.zeros((D, A), np.int32)
     lab_valid = np.zeros((D, A), np.float32)
     for d in range(D):
-        ids = np.sort(rng.choice(20, size=rng.integers(2, 5), replace=False))
+        ids = np.sort(rng.choice(20, size=min(A, rng.integers(2, 5)), replace=False))
         lab_ids[d, : len(ids)] = ids
         lab_valid[d, : len(ids)] = 1.0
+    if gaps:
+        tok_f[rng.random((D, U)) < gaps] = 0
+    if zero_doc:
+        tok_f[0] = 0
     return tok_v, tok_f, lab_ids, lab_valid
+
+
+@pytest.fixture(scope="module")
+def problem():
+    return _make_problem()
 
 
 def _t(*xs):
@@ -73,17 +83,27 @@ def _kernel_inputs(problem, st):
     return cv_uad, cv_uad.transpose(2, 0, 1), nkg
 
 
-@pytest.mark.parametrize("M", [1, 3])
-def test_fused_block_torch_matches_xla_twin(problem, M):
+@pytest.mark.parametrize("M, shape", [
+    pytest.param(1, {}, id="1"),
+    pytest.param(3, {}, id="3"),
+    pytest.param(3, dict(A=1), id="A1"),
+    pytest.param(3, dict(zero_doc=True), id="zero-doc"),
+    pytest.param(3, dict(gaps=0.4), id="gaps"),
+    pytest.param(3, dict(D=37), id="D37"),
+])
+def test_fused_block_torch_matches_xla_twin(M, shape):
+    problem = _make_problem(**shape)
     tok_v, tok_f, lab_ids, lab_valid = problem
+    n_docs, n_pos = tok_v.shape
+    n_slots = lab_ids.shape[1]
     st = _jax_state(problem)
     cv_uad, cv_dua, nkg = _kernel_inputs(problem, st)
-    u = np.array(jax.random.uniform(jax.random.PRNGKey(7), (M, U, D)))
+    u = np.array(jax.random.uniform(jax.random.PRNGKey(7), (M, n_pos, n_docs)))
     f_t = tok_f.T.astype(np.float32)
     z_j, ndk_j = jfused.fused_block_xla(
         jnp.asarray(cv_uad), jnp.asarray(f_t), jnp.asarray(u), st.z,
         jnp.asarray(nkg), jnp.asarray(lab_valid.T), st.n_dk,
-        jnp.tril(jnp.ones((A, A), jnp.float32)), ALPHA, BETA, M)
+        jnp.tril(jnp.ones((n_slots, n_slots), jnp.float32)), ALPHA, BETA, M)
     args = _t(cv_dua, f_t, u, np.asarray(st.z), nkg, lab_valid.T, np.asarray(st.n_dk))
     z_t, ndk_t = fbc.fused_block_torch(*args, ALPHA, BETA)
     np.testing.assert_array_equal(z_t.numpy(), np.asarray(z_j))
@@ -229,6 +249,22 @@ def test_fused_block_rejects_bad_inputs(problem):
     bad_shape[4] = bad_shape[4][:, :-1]
     with pytest.raises(ValueError):
         fbc.fused_block(*bad_shape, ALPHA, BETA)
+
+
+def test_docs_per_cta_and_positions_limit():
+    """The kernel's launch plan: one document per CTA where all fit in one
+    wave (the main path's buckets on 132 SMs), more where that packs more
+    documents into a wave, and a stated limit on U."""
+    for D_g, U_g in [(1653, 32), (1148, 48), (955, 80), (415, 128)]:
+        assert fbc.docs_per_cta(D_g, U_g, 24, 132) == 1
+    assert fbc.docs_per_cta(32 * 132 + 1, 8, 8, 132) == 2
+    assert fbc.docs_per_cta(10, 512, 32, 132) == 1
+    assert fbc.max_positions(32) == 563 >= 512
+    assert fbc.smem_bytes(1, 563, 32) <= fbc.SMEM_PER_CTA < fbc.smem_bytes(1, 564, 32)
+    with pytest.raises(ValueError, match="at most 563 positions at A=32"):
+        fbc.docs_per_cta(10, 564, 32, 132)
+    with pytest.raises(ValueError, match="slots"):
+        fbc.docs_per_cta(10, 8, 33, 132)
 
 
 def test_fused_block_has_no_plain_fallback_off_cpu(problem):
