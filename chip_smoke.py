@@ -238,6 +238,7 @@ def edge_cases(sms: int) -> dict:
         "interior gaps": (200, 64, 24, 5, 0.5, False),
         "U=512 A=32": (150, 512, 32, 3, 0.3, True),
         "U=1": (67, 1, 7, 3, 0.0, True),
+        "U=1 A=1": (67, 1, 1, 3, 0.0, False),
         "U=2": (101, 2, 10, 4, 0.0, False),
     }
 

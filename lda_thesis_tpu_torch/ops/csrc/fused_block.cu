@@ -183,6 +183,7 @@ fused_block_kernel(const float* __restrict__ cv,     // (D, U, A)
   const unsigned live_bits = A == 32 ? kFullMask : (1u << A) - 1u;
   const int g = lane / kGroup;
   const int gl = (A - 1) / kGroup;
+  const int slot = live ? lane : 0;  // lanes >= A read slot 0's row, in range
 
   float* landing = reinterpret_cast<float*>(smem);  // (W, U, A) cv
   unsigned char* docs = smem + landing_bytes(W, U, A);
@@ -286,7 +287,7 @@ fused_block_kernel(const float* __restrict__ cv,     // (D, U, A)
   //    itself.
   int zn = 0;
   if (L > 0) {
-    float2 cr = rows[lane];
+    float2 cr = rows[slot];
     int2 fzs = fz[0];
     float u = ubuf[0];
     for (int m = 0; m < M; ++m) {
@@ -299,7 +300,7 @@ fused_block_kernel(const float* __restrict__ cv,     // (D, U, A)
       for (int i = 0; i < L; ++i) {
         const bool wrap = i + 1 == L;
         const int i1 = wrap ? 0 : i + 1;
-        const float2 cr1 = rows[i1 * A + lane];
+        const float2 cr1 = rows[i1 * A + slot];
         const int2 fzs1 = fz[i1];
         const float u1 = (wrap ? u_next : u_cur)[i1];
         zn = draw(ndk, vl, cr, u, __int_as_float(fzs.x), fzs.y, lane, g, gl, A,

@@ -138,6 +138,7 @@ BLOCK_CASES = {
     "gaps": (200, 64, 24, 5, 0.5, False),
     "U512": (150, 512, 32, 3, 0.3, True),
     "U1": (67, 1, 7, 3, 0.0, True),
+    "U1-A1": (67, 1, 1, 3, 0.0, False),
     "U2": (101, 2, 10, 4, 0.0, False),
 }
 

@@ -27,8 +27,9 @@ D, U, A, K, V = 16, 8, 8, 128, 40
 ALPHA, BETA = 0.1, 0.01
 
 
-def _make_problem(D=D, U=U, A=A, gaps=0.0, zero_doc=False):
-    """tests/test_fused.py's problem: (tok_v, tok_f, lab_ids, lab_valid);
+def _make_problem(D=D, U=U, A=A, gaps=0.0, zero_doc=False, max_labels=4, label_set=20):
+    """tests/test_fused.py's problem: (tok_v, tok_f, lab_ids, lab_valid),
+    each document carrying 2..``max_labels`` labels of ``label_set``;
     optionally a share ``gaps`` of f = 0 positions inside the documents and
     a first document whose f is all zero."""
     rng = np.random.default_rng(1)
@@ -39,7 +40,8 @@ def _make_problem(D=D, U=U, A=A, gaps=0.0, zero_doc=False):
     lab_ids = np.zeros((D, A), np.int32)
     lab_valid = np.zeros((D, A), np.float32)
     for d in range(D):
-        ids = np.sort(rng.choice(20, size=min(A, rng.integers(2, 5)), replace=False))
+        n_labels = min(A, rng.integers(2, max_labels + 1))
+        ids = np.sort(rng.choice(label_set, size=n_labels, replace=False))
         lab_ids[d, : len(ids)] = ids
         lab_valid[d, : len(ids)] = 1.0
     if gaps:
@@ -47,6 +49,12 @@ def _make_problem(D=D, U=U, A=A, gaps=0.0, zero_doc=False):
     if zero_doc:
         tok_f[0] = 0
     return tok_v, tok_f, lab_ids, lab_valid
+
+
+# documents with up to A labels, so that draws land in every group of eight
+# slots of the port's grouped scan and its group-total prefix decides them
+WIDE_24 = dict(D=37, A=24, max_labels=24, label_set=100)
+WIDE_32 = dict(D=37, A=32, max_labels=32, label_set=120)
 
 
 @pytest.fixture(scope="module")
@@ -90,6 +98,8 @@ def _kernel_inputs(problem, st):
     pytest.param(3, dict(zero_doc=True), id="zero-doc"),
     pytest.param(3, dict(gaps=0.4), id="gaps"),
     pytest.param(3, dict(D=37), id="D37"),
+    pytest.param(3, WIDE_24, id="A24"),
+    pytest.param(3, WIDE_32, id="A32"),
 ])
 def test_fused_block_torch_matches_xla_twin(M, shape):
     problem = _make_problem(**shape)
@@ -106,6 +116,8 @@ def test_fused_block_torch_matches_xla_twin(M, shape):
         jnp.tril(jnp.ones((n_slots, n_slots), jnp.float32)), ALPHA, BETA, M)
     args = _t(cv_dua, f_t, u, np.asarray(st.z), nkg, lab_valid.T, np.asarray(st.n_dk))
     z_t, ndk_t = fbc.fused_block_torch(*args, ALPHA, BETA)
+    if n_slots > 8:  # draws land in the last group of eight slots
+        assert (z_t.numpy()[f_t > 0] >= n_slots - 8).any()
     np.testing.assert_array_equal(z_t.numpy(), np.asarray(z_j))
     np.testing.assert_array_equal(ndk_t.numpy(), np.asarray(ndk_j))
     # on CPU tensors the wrapper is the plain version
@@ -113,9 +125,16 @@ def test_fused_block_torch_matches_xla_twin(M, shape):
     assert torch.equal(z_w, z_t) and torch.equal(ndk_w, ndk_t)
 
 
-@pytest.mark.parametrize("M", [1, 3])
-def test_fused_train_block_matches_jax(problem, M):
+@pytest.mark.parametrize("M, shape", [
+    pytest.param(1, {}, id="1"),
+    pytest.param(3, {}, id="3"),
+    pytest.param(3, WIDE_24, id="A24"),
+    pytest.param(3, WIDE_32, id="A32"),
+])
+def test_fused_train_block_matches_jax(M, shape):
+    problem = _make_problem(**shape)
     tok_v, tok_f, lab_ids, lab_valid = problem
+    U, D = tok_v.T.shape
     st = _jax_state(problem)
     key = jax.random.PRNGKey(7 + M)
     want = jfused.fused_train_block(
