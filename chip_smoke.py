@@ -109,23 +109,33 @@ def _device_ms(fn, reps: int, kernel: str) -> float:
     over ``reps`` calls of ``fn``, from torch.profiler.  A launch that takes
     less time on the card than its call takes on the host cannot be timed
     with events around the call; the profiler reads the kernel's own span.
-    The profiler may drop some records of a run, so the mean is over the
-    launches it recorded."""
+    The mean is over exactly ``reps`` records.  Sessions tracing the device
+    alone have kept fewer records than launches, without a cause found, so
+    the session traces the host too and keeps 2 ms of host time at either
+    end of its window; a session that still keeps fewer is reported and
+    made again, up to three sessions."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    spans = [e for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA and kernel in e.key]
-    count = sum(e.count for e in spans)
-    _check(0 < count <= reps, f"the profiler saw {count} launches of {kernel} in {reps}")
-    return sum(e.self_device_time_total for e in spans) / 1e3 / count
+    kept = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.002)
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(0.002)
+        spans = [e for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA and kernel in e.key]
+        kept.append(sum(e.count for e in spans))
+        if kept[-1] == reps:
+            break
+        print(f"  the profiler kept {kept[-1]} of {reps} launch records of {kernel}")
+    _check(kept[-1] == reps, f"the profiler kept {kept} of {reps} launches of {kernel}")
+    return sum(e.self_device_time_total for e in spans) / 1e3 / reps
 
 
 def _profile(train) -> dict:
@@ -224,14 +234,14 @@ def block_case(device, seed: int, D: int, U: int, A: int, M: int,
     return tuple(torch.from_numpy(x).to(device) for x in (cv, f, u, z0, nkg, valid, ndk0))
 
 
-def edge_cases(sms: int) -> dict:
-    """name -> (D, U, A, M, gaps, zero_doc): D not a multiple of the
-    kernel's documents per CTA (the last CTA holds one document), one and 32
-    slots, a document with no live position, interior gaps, U = 512, and
-    documents of one or two positions."""
+def edge_cases() -> dict:
+    """name -> (D, U, A, M, gaps, zero_doc): ragged shapes, one more
+    document than an H100 holds at once (32 one-warp CTAs on each of 132
+    SMs), one and 32 slots, a document with no live position, interior
+    gaps, U = 512, and documents of one or two positions."""
     return {
         "ragged D=37 U=20 A=13": (37, 20, 13, 3, 0.3, False),
-        "partial last CTA": (32 * sms + 1, 8, 8, 2, 0.3, True),
+        "two waves D=4225": (32 * 132 + 1, 8, 8, 2, 0.3, True),
         "A=1": (301, 40, 1, 4, 0.2, False),
         "A=32": (301, 40, 32, 4, 0.2, False),
         "all-zero document": (64, 24, 13, 3, 0.0, True),
@@ -289,7 +299,6 @@ def kernel_phase(model, seed: int) -> dict:
     rec = dict(ms=0.0, call_ms=0.0, plain_ms=0.0, gather_ms=0.0, scatter_ms=0.0,
                bytes_s=0.0, ops_s=0.0, bound_ms=0.0, chain_steps=0, max_abs_err=0.0,
                buckets=[])
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for g in range(model.buckets.n_buckets):
         args = bucket_inputs(model, g, M, gen)
         got = fbc.fused_block(*args, a, b)
@@ -309,8 +318,7 @@ def kernel_phase(model, seed: int) -> dict:
         # the longest dependent chain: M draws per live position of the
         # document with the most
         steps = M * int((args[1] > 0).sum(dim=0).max())
-        W = fbc.docs_per_cta(D, U, A, sms)
-        print(f"bucket {g}: D={D} U={U} A={A} M={M} W={W}  kernel {k_ms:.4f} ms on the "
+        print(f"bucket {g}: D={D} U={U} A={A} M={M}  kernel {k_ms:.4f} ms on the "
               f"card ({c_ms:.4f} ms per call), {steps} chain steps, "
               f"{1e6 * k_ms / steps:.1f} ns per step  plain {p_ms:.2f} ms  bound "
               f"{1e3 * max(by_bytes, by_ops):.5f} ms  gather {g_ms:.4f} ms  scatter "
@@ -324,12 +332,12 @@ def kernel_phase(model, seed: int) -> dict:
         rec["ops_s"] += by_ops
         rec["bound_ms"] += 1e3 * max(by_bytes, by_ops)
         rec["chain_steps"] += steps
-        rec["buckets"].append(dict(D=D, U=U, A=A, W=W, steps=steps, ms=k_ms, call_ms=c_ms,
+        rec["buckets"].append(dict(D=D, U=U, A=A, steps=steps, ms=k_ms, call_ms=c_ms,
                                    ns_per_step=1e6 * k_ms / steps,
                                    bound_ms=1e3 * max(by_bytes, by_ops)))
     rec["ns_per_step"] = 1e6 * rec["ms"] / rec["chain_steps"]
 
-    for i, (name, shape) in enumerate(edge_cases(sms).items()):
+    for i, (name, shape) in enumerate(edge_cases().items()):
         args = block_case(DEVICE, seed + i, *shape)
         got = fbc.fused_block(*args, a, b)
         want = fbc.fused_block_torch(*args, a, b)
@@ -340,8 +348,7 @@ def kernel_phase(model, seed: int) -> dict:
                    [args[6][:, 0]]), f"{name}: the all-zero document is unchanged")
         rec["max_abs_err"] = max(rec["max_abs_err"], _max_abs_err(got, want))
         D, U, A, M_e = shape[:4]
-        print(f"{name} (D={D} U={U} A={A} M={M_e} W={fbc.docs_per_cta(D, U, A, sms)}): "
-              f"bitwise equal")
+        print(f"{name} (D={D} U={U} A={A} M={M_e}): bitwise equal")
 
     # one whole merge block of the first bucket: card (kernel, gather and
     # scatter on CUDA) against CPU (plain version), the same uniforms

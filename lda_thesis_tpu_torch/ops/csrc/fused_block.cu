@@ -41,28 +41,31 @@
 // 0.85 ms per merge block at 1.98 GHz.
 //
 // Design: a step costs only its compute chain.
-//   * A CTA owns W consecutive documents, one warp each, lane a on slot a
-//     (A <= 32).  The wrapper picks W from (D, U, A) and the SM count so
-//     that all documents are resident in as few waves as possible.
+//   * A CTA is one warp and owns one document, lane a on slot a (A <= 32).
+//     Packing W documents into a CTA for fewer waves did not pay: at W = 2
+//     and 4 the kernel was as fast or slower where the waves fell (two-wave
+//     shapes, CascadeLDA's level blocks) and at most 6% faster elsewhere
+//     (tools/probe_fused_block.py, on an NVIDIA H100 80GB HBM3 at 700 W).
 //   * Frozen operands are staged in shared memory once per launch.  The
-//     CTA's cv slab (W·U·A contiguous floats, doc-major) lands with one
+//     document's cv slab (U·A contiguous floats, doc-major) lands with one
 //     cp.async.bulk completing on an mbarrier (a cooperative copy where the
-//     slab is not 16-byte aligned).  Each warp builds its document's list of
-//     live positions (f > 0) and, per live position and slot, the pair
-//     (cvb, r) = ((cv - own) + beta, rcp_rn(nkg - own)): own uses the
-//     block-start slot, fixed for the whole block, so neither depends on the
-//     chain.  The plain version computes them per step: the same operations
-//     on the same values give the same bits.
+//     slab is not 16-byte aligned; the bulk copy is 3-4% faster per launch
+//     on the H100 at the main path's shapes).  The warp builds the
+//     document's list of live positions (f > 0) and, per live position and
+//     slot, the pair (cvb, r) = ((cv - own) + beta, rcp_rn(nkg - own)): own
+//     uses the block-start slot, fixed for the whole block, so neither
+//     depends on the chain.  The plain version computes them per step: the
+//     same operations on the same values give the same bits.
 //   * The step loop walks exactly the live positions, interior gaps
 //     included: an outer loop over sweeps, an inner one over live positions,
-//     with no branch on f and no guard in the scan (lanes >= A only change
-//     lanes above them, which take no part in the draw).  The scan runs in
-//     groups of eight lanes, three shuffle levels instead of five, and one
-//     round of shuffles gathers the group totals and slot A-1's sum, from
-//     which every lane forms both its prefix and u * c[A-1].  (f, current
-//     slot) of each live position is one 8-byte word; every lane writes the
-//     same draw into it, so each lane reads back its own write and no warp
-//     barrier sits in the loop.
+//     with no branch on f and no guard in the scan (lanes >= A read slot 0's
+//     row and only change lanes above them, which take no part in the draw).
+//     The scan runs in groups of eight lanes, three shuffle levels instead
+//     of five, and one round of shuffles gathers the group totals and slot
+//     A-1's sum, from which every lane forms both its prefix and
+//     u * c[A-1].  (f, current slot) of each live position is one 8-byte
+//     word; every lane writes the same draw into it, so each lane reads back
+//     its own write and no warp barrier sits in the loop.
 //   * The uniforms stream two sweeps ahead through a ring of three buffers:
 //     4-byte cp.async gathers sweep m+2's values for the live positions at
 //     the start of sweep m (the (M, U, D) layout puts a document's values
@@ -71,7 +74,9 @@
 //     from shared memory before step s's draw, from addresses that need no
 //     load, and consumed a step later.  The step loop makes no load from
 //     device memory or L2.
-// n_dk and valid stay in registers for the block.
+// n_dk and valid stay in registers for the block.  The staging bounds U:
+// fused_block_max_positions(A) gives the largest U whose shared memory fits
+// one CTA on the current device (563 at A = 32 on an H100).
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -79,27 +84,26 @@
 
 namespace {
 
-constexpr int kMaxWarps = 16;  // documents per CTA, W: one warp each
-constexpr int kGroup = 8;      // the scan's lane groups
+constexpr int kGroup = 8;  // the scan's lane groups
 constexpr unsigned kFullMask = 0xffffffffu;
 
 __host__ __device__ inline size_t round16(size_t bytes) { return (bytes + 15) / 16 * 16; }
 
-// The landing slab of the CTA's cv, W·U·A floats.
-__host__ __device__ inline size_t landing_bytes(int W, int U, int A) {
-  return round16((size_t)W * U * A * 4);
+// The landing slab of the document's cv, U·A floats.
+__host__ __device__ inline size_t landing_bytes(int U, int A) {
+  return round16((size_t)U * A * 4);
 }
 
-// Per-document shared memory after the landing slab: the (cvb, r) pairs of
-// its live positions (U x A float2), (f, current slot) per live position
-// (int2), the position of each live position, the slot per position, three
-// sweeps of uniforms, 32 block-start totals.
-__host__ __device__ inline size_t doc_bytes(int U, int A) {
+// After the landing slab: the (cvb, r) pairs of the live positions (U x A
+// float2), (f, current slot) per live position (int2), the position of each
+// live position, the slot per position, three sweeps of uniforms, 32
+// block-start totals; then the mbarrier.
+__host__ __device__ inline size_t staging_bytes(int U, int A) {
   return round16((size_t)U * A * 8 + (size_t)U * (8 + 4 + 4 + 12) + 32 * 4);
 }
 
-__host__ __device__ inline size_t smem_bytes(int W, int U, int A) {
-  return landing_bytes(W, U, A) + (size_t)W * doc_bytes(U, A) + 8;  // + mbarrier
+__host__ __device__ inline size_t smem_bytes(int U, int A) {
+  return landing_bytes(U, A) + staging_bytes(U, A) + 8;
 }
 
 __device__ inline uint32_t smem_addr(const void* p) {
@@ -161,7 +165,7 @@ __device__ __forceinline__ int draw(float& ndk, float vl, float2 cr, float u,
   return zn;
 }
 
-__global__ void __launch_bounds__(kMaxWarps * 32)
+__global__ void __launch_bounds__(32)
 fused_block_kernel(const float* __restrict__ cv,     // (D, U, A)
                    const float* __restrict__ f,      // (U, D)
                    const float* __restrict__ uni,    // (M, U, D)
@@ -171,43 +175,39 @@ fused_block_kernel(const float* __restrict__ cv,     // (D, U, A)
                    const float* __restrict__ ndk0,   // (A, D)
                    int* __restrict__ z_out,          // (U, D)
                    float* __restrict__ ndk_out,      // (A, D)
-                   int W, int M, int U, int A, int D, float alpha, float beta) {
+                   int M, int U, int A, int D, float alpha, float beta) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int d0 = blockIdx.x * W;
-  const int n_docs = min(W, D - d0);
-  const int d = d0 + warp;
-  const bool has_doc = warp < n_docs;
+  const int lane = threadIdx.x;
+  const int d = blockIdx.x;
   const bool live = lane < A;
+  const int slot = live ? lane : 0;  // lanes >= A read slot 0's row, in range
   const unsigned live_bits = A == 32 ? kFullMask : (1u << A) - 1u;
   const int g = lane / kGroup;
   const int gl = (A - 1) / kGroup;
-  const int slot = live ? lane : 0;  // lanes >= A read slot 0's row, in range
 
-  float* landing = reinterpret_cast<float*>(smem);  // (W, U, A) cv
-  unsigned char* docs = smem + landing_bytes(W, U, A);
-  float2* rows = reinterpret_cast<float2*>(docs + (size_t)(has_doc ? warp : 0) * doc_bytes(U, A));
+  float* landing = reinterpret_cast<float*>(smem);  // (U, A) cv
+  float2* rows = reinterpret_cast<float2*>(smem + landing_bytes(U, A));
   int2* fz = reinterpret_cast<int2*>(rows + (size_t)U * A);  // (f, slot) per live position
   int* pos = reinterpret_cast<int*>(fz + U);                 // position per live position
   int* zp = pos + U;                                         // slot per position
   float* ubuf = reinterpret_cast<float*>(zp + U);            // (3, U) uniforms
   float* nk = ubuf + 3 * U;                                  // (32,) block-start totals
-  uint64_t* mbar = reinterpret_cast<uint64_t*>(docs + (size_t)W * doc_bytes(U, A));
+  uint64_t* mbar = reinterpret_cast<uint64_t*>(smem + landing_bytes(U, A) +
+                                               staging_bytes(U, A));
 
-  // 1. the CTA's cv slab: one bulk copy where it is 16-byte aligned
-  const float* cv_src = cv + (size_t)d0 * U * A;
-  const uint32_t slab_bytes = (uint32_t)((size_t)n_docs * U * A * sizeof(float));
+  // 1. the document's cv slab: one bulk copy where it is 16-byte aligned
+  const float* cv_src = cv + (size_t)d * U * A;
+  const uint32_t slab_bytes = (uint32_t)((size_t)U * A * sizeof(float));
   const bool bulk = ((reinterpret_cast<uintptr_t>(cv_src) & 15) == 0) &&
-                    ((slab_bytes & 15) == 0);
-  if (bulk && threadIdx.x == 0) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
-                 :: "r"(smem_addr(mbar)) : "memory");
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();  // the barrier is initialised before anyone waits on it
+                    ((slab_bytes & 15) == 0) && slab_bytes > 0;
   if (bulk) {
-    if (threadIdx.x == 0) {
+    if (lane == 0) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
+                   :: "r"(smem_addr(mbar)) : "memory");
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncwarp();  // the barrier is initialised before anyone waits on it
+    if (lane == 0) {
       asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
                    :: "r"(smem_addr(mbar)), "r"(slab_bytes) : "memory");
       asm volatile(
@@ -217,41 +217,39 @@ fused_block_kernel(const float* __restrict__ cv,     // (D, U, A)
              "r"(smem_addr(mbar)) : "memory");
     }
   } else {
-    const size_t n = (size_t)n_docs * U * A;
-    for (size_t e = threadIdx.x; e < n; e += blockDim.x) landing[e] = cv_src[e];
+    const size_t n = (size_t)U * A;
+    for (size_t e = lane; e < n; e += 32) landing[e] = cv_src[e];
   }
 
-  // 2. per document, while the slab is in flight: the live positions, the
-  //    slots, the registers, and the first two sweeps of uniforms
+  // 2. while the slab is in flight: the live positions, the slots, the
+  //    registers, and the first two sweeps of uniforms
   int L = 0;
   float ndk = 0.0f, vl = 0.0f;
-  if (has_doc) {
-    for (int base = 0; base < U; base += 32) {
-      const int p = base + lane;
-      float fv = 0.0f;
-      int zv = 0;
-      if (p < U) {
-        fv = f[(size_t)p * D + d];
-        zv = z0[(size_t)p * D + d];
-        zp[p] = zv;
-      }
-      const unsigned mask = __ballot_sync(kFullMask, fv > 0.0f);
-      if (fv > 0.0f) {
-        const int i = L + __popc(mask & ((1u << lane) - 1u));
-        fz[i] = make_int2(__float_as_int(fv), zv);
-        pos[i] = p;
-      }
-      L += __popc(mask);
+  for (int base = 0; base < U; base += 32) {
+    const int p = base + lane;
+    float fv = 0.0f;
+    int zv = 0;
+    if (p < U) {
+      fv = f[(size_t)p * D + d];
+      zv = z0[(size_t)p * D + d];
+      zp[p] = zv;
     }
-    if (live) {
-      ndk = ndk0[(size_t)lane * D + d];
-      vl = valid[(size_t)lane * D + d];
-      nk[lane] = nkg[(size_t)lane * D + d];
+    const unsigned mask = __ballot_sync(kFullMask, fv > 0.0f);
+    if (fv > 0.0f) {
+      const int i = L + __popc(mask & ((1u << lane) - 1u));
+      fz[i] = make_int2(__float_as_int(fv), zv);
+      pos[i] = p;
     }
-    __syncwarp();
-    stage_uniforms(ubuf, pos, L, uni, 0, M, U, D, d, lane);
-    stage_uniforms(ubuf + U, pos, L, uni, 1, M, U, D, d, lane);
+    L += __popc(mask);
   }
+  if (live) {
+    ndk = ndk0[(size_t)lane * D + d];
+    vl = valid[(size_t)lane * D + d];
+    nk[lane] = nkg[(size_t)lane * D + d];
+  }
+  __syncwarp();
+  stage_uniforms(ubuf, pos, L, uni, 0, M, U, D, d, lane);
+  stage_uniforms(ubuf + U, pos, L, uni, 1, M, U, D, d, lane);
 
   if (bulk) {
     uint32_t done = 0;
@@ -263,18 +261,16 @@ fused_block_kernel(const float* __restrict__ cv,     // (D, U, A)
           : "=r"(done) : "r"(smem_addr(mbar)) : "memory");
     }
   } else {
-    __syncthreads();
+    __syncwarp();
   }
-  if (!has_doc) return;
 
   // 3. the frozen constants of the live positions, by live position
-  const float* my_cv = landing + (size_t)warp * U * A;
   for (int e = lane; e < L * A; e += 32) {
     const int i = e / A;
     const int a = e - i * A;
     const int p = pos[i];
     const float own = (a == zp[p]) ? __int_as_float(fz[i].x) : 0.0f;
-    rows[e] = make_float2((my_cv[p * A + a] - own) + beta, __frcp_rn(nk[a] - own));
+    rows[e] = make_float2((landing[p * A + a] - own) + beta, __frcp_rn(nk[a] - own));
   }
   cp_async_wait_all();  // sweeps 0 and 1
   __syncwarp();
@@ -321,31 +317,48 @@ fused_block_kernel(const float* __restrict__ cv,     // (D, U, A)
   if (live) ndk_out[(size_t)lane * D + d] = ndk;
 }
 
-}  // namespace
-
-extern "C" size_t fused_block_smem_bytes(int W, int U, int A) {
-  return smem_bytes(W, U, A);
+// The device's shared memory per CTA (opt-in), or -1 on a CUDA error.
+int smem_limit() {
+  int dev = 0, limit = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) !=
+          cudaSuccess)
+    return -1;
+  return limit;
 }
 
-// Launches the kernel on `stream` with W documents per CTA; returns
+}  // namespace
+
+// The largest U the kernel takes at A slots on the current device (its
+// staging must fit one CTA's shared memory); -1 on a CUDA error.
+extern "C" int fused_block_max_positions(int A) {
+  const int limit = smem_limit();
+  if (limit < 0 || A < 1 || A > 32) return -1;
+  int U = 0;
+  while (smem_bytes(U + 1, A) <= (size_t)limit) ++U;
+  return U;
+}
+
+// Launches the kernel on `stream`, one CTA per document; returns
 // cudaGetLastError() as an int.
 extern "C" int fused_block_launch(const float* cv, const float* f,
                                   const float* uni, const int* z0,
                                   const float* nkg, const float* valid,
                                   const float* ndk0, int* z_out,
-                                  float* ndk_out, int W, int M, int U, int A,
-                                  int D, float alpha, float beta, void* stream) {
-  if (W < 1 || W > kMaxWarps || A < 1 || A > 32) return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(W, U, A);
+                                  float* ndk_out, int M, int U, int A, int D,
+                                  float alpha, float beta, void* stream) {
+  const int limit = smem_limit();
+  const size_t smem = smem_bytes(U, A);
+  if (A < 1 || A > 32 || U < 0 || limit < 0 || smem > (size_t)limit)
+    return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         fused_block_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  const int blocks = (D + W - 1) / W;
-  fused_block_kernel<<<blocks, W * 32, smem, static_cast<cudaStream_t>(stream)>>>(
-      cv, f, uni, z0, nkg, valid, ndk0, z_out, ndk_out, W, M, U, A, D, alpha,
+  fused_block_kernel<<<D, 32, smem, static_cast<cudaStream_t>(stream)>>>(
+      cv, f, uni, z0, nkg, valid, ndk0, z_out, ndk_out, M, U, A, D, alpha,
       beta);
   return (int)cudaGetLastError();
 }

@@ -7,9 +7,9 @@ against a topic-word table frozen at block start (the algorithm of
 On a CUDA tensor it launches that kernel; on a CPU tensor it runs
 :func:`fused_block_torch`, which repeats the kernel's floating-point
 operations in the same order, so the two agree bit for bit.  The kernel
-stages each document's frozen operands and uniforms in shared memory and
-walks only its positions with f > 0; :func:`docs_per_cta` picks how many
-documents share a CTA.
+runs one document per CTA, stages its frozen operands and uniforms in
+shared memory and walks only its positions with f > 0; that staging bounds
+the positions it takes (:func:`max_positions`).
 
 The kernel is compiled with ``nvcc`` at first use and loaded with ``ctypes``
 (:mod:`._nvcc`); importing this module needs neither ``nvcc`` nor a card.
@@ -26,18 +26,10 @@ import torch
 
 from . import _nvcc
 
-__all__ = ["fused_block", "fused_block_torch", "build", "docs_per_cta",
-           "max_positions", "smem_bytes"]
+__all__ = ["fused_block", "fused_block_torch", "build", "max_positions"]
 
 SOURCE = _nvcc.CSRC / "fused_block.cu"
 MAX_SLOTS = 32  # one lane per slot
-MAX_DOCS_PER_CTA = 16  # W, one warp per document
-# Hopper (sm_90): shared memory a CTA may use, the SM's total, and what the
-# runtime reserves per resident CTA; resident CTAs and warps per SM.
-SMEM_PER_CTA = 232_448
-SMEM_PER_SM = 233_472
-SMEM_RESERVED_PER_CTA = 1024
-CTAS_PER_SM, WARPS_PER_SM = 32, 64
 
 # Number of kernel launches since import (or since a caller reset it).
 launches = 0
@@ -52,65 +44,25 @@ def build() -> Tuple[Path, float, str]:
 def _library() -> ctypes.CDLL:
     lib = _nvcc.load(SOURCE)
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.fused_block_launch.argtypes = [ptr] * 9 + [i32] * 5 + [f32, f32, ptr]
+    lib.fused_block_launch.argtypes = [ptr] * 9 + [i32] * 4 + [f32, f32, ptr]
     lib.fused_block_launch.restype = ctypes.c_int
-    lib.fused_block_smem_bytes.argtypes = [i32] * 3
-    lib.fused_block_smem_bytes.restype = ctypes.c_size_t
+    lib.fused_block_max_positions.argtypes = [i32]
+    lib.fused_block_max_positions.restype = ctypes.c_int
     return lib
 
 
-def _round16(n: int) -> int:
-    return -(-n // 16) * 16
-
-
-def smem_bytes(W: int, U: int, A: int) -> int:
-    """Shared memory of one CTA of ``W`` documents (``csrc/fused_block.cu``):
-    the landing slab of cv, 4·W·U·A bytes; per document the (cvb, r) pairs
-    of its live positions (8·U·A bytes), 28 bytes per position ((f, slot)
-    and the position of each live position, the slot per position, three
-    sweeps of uniforms) and 32 totals; one mbarrier."""
-    doc = _round16(8 * U * A + 28 * U + 128)
-    return _round16(4 * W * U * A) + W * doc + 8
-
-
-def max_positions(A: int) -> int:
-    """The largest U the kernel takes at ``A`` slots: one document's staging
-    must fit one CTA's shared memory (563 positions at A = 32)."""
-    U = (SMEM_PER_CTA - 8 - 128) // (12 * A + 28)
-    while smem_bytes(1, U, A) > SMEM_PER_CTA:  # the 16-byte roundings
-        U -= 1
-    return U
-
-
-def docs_per_cta(D: int, U: int, A: int, sms: int) -> int:
-    """W, the documents per CTA (one warp each): the fewest waves of CTAs
-    over ``sms`` SMs (a bucket's kernel time is its waves times its longest
-    chain), then the smallest W, which spreads the warps most evenly over
-    the SMs."""
+@functools.lru_cache(maxsize=None)
+def max_positions(A: int, index: int = 0) -> int:
+    """The largest U the kernel takes at ``A`` slots on CUDA device
+    ``index``: one document's staging must fit one CTA's shared memory
+    (563 positions at A = 32 on an H100)."""
     if not 1 <= A <= MAX_SLOTS:
         raise ValueError(f"the kernel takes 1..{MAX_SLOTS} slots, got A={A}")
-    if U > max_positions(A):
-        raise ValueError(
-            f"U={U} positions at A={A} do not fit the kernel's shared memory: it "
-            f"takes at most {max_positions(A)} positions at A={A} "
-            f"({max_positions(MAX_SLOTS)} at A={MAX_SLOTS})")
-    best = None
-    for W in range(1, MAX_DOCS_PER_CTA + 1):
-        nbytes = smem_bytes(W, U, A)
-        if nbytes > SMEM_PER_CTA:
-            break
-        per_sm = min(SMEM_PER_SM // (nbytes + SMEM_RESERVED_PER_CTA),
-                     WARPS_PER_SM // W, CTAS_PER_SM)
-        ctas = -(-D // W)
-        key = (-(-ctas // (sms * per_sm)), W)
-        best = min(best or key, key)
-    return best[1]
-
-
-@functools.lru_cache(maxsize=None)
-def _plan(D: int, U: int, A: int, index: int) -> int:
-    sms = torch.cuda.get_device_properties(index).multi_processor_count
-    return docs_per_cta(D, U, A, sms)
+    with torch.cuda.device(index):
+        U = _library().fused_block_max_positions(A)
+    if U < 0:
+        raise RuntimeError("fused_block_max_positions failed: no CUDA device")
+    return U
 
 
 def _check_inputs(cv, f, uniforms, z0, nkg, valid, ndk0) -> Tuple[int, int, int, int]:
@@ -147,8 +99,8 @@ def fused_block(cv, f, uniforms, z0, nkg, valid, ndk0, alpha: float,
     totals pre-biased by V·β, ``valid (A, D)`` slot mask, ``ndk0 (A, D)``
     doc-topic counts.  CPU tensors take :func:`fused_block_torch`; CUDA
     tensors launch the kernel, which takes 1..32 slots and at most
-    :func:`max_positions` ``(A)`` positions (563 at A = 32) and raises
-    beyond them.
+    :func:`max_positions` ``(A)`` positions (563 at A = 32 on an H100) and
+    raises beyond them.
     """
     global launches
     M, U, A, D = _check_inputs(cv, f, uniforms, z0, nkg, valid, ndk0)
@@ -159,7 +111,11 @@ def fused_block(cv, f, uniforms, z0, nkg, valid, ndk0, alpha: float,
     tensors = (cv, f, uniforms, z0, nkg, valid, ndk0)
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("fused_block inputs must be contiguous")
-    W = _plan(D, U, A, cv.device.index)
+    limit = max_positions(A, cv.device.index)
+    if U > limit:
+        raise ValueError(
+            f"U={U} positions at A={A} do not fit the kernel's shared memory: it "
+            f"takes at most {limit} positions at A={A} on this device")
     lib = _library()
     z_out = torch.empty((U, D), dtype=torch.int32, device=cv.device)
     ndk_out = torch.empty((A, D), dtype=torch.float32, device=cv.device)
@@ -169,7 +125,7 @@ def fused_block(cv, f, uniforms, z0, nkg, valid, ndk0, alpha: float,
         stream = torch.cuda.current_stream(cv.device).cuda_stream
         err = lib.fused_block_launch(
             *(t.data_ptr() for t in tensors), z_out.data_ptr(),
-            ndk_out.data_ptr(), W, M, U, A, D, float(alpha), float(beta), stream)
+            ndk_out.data_ptr(), M, U, A, D, float(alpha), float(beta), stream)
     if err != 0:
         raise RuntimeError(f"fused_block kernel launch failed: CUDA error {err}")
     launches += 1

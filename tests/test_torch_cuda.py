@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from lda_thesis_tpu_torch.ops import draw_update_cuda as duc
 from lda_thesis_tpu_torch.ops import fused_block_cuda as fbc
 from lda_thesis_tpu_torch.ops import gibbs as tgibbs
@@ -87,31 +88,6 @@ def test_exact_sweep_on_card_matches_cpu():
 # ---- the merge-block kernel (fused_block.cu) against fused_block_torch
 
 
-def _block_inputs(seed, D, U, A, M, gaps=0.0, zero_doc=False):
-    """Merge-block kernel inputs: documents of 1..U types with trailing
-    padding (f = 0), a share ``gaps`` of further f = 0 positions inside
-    them, and, with ``zero_doc``, a first document whose f is all zero."""
-    rng = np.random.default_rng(seed)
-    n_valid = rng.integers(1, A + 1, size=D)
-    valid = (np.arange(A)[:, None] < n_valid[None, :]).astype(np.float32)
-    length = rng.integers(1, U + 1, size=D)
-    f = rng.integers(1, 4, size=(U, D)).astype(np.float32)
-    f[np.arange(U)[:, None] >= length[None, :]] = 0
-    f[rng.random((U, D)) < gaps] = 0
-    if zero_doc:
-        f[:, 0] = 0
-    z0 = (rng.random((U, D)) * n_valid[None, :]).astype(np.int32)
-    ndk0 = np.zeros((A, D), np.float32)
-    own = np.zeros((D, U, A), np.float32)
-    for p in range(U):
-        np.add.at(ndk0, (z0[p], np.arange(D)), f[p])
-        own[np.arange(D), p, z0[p]] = f[p]
-    cv = own + rng.integers(0, 300, size=(D, U, A)).astype(np.float32)
-    nkg = rng.integers(5000, 20000, size=(A, D)).astype(np.float32) + 89.69
-    u = rng.random((M, U, D)).astype(np.float32)
-    return [torch.from_numpy(x).cuda() for x in (cv, f, u, z0, nkg, valid, ndk0)]
-
-
 def _check_block(args):
     before = fbc.launches
     got = fbc.fused_block(*args, ALPHA, BETA)
@@ -123,23 +99,16 @@ def _check_block(args):
 
 
 # (D, U, A, M, gaps, zero_doc): the main path's four buckets (depth-3
-# abstracts, A = 24, M = 25), one and 32 slots, a document with no live
-# position, interior gaps, the widest documents the tests take, and
-# documents of one or two positions (with one, each step's next step is the
-# same position)
+# abstracts, A = 24, M = 25), then chip_smoke.py's edge cases: ragged
+# shapes, two waves of CTAs, one and 32 slots, a document with no live
+# position, interior gaps, U = 512, and documents of one or two positions
+# (with one, each step's next step is the same position)
 BLOCK_CASES = {
     "bucket0": (1653, 32, 24, 25, 0.0, False),
     "bucket1": (1148, 48, 24, 25, 0.0, False),
     "bucket2": (955, 80, 24, 25, 0.0, False),
     "bucket3": (415, 128, 24, 25, 0.0, False),
-    "A1": (301, 40, 1, 4, 0.2, False),
-    "A32": (301, 40, 32, 4, 0.2, False),
-    "zero-doc": (64, 24, 13, 3, 0.0, True),
-    "gaps": (200, 64, 24, 5, 0.5, False),
-    "U512": (150, 512, 32, 3, 0.3, True),
-    "U1": (67, 1, 7, 3, 0.0, True),
-    "U1-A1": (67, 1, 1, 3, 0.0, False),
-    "U2": (101, 2, 10, 4, 0.0, False),
+    **chip_smoke.edge_cases(),
 }
 
 
@@ -148,7 +117,7 @@ BLOCK_CASES = {
 def test_fused_block_kernel_matches_plain_version(case):
     _needs_card()
     D, U, A, M, gaps, zero_doc = BLOCK_CASES[case]
-    args = _block_inputs(D + U + A, D, U, A, M, gaps, zero_doc)
+    args = chip_smoke.block_case("cuda", D + U + A, D, U, A, M, gaps, zero_doc)
     z, ndk = _check_block(args)
     if zero_doc:  # no live position: z and n_dk come back as they went in
         assert torch.equal(z[:, 0], args[3][:, 0])
@@ -156,23 +125,16 @@ def test_fused_block_kernel_matches_plain_version(case):
 
 
 @pytest.mark.cuda
-def test_fused_block_kernel_with_a_partial_last_cta():
-    """D one past what one-document CTAs fit in one wave: the wrapper puts
-    two documents in a CTA, and the last CTA holds one."""
-    _needs_card()
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    D, U, A = 32 * sms + 1, 8, 8
-    W = fbc.docs_per_cta(D, U, A, sms)
-    assert W > 1 and D % W != 0
-    _check_block(_block_inputs(5, D, U, A, 2, gaps=0.3, zero_doc=True))
-
-
-@pytest.mark.cuda
 def test_fused_block_shared_memory_layout_and_limit():
+    """The kernel runs at the widest document its shared memory holds and
+    the wrapper raises one position past it; at A = 32 that is at least
+    the 512 positions the port's models may give it."""
     _needs_card()
-    lib = fbc._library()
-    for W, U, A in [(1, 32, 24), (3, 128, 24), (1, 563, 32), (16, 8, 1), (2, 7, 13)]:
-        assert lib.fused_block_smem_bytes(W, U, A) == fbc.smem_bytes(W, U, A)
-    args = _block_inputs(1, 4, fbc.max_positions(32) + 1, 32, 1)
-    with pytest.raises(ValueError, match="at most 563 positions"):
+    U = fbc.max_positions(32)
+    assert U >= 512
+    _check_block(chip_smoke.block_case("cuda", 1, 4, U, 32, 1))
+    args = chip_smoke.block_case("cuda", 1, 4, U + 1, 32, 1)
+    with pytest.raises(ValueError, match=f"at most {U} positions at A=32"):
         fbc.fused_block(*args, ALPHA, BETA)
+    with pytest.raises(ValueError, match="slots"):
+        fbc.max_positions(33)

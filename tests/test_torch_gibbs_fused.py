@@ -270,22 +270,6 @@ def test_fused_block_rejects_bad_inputs(problem):
         fbc.fused_block(*bad_shape, ALPHA, BETA)
 
 
-def test_docs_per_cta_and_positions_limit():
-    """The kernel's launch plan: one document per CTA where all fit in one
-    wave (the main path's buckets on 132 SMs), more where that packs more
-    documents into a wave, and a stated limit on U."""
-    for D_g, U_g in [(1653, 32), (1148, 48), (955, 80), (415, 128)]:
-        assert fbc.docs_per_cta(D_g, U_g, 24, 132) == 1
-    assert fbc.docs_per_cta(32 * 132 + 1, 8, 8, 132) == 2
-    assert fbc.docs_per_cta(10, 512, 32, 132) == 1
-    assert fbc.max_positions(32) == 563 >= 512
-    assert fbc.smem_bytes(1, 563, 32) <= fbc.SMEM_PER_CTA < fbc.smem_bytes(1, 564, 32)
-    with pytest.raises(ValueError, match="at most 563 positions at A=32"):
-        fbc.docs_per_cta(10, 564, 32, 132)
-    with pytest.raises(ValueError, match="slots"):
-        fbc.docs_per_cta(10, 8, 33, 132)
-
-
 def test_fused_block_has_no_plain_fallback_off_cpu(problem):
     """A tensor off the CPU goes to the kernel or raises; it never takes
     the plain version."""

@@ -1,17 +1,15 @@
-"""Probes of the merge-block kernel's launch plan and staging, and of
-torch.profiler's kernel records, on one CUDA card.
+"""Probes of the merge-block kernel's cv staging and of torch.profiler's
+kernel records, on one CUDA card.
 
     python3 tools/probe_fused_block.py [--seed N] [--sessions N] [--out FILE]
 
-1. Documents per CTA (W): the kernel at W = 1, 2 and 4 on the main path's
-   bucket shapes, on shapes that take two waves at W = 1 (D > 32 CTAs per
-   SM), and on the blocks of ``CascadeLDA(sweep="fused")`` at the thesis
-   config; times from CUDA events around 10 back-to-back calls, in the order
-   1 2 4 4 2 1, and every W's output bitwise equal to W = 1's.
-2. cv staging: the bulk copy (a 16-byte aligned slab) against the
-   cooperative copy (the same cv one float off that alignment), in the
-   order bulk coop coop bulk.
-3. Profiler records: after phases 3 and 4 of chip_smoke.py, ``--sessions``
+1. cv staging: the bulk copy (a 16-byte aligned slab) against the
+   cooperative copy (the same cv one float off that alignment), on the main
+   path's bucket shapes, a two-wave shape and the blocks of
+   ``CascadeLDA(sweep="fused")`` at the thesis config; times from CUDA
+   events around 10 back-to-back calls, in the order bulk coop coop bulk,
+   and the two copies' outputs bitwise equal.
+2. Profiler records: after phases 3 and 4 of chip_smoke.py, ``--sessions``
    torch.profiler sessions of 20 draw-update launches each, in turns with
    CUDA activity alone (as chip_smoke's ``_device_ms``), with CPU and CUDA
    activity, and with CUDA activity and 2 ms of host wait at each end of the
@@ -33,50 +31,11 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke  # noqa: E402
 
 
-def _launch(lib, args, W: int, alpha: float, beta: float):
-    import torch
-
-    cv, f, u, z0, nkg, valid, ndk0 = args
-    D, U, A = cv.shape
-    M = u.shape[0]
-    z = torch.empty((U, D), dtype=torch.int32, device=cv.device)
-    ndk = torch.empty((A, D), dtype=torch.float32, device=cv.device)
-    err = lib.fused_block_launch(*(t.data_ptr() for t in args), z.data_ptr(),
-                                 ndk.data_ptr(), W, M, U, A, D, alpha, beta,
-                                 torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"launch failed at W={W}: CUDA error {err}")
-    return z, ndk
-
-
-def docs_per_cta_probe(cases: dict, sms: int) -> list:
-    from lda_thesis_tpu_torch.ops import fused_block_cuda as fbc
-
-    lib = fbc._library()
-    a, b = 0.1, 0.01
-    out = []
-    for name, args in cases.items():
-        D, U, A = args[0].shape
-        ws = [W for W in (1, 2, 4) if fbc.smem_bytes(W, U, A) <= fbc.SMEM_PER_CTA]
-        ref = _launch(lib, args, 1, a, b)
-        times = {W: [] for W in ws}
-        for W in ws + ws[::-1]:
-            got = _launch(lib, args, W, a, b)
-            chip_smoke._check(chip_smoke._bitwise(got, ref), f"{name}: W={W} == W=1")
-            times[W].append(chip_smoke._batch_ms(lambda: _launch(lib, args, W, a, b), 10))
-        row = dict(case=name, D=D, U=U, A=A, M=int(args[2].shape[0]),
-                   picked=fbc.docs_per_cta(D, U, A, sms), ms=times)
-        print(json.dumps(row))
-        out.append(row)
-    return out
-
-
 def staging_probe(cases: dict) -> list:
     import torch
 
     from lda_thesis_tpu_torch.ops import fused_block_cuda as fbc
 
-    lib = fbc._library()
     a, b = 0.1, 0.01
     out = []
     for name, args in cases.items():
@@ -86,14 +45,15 @@ def staging_probe(cases: dict) -> list:
         off.copy_(cv)
         coop = (off,) + tuple(args[1:])
         chip_smoke._check(off.data_ptr() % 16 == 4, "the copy is off 16-byte alignment")
-        chip_smoke._check(chip_smoke._bitwise(_launch(lib, coop, 1, a, b),
-                                              _launch(lib, args, 1, a, b)),
+        chip_smoke._check(chip_smoke._bitwise(fbc.fused_block(*coop, a, b),
+                                              fbc.fused_block(*args, a, b)),
                           f"{name}: coop == bulk")
         times = dict(bulk=[], coop=[])
         for kind in ("bulk", "coop", "coop", "bulk"):
             x = args if kind == "bulk" else coop
-            times[kind].append(chip_smoke._batch_ms(lambda: _launch(lib, x, 1, a, b), 10))
-        row = dict(case=name, shape=list(cv.shape), ms=times)
+            times[kind].append(chip_smoke._batch_ms(lambda: fbc.fused_block(*x, a, b), 10))
+        D, U, A = cv.shape
+        row = dict(case=name, D=D, U=U, A=A, M=int(args[2].shape[0]), ms=times)
         print(json.dumps(row))
         out.append(row)
     return out
@@ -204,25 +164,22 @@ def main(argv=None) -> int:
     print(chip_smoke._card_line())
     for mod in (fbc, duc):
         mod.build()
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
     shapes = {
         "bucket0": (1653, 32, 24, 25), "bucket3": (415, 128, 24, 25),
-        "two waves U=32 A=24": (32 * sms * 2, 32, 24, 25),
-        "two waves U=8 A=8": (32 * sms + 1, 8, 8, 25),
+        "two waves U=32 A=24": (2 * 32 * 132, 32, 24, 25),
     }
     cases = {k: chip_smoke.block_case("cuda", i, *s, gaps=0.0)
              for i, (k, s) in enumerate(shapes.items())}
     jel = jel_corpus(args.seed)
     jel_dicti = prune_dict(jel.train_docs, lower=0, upper=1)
     cases.update(cascade_blocks(jel, jel_dicti, args.seed))
-    w = docs_per_cta_probe(cases, sms)
-    s = staging_probe({k: cases[k] for k in ("bucket3", "two waves U=32 A=24")})
+    s = staging_probe(cases)
     corpus = planted_corpus(args.seed)
     dicti = prune_dict(corpus.train_docs, lower=0, upper=1)
     p = profiler_probe(corpus, dicti, args.seed, args.sessions)
     if args.out:
         Path(args.out).write_text(json.dumps(dict(
-            card=chip_smoke._card_line(), docs_per_cta=w, staging=s, profiler=p), indent=1))
+            card=chip_smoke._card_line(), staging=s, profiler=p), indent=1))
     return 0
 
 
