@@ -22,14 +22,21 @@ made from ``--seed``.  Phases:
    perplexity on (the CLI's default) and off (bench.py's setting), more
    timed training calls and one under torch.profiler (device time by
    kernel, idle share);
-5. the draw-update kernel against ``draw_update_torch`` at the first and
-   last position of every bucket of the dense model (K = 512), at one
-   CascadeLDA level-2 batch and at one ragged case, and one whole exact
-   sweep of bucket 0 on the card against the same sweep on the CPU; times
-   of the kernel and its plain version;
+5. the exact sweep's draw and count-commit kernels against their plain
+   versions (``draw_update`` and ``draw_rows`` against ``draw_update_torch``
+   and ``draw_rows_torch``, ``commit_counts`` against
+   ``commit_counts_torch``) at the first and last position of every bucket
+   of the dense model (K = 512), at one CascadeLDA level-2 batch and at one
+   ragged case, and one whole exact sweep of bucket 0 on the card against
+   the same sweep on the CPU; times of the kernels and their plain
+   versions; then one replayed CUDA-graph sweep over all buckets under
+   torch.profiler: every draw and commit record and their mean device time;
 6. the dense Labeled-LDA path at (50; 25): invariants, kernel launches
-   (one per type position per sweep), AUC, tokens/s, and one (25; 25) call
-   under torch.profiler;
+   (a draw per type position with a live row per sweep, and the commits),
+   AUC, tokens/s; 3 graphed sweeps against 3 eager ones from one seed,
+   bitwise, and the device time per position of replayed sweeps; and one
+   (25; 25) call under torch.profiler, whose kernel records must equal the
+   counted launches;
 7. the compact Labeled-LDA path at (10; 5): invariants and AUC, no kernel;
 8. CascadeLDA at the thesis config, ``go_down_tree(4, 2)`` (root level
    (16; 4)) on a JEL-shaped corpus, ``test_down_tree_batch`` of the test
@@ -55,7 +62,10 @@ SOURCE = "lda_thesis_tpu_torch/ops/csrc/fused_block.cu"
 REPLACES = "lda_thesis_tpu/ops/gibbs_fused.py:246"
 DRAW_SOURCE = "lda_thesis_tpu_torch/ops/csrc/draw_update.cu"
 DRAW_REPLACES = "lda_thesis_tpu/ops/gibbs_pallas.py:38"
-KERNEL2 = "draw_update_kernel"  # the CUDA kernel's name, as the profiler shows it
+KERNEL2 = "draw_update_kernel"  # the CUDA kernels' names, as the profiler shows them
+COMMIT = "count_commit_kernel"
+# the commit kernel takes in the reference's table and topic-total scatters
+COMMIT_REPLACES = "lda_thesis_tpu/ops/gibbs.py:178-187 (XLA scatter-adds, no TPU kernel)"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12  # H100 SXM data sheet, fp32 outside the tensor cores
 OPS_PER_SLOT_DRAW = 12  # fp32 operations per (slot, position, sweep)
@@ -67,6 +77,10 @@ COMPACT_ITERS, COMPACT_THINNING = 10, 5
 CASCADE_IT, CASCADE_S = 4, 2  # the thesis config; the root level runs (16; 4)
 MIN_AUC = 0.6
 STEADY_CALLS = 5
+# launch records a profiler session may lose (PERF.md: sessions of a long
+# process have lost one of 20 without a cause found); a time is then the
+# mean of those kept
+LOST_RECORDS = 2
 DEVICE = "cuda"
 
 
@@ -104,38 +118,35 @@ def _batch_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _device_ms(fn, reps: int, kernel: str) -> float:
-    """Mean device time of one launch of the CUDA kernel named ``kernel``
-    over ``reps`` calls of ``fn``, from torch.profiler.  A launch that takes
-    less time on the card than its call takes on the host cannot be timed
-    with events around the call; the profiler reads the kernel's own span.
-    The mean is over exactly ``reps`` records.  Sessions tracing the device
-    alone have kept fewer records than launches, without a cause found, so
-    the session traces the host too and keeps 2 ms of host time at either
-    end of its window; a session that still keeps fewer is reported and
-    made again, up to three sessions."""
+def _graph_ms(fn, reps: int) -> float:
+    """Device time per launch of ``fn``: ``reps`` calls captured as one CUDA
+    graph, CUDA events around 10 replays.  A launch that takes less time on
+    the card than its call takes on the host cannot be timed with events
+    around the call, and profiler sessions in a long process have lost
+    records (PERF.md); the replay's time includes the graph's gaps between
+    launches (about 0.3 us or less against the profiler's kernel spans,
+    tools/probe_draw_update.py)."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    graph = torch.cuda.CUDAGraph()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        graph.capture_begin()
+        for _ in range(reps):
+            fn()
+        graph.capture_end()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph.replay()
     torch.cuda.synchronize()
-    kept = []
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            time.sleep(0.002)
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-            time.sleep(0.002)
-        spans = [e for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA and kernel in e.key]
-        kept.append(sum(e.count for e in spans))
-        if kept[-1] == reps:
-            break
-        print(f"  the profiler kept {kept[-1]} of {reps} launch records of {kernel}")
-    _check(kept[-1] == reps, f"the profiler kept {kept} of {reps} launches of {kernel}")
-    return sum(e.self_device_time_total for e in spans) / 1e3 / reps
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(10):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (10 * reps)
 
 
 def _profile(train) -> dict:
@@ -155,9 +166,9 @@ def _profile(train) -> dict:
     kernels.sort(key=lambda e: -e.self_device_time_total)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     _check(busy_ms > 0, "the profiler recorded device time")
-    top = [[e.key[:80], e.count, e.self_device_time_total / 1e3] for e in kernels[:6]]
+    records = [[e.key, e.count, e.self_device_time_total / 1e3] for e in kernels]
     return dict(wall_ms=wall_ms, busy_ms=busy_ms, idle_share=1.0 - busy_ms / wall_ms,
-                top=top)
+                top=[[k[:80], n, ms] for k, n, ms in records[:6]], records=records)
 
 
 def _card_line() -> str:
@@ -385,7 +396,7 @@ def main_path(corpus, dicti, seed: int) -> dict:
     from lda_thesis_tpu_torch.ops import draw_update_cuda as duc
     from lda_thesis_tpu_torch.ops import fused_block_cuda as fbc
 
-    fbc.launches = duc.launches = 0
+    fbc.launches = duc.launches = duc.commit_launches = 0
     t0 = time.perf_counter()
     model = LabeledLDA(corpus.train_docs, corpus.train_labs, corpus.labelset,
                        dicti, alpha=0.1, beta=0.01, seed=seed, n_buckets=4,
@@ -399,7 +410,8 @@ def main_path(corpus, dicti, seed: int) -> dict:
     torch.cuda.synchronize()
     t3 = time.perf_counter()
     launches = fbc.launches
-    _check(duc.launches == 0, "the fused path launches no draw-update kernel")
+    _check(duc.launches == duc.commit_launches == 0,
+           "the fused path launches no draw or commit kernel")
 
     G = model.buckets.n_buckets
     st = model.counts
@@ -473,6 +485,165 @@ def draw_inputs(tok_v_t, tok_f_t, z_t, n_dk, n_vk, n_k, labs, p: int, vbeta: flo
     recip = 1.0 / ((n_k - dec) + vbeta)
     u = torch.rand(tuple(f.shape), generator=gen, device=f.device)
     return [u, f, z_old, labs.contiguous(), n_dk.clone(), cv, recip]
+
+
+def planned_sweep_launches(tok_f_t) -> tuple:
+    """(draws, commits) of one exact sweep over positions ``tok_f_t (U, D)``:
+    a draw per position with a live row (f > 0), a commit per position
+    whose own or previous position has one, and a last commit after a live
+    last position; positions with nothing to do launch nothing."""
+    live = (tok_f_t > 0).any(dim=1).tolist()
+    commits = sum(live[p] or (p > 0 and live[p - 1]) for p in range(len(live)))
+    return sum(live), commits + bool(live and live[-1])
+
+
+def sweep_inputs(tok_v_t, tok_f_t, z_t, n_dk, n_vk, n_k, labs, p: int, gen):
+    """The sweep's commit and draw arguments at position ``p`` from the
+    given state: ``commit`` (table, n_k, dec, inc) with the table and totals
+    copied, and ``draw`` (draw_rows' arguments but α, β, V·β) on copies
+    where the commit has landed."""
+    import torch
+
+    from lda_thesis_tpu_torch.ops import draw_update_cuda as duc
+    from lda_thesis_tpu_torch.ops.gibbs import live_rows
+
+    def slots(q):
+        live, _ = live_rows(tok_v_t[q:q + 1], tok_f_t[q:q + 1])[0]
+        return duc.Slots(tok_v_t[q], z_t[q], tok_f_t[q], live)
+
+    dec, inc = slots(p), (slots(p - 1) if p > 0 else None)
+    words = dec.rows[dec.live.long()]
+    commit = [n_vk.clone(), n_k.clone(), dec, inc]
+    table, nk = n_vk.clone(), n_k.clone()
+    duc.commit_counts_torch(table, nk, dec, None)
+    u = torch.rand(tuple(dec.f.shape), generator=gen, device=dec.f.device)
+    draw = [u, dec.f, dec.z.clone(), labs.contiguous(), n_dk.clone(), table, words, nk,
+            dec.live]
+    return commit, draw
+
+
+def _compare_sweep_steps(commit, draw, a, b, vbeta, what: str) -> float:
+    """The commit and the draw kernels against their plain versions on
+    copies of the state: bitwise equal; returns the largest difference."""
+    import torch
+
+    from lda_thesis_tpu_torch.ops import draw_update_cuda as duc
+
+    got, want = [t.clone() for t in commit[:2]], [t.clone() for t in commit[:2]]
+    duc.commit_counts(*got, *commit[2:])
+    duc.commit_counts_torch(*want, *commit[2:])
+    outs = []
+    for fn in (duc.draw_rows, duc.draw_rows_torch):
+        z, nd = draw[2].clone(), draw[4].clone()
+        fn(draw[0], draw[1], z, draw[3], nd, *draw[5:], a, b, vbeta)
+        outs.append([z, nd])
+    torch.cuda.synchronize()
+    _check(_bitwise(got, want), f"commit kernel == plain version, {what}")
+    _check(_bitwise(*outs), f"draw kernel (table in place) == plain version, {what}")
+    return max(_max_abs_err(got, want), _max_abs_err(*outs))
+
+
+def sweep_commit_bound_ms(tok_f_t, K: int) -> list:
+    """Bound (ms) of each commit launch of one sweep of a bucket (the
+    position's decrements and the previous position's increments, and a
+    last commit of the final increments), by bytes: per live slot its row
+    index, table row, topic and frequency read and its table element read
+    and written (28 bytes), and n_k read and written once; two adds a slot."""
+    live = (tok_f_t > 0).sum(dim=1).tolist() + [0]
+    slots = [live[p] + (live[p - 1] if p else 0) for p in range(len(live))]
+    return [1e3 * 4 * (7 * n + 2 * K) / HBM_BYTES_PER_S for n in slots if n]
+
+
+def sweep_bound_ms(tok_f_t, K: int) -> list:
+    """Bound (ms) of each draw launch of one sweep of a bucket: 12·K bytes
+    per live row and the (D,) and (K,) vectors (``draw_bound``)."""
+    U, D = tok_f_t.shape
+    out = []
+    for live in (tok_f_t > 0).sum(dim=1).tolist():
+        if live:
+            by_bytes = 4 * (3 * live * K + 2 * live + 4 * D + 2 * K) / HBM_BYTES_PER_S
+            by_ops = OPS_PER_TOPIC_DRAW * K * live / FP32_FLOP_PER_S
+            out.append(1e3 * max(by_bytes, by_ops))
+    return out
+
+
+def _kernel_records(prof, name: str) -> tuple:
+    """(records, device ms) of the CUDA kernels whose name holds ``name``."""
+    from torch.autograd import DeviceType
+
+    spans = [e for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and name in e.key]
+    return sum(e.count for e in spans), sum(e.self_device_time_total for e in spans) / 1e3
+
+
+def dense_state_copy(model):
+    """A copy of ``model``'s dense state, z position-major."""
+    import torch
+
+    from lda_thesis_tpu_torch.ops.gibbs import BucketLDAState
+
+    st = model.counts
+    return BucketLDAState(
+        z=tuple(z.T.clone(memory_format=torch.contiguous_format) for z in st.z),
+        n_dk=tuple(x.clone() for x in st.n_dk), n_vk=st.n_vk.clone(), n_k=st.n_k.clone())
+
+
+def bucket_runners(model):
+    """One ``ExactSweep`` per bucket over a copy of ``model``'s dense state;
+    returns the runners and that state."""
+    from lda_thesis_tpu_torch.ops.gibbs import ExactSweep
+
+    state = dense_state_copy(model)
+    runs = [ExactSweep(state.z[g], state.n_dk[g], state.n_vk, state.n_k, model._toks_v_t[g],
+                       model._toks_f_t[g], model.labs_t[g], model.alpha, model.beta,
+                       float(model.V * model.beta))
+            for g in range(model.buckets.n_buckets)]
+    return runs, state
+
+
+def graphed_sweep_profile(model, seed: int) -> dict:
+    """One replayed sweep over all buckets under torch.profiler, after an
+    eager sweep and the capture: every draw and commit record, their mean
+    device time per launch, and the draws' mean bound."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from lda_thesis_tpu_torch.ops import draw_update_cuda as duc
+
+    runs, _ = bucket_runners(model)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed)
+    for _ in range(2):  # eager, then capture and the first replay
+        for run in runs:
+            run(gen)
+    torch.cuda.synchronize()
+    plan = [planned_sweep_launches(tf) for tf in model._toks_f_t]
+    draws, commits = sum(p[0] for p in plan), sum(p[1] for p in plan)
+    for attempt in range(3):
+        d0, c0 = duc.launches, duc.commit_launches
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.002)
+            for run in runs:
+                run(gen)
+            torch.cuda.synchronize()
+            time.sleep(0.002)
+        _check((duc.launches - d0, duc.commit_launches - c0) == (draws, commits),
+               f"a replayed sweep counts its planned launches ({draws}, {commits})")
+        (n_draw, draw_ms), (n_commit, commit_ms) = (_kernel_records(prof, KERNEL2),
+                                                    _kernel_records(prof, COMMIT))
+        if (n_draw, n_commit) == (draws, commits):
+            break
+        print(f"  the profiler kept {n_draw} of {draws} draw and {n_commit} of "
+              f"{commits} commit records of the replayed sweep")
+    _check(draws - LOST_RECORDS <= n_draw <= draws
+           and commits - LOST_RECORDS <= n_commit <= commits,
+           f"the profiler recorded the kernel nodes of the replayed sweep "
+           f"({n_draw}/{draws} draws, {n_commit}/{commits} commits)")
+    bounds = [b for tf in model._toks_f_t for b in sweep_bound_ms(tf, model.Kp)]
+    c_bounds = [b for tf in model._toks_f_t for b in sweep_commit_bound_ms(tf, model.Kp)]
+    _check(len(c_bounds) == commits, "one commit bound per planned commit")
+    return dict(draws=draws, commits=commits, ms=draw_ms / n_draw, commit_ms=commit_ms / n_commit,
+                bound_ms=float(np.mean(bounds)), commit_bound_ms=float(np.mean(c_bounds)))
 
 
 def draw_bound(args) -> tuple:
@@ -555,20 +726,44 @@ def draw_kernel_phase(corpus, dicti, jel, jel_dicti, seed: int) -> dict:
         z_t = st.z[g].T.contiguous()
         times = []
         for p in (0, U - 1):
+            what = f"bucket {g} position {p}"
             args = draw_inputs(tv, tf, z_t, st.n_dk[g], st.n_vk, st.n_k,
                                model.labs_t[g], p, vbeta, gen)
-            rec["max_abs_err"] = max(rec["max_abs_err"],
-                                     _compare_draw(args, a, b, f"bucket {g} position {p}"))
-            scratch = [t.clone() for t in args]
-            k_ms = _device_ms(lambda: duc.draw_update(*scratch, a, b), 20, KERNEL2)
-            c_ms = _median_ms(lambda: duc.draw_update(*scratch, a, b), 20)
-            p_ms = _median_ms(lambda: duc.draw_update_torch(*scratch, a, b), 3)
+            commit, draw = sweep_inputs(tv, tf, z_t, st.n_dk[g], st.n_vk, st.n_k,
+                                        model.labs_t[g], p, gen)
+            rec["max_abs_err"] = max(rec["max_abs_err"], _compare_draw(args, a, b, what),
+                                     _compare_sweep_steps(commit, draw, a, b, vbeta, what))
+            if not draw[-1].numel():
+                print(f"bucket {g}: position {p}/{U} has no live row: no draw launched")
+                continue
+            # the draw as the sweep launches it: table rows in place, recip from n_k
+            scratch = [t.clone() for t in draw]
+            k_ms = _graph_ms(lambda: duc.draw_rows(*scratch, a, b, vbeta), 20)
+            c_ms = _median_ms(lambda: duc.draw_rows(*scratch, a, b, vbeta), 20)
+            p_ms = _median_ms(lambda: duc.draw_rows_torch(*scratch, a, b, vbeta), 3)
             by_bytes, by_ops = draw_bound(args)
             times.append((k_ms, c_ms, p_ms, by_bytes, by_ops))
             print(f"bucket {g}: D={D} K={model.Kp} position {p}/{U}  kernel "
                   f"{k_ms:.4f} ms on the card ({c_ms:.4f} ms per call)  plain "
                   f"{p_ms:.3f} ms  bound {1e3 * max(by_bytes, by_ops):.5f} ms "
-                  f"({int((args[1] > 0).sum())} rows with f > 0)  bitwise equal")
+                  f"({int((args[1] > 0).sum())} rows with f > 0)  bitwise equal "
+                  f"(draw_update, draw_rows, commit_counts)")
+            if g == 0 and p == 0:
+                # a commit with a full decrement and a full increment: the
+                # plain version, and two index_add_ calls on prepared indices
+                sc, _ = sweep_inputs(tv, tf, z_t, st.n_dk[g], st.n_vk, st.n_k,
+                                     model.labs_t[g], 1, gen)
+                rec["commit_plain_ms"] = _median_ms(lambda: duc.commit_counts_torch(*sc), 20)
+                idx = torch.cat([s_.rows[s_.live.long()] * model.Kp + s_.z[s_.live.long()]
+                                 for s_ in sc[2:]])
+                zs = torch.cat([s_.z[s_.live.long()].long() for s_ in sc[2:]])
+                vals = torch.cat([-sc[2].f[sc[2].live.long()], sc[3].f[sc[3].live.long()]])
+                flat = sc[0].view(-1)
+                rec["commit_library_ms"] = _median_ms(
+                    lambda: (flat.index_add_(0, idx, vals), sc[1].index_add_(0, zs, vals)), 20)
+                print(f"commit at bucket 0 position 1 ({idx.numel()} slots): plain "
+                      f"{rec['commit_plain_ms']:.4f} ms, two index_add_ calls "
+                      f"{rec['commit_library_ms']:.4f} ms")
         k_ms, c_ms, p_ms, by_bytes, by_ops = (float(np.mean(x)) for x in zip(*times))
         # weight each bucket by its positions: the path launches once per position
         rec["ms"] += U * k_ms
@@ -592,12 +787,16 @@ def draw_kernel_phase(corpus, dicti, jel, jel_dicti, seed: int) -> dict:
     tok_f = torch.as_tensor(cm.tok_f[row_doc], device=DEVICE).long()
     labs = torch.as_tensor(mask, device=DEVICE)
     c = init_counts(tok_v, tok_f, labs, cm.V, generator=gen)
-    args = draw_inputs(tok_v.T.contiguous(), tok_f.T.float().contiguous(),
-                       c.z.T.contiguous(), c.n_dk, c.n_vk, c.n_k, labs, 0,
-                       float(cm.V * cm.beta), gen)
-    rec["max_abs_err"] = max(rec["max_abs_err"], _compare_draw(args, a, b, "cascade level 2"))
-    scratch = [t.clone() for t in args]
-    k_ms = _device_ms(lambda: duc.draw_update(*scratch, a, b), 20, KERNEL2)
+    level = (tok_v.T.contiguous(), tok_f.T.float().contiguous(), c.z.T.contiguous(),
+             c.n_dk, c.n_vk, c.n_k, labs, 0)
+    cvbeta = float(cm.V * cm.beta)
+    args = draw_inputs(*level, cvbeta, gen)
+    commit, draw = sweep_inputs(*level, gen)
+    rec["max_abs_err"] = max(rec["max_abs_err"], _compare_draw(args, a, b, "cascade level 2"),
+                             _compare_sweep_steps(commit, draw, a, b, cvbeta,
+                                                  "cascade level 2"))
+    scratch = [t.clone() for t in draw]
+    k_ms = _graph_ms(lambda: duc.draw_rows(*scratch, a, b, cvbeta), 20)
     by_bytes, by_ops = draw_bound(args)
     rec["cascade_level2"] = dict(R=int(mask.shape[0]), K=int(mask.shape[1]), ms=k_ms,
                                  bound_ms=1e3 * max(by_bytes, by_ops))
@@ -627,9 +826,20 @@ def draw_kernel_phase(corpus, dicti, jel, jel_dicti, seed: int) -> dict:
                                     generator=gen)
         _check_counts(state, float(model.n_tokens), f"dense sweep {i + 1}")
     print("5 dense sweeps over all buckets: count invariants hold after each")
-    print(f"per launch, averaged over the dense path's {positions} positions: kernel "
-          f"{rec['ms']:.4f} ms on the card ({rec['call_ms']:.4f} ms per call), plain "
-          f"{rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.5f} ms ({rec['bound_by']})")
+    print(f"per launch, averaged over the first and last positions of the dense path's "
+          f"buckets ({positions} positions): kernel {rec['ms']:.4f} ms on the card "
+          f"({rec['call_ms']:.4f} ms per call), plain {rec['plain_ms']:.3f} ms, bound "
+          f"{rec['bound_ms']:.5f} ms ({rec['bound_by']})")
+
+    # every position of one replayed sweep over all buckets
+    sweep = graphed_sweep_profile(model, seed + 3)
+    rec.update(ms_all_positions=sweep["ms"], bound_ms_all_positions=sweep["bound_ms"],
+               commit_ms=sweep["commit_ms"], commit_bound_ms=sweep["commit_bound_ms"],
+               draws_per_sweep=sweep["draws"], commits_per_sweep=sweep["commits"])
+    print(f"one replayed sweep ({sweep['draws']} draw and {sweep['commits']} commit "
+          f"records): draw kernel {sweep['ms']:.5f} ms per launch (bound "
+          f"{sweep['bound_ms']:.5f} ms), commit kernel {sweep['commit_ms']:.5f} ms per "
+          f"launch (bound {sweep['commit_bound_ms']:.5f} ms)")
     return rec
 
 
@@ -643,7 +853,7 @@ def exact_path(corpus, dicti, seed: int, sweep: str, iters: int, thinning: int) 
     from lda_thesis_tpu_torch.ops import draw_update_cuda as duc
     from lda_thesis_tpu_torch.ops import fused_block_cuda as fbc
 
-    fbc.launches = duc.launches = 0
+    fbc.launches = duc.launches = duc.commit_launches = 0
     t0 = time.perf_counter()
     model = LabeledLDA(corpus.train_docs, corpus.train_labs, corpus.labelset,
                        dicti, alpha=0.1, beta=0.01, seed=seed, sweep=sweep,
@@ -656,12 +866,16 @@ def exact_path(corpus, dicti, seed: int, sweep: str, iters: int, thinning: int) 
     th = model.run_test(corpus.test_docs, TRAIN_ITERS, THINNING)
     torch.cuda.synchronize()
     t3 = time.perf_counter()
-    launches = dict(draw_update=duc.launches, fused_block=fbc.launches)
+    launches = dict(draw_update=duc.launches, count_commit=duc.commit_launches,
+                    fused_block=fbc.launches)
 
     positions = sum(int(tv.shape[0]) for tv in model._toks_v_t)
-    planned = iters * positions if sweep == "dense" else 0
-    _check(launches == dict(draw_update=planned, fused_block=0),
-           f"{sweep}: kernel launches {launches}, planned {planned} draw-update")
+    plan = [planned_sweep_launches(tf) for tf in model._toks_f_t]
+    planned = dict(draw_update=iters * sum(p[0] for p in plan),
+                   count_commit=iters * sum(p[1] for p in plan), fused_block=0)
+    if sweep != "dense":
+        planned.update(draw_update=0, count_commit=0)
+    _check(launches == planned, f"{sweep}: kernel launches {launches}, planned {planned}")
     _check_counts(model.counts, float(model.n_tokens), sweep)
     _check(th.shape == (len(corpus.test_docs), model.K) and bool(np.isfinite(th).all()),
            f"{sweep}: fold-in θ finite, (n_test, K)")
@@ -676,8 +890,59 @@ def exact_path(corpus, dicti, seed: int, sweep: str, iters: int, thinning: int) 
           f"{t3 - t2:.3f} s")
     print(f"  kernel launches {launches}; perplexity {model.cur_perplx}; "
           f"test metrics {json.dumps(metrics)}")
-    return dict(model=model, launches=launches["draw_update"], positions=positions,
+    return dict(model=model, launches=launches["draw_update"],
+                commit_launches=launches["count_commit"], positions=positions,
                 tokens_per_s=tokens_per_s, metrics=metrics)
+
+
+def graph_check(model, seed: int) -> dict:
+    """Three sweeps over all buckets from replayed CUDA graphs (``ExactSweep``)
+    against the same three sweeps launched eagerly (``exact_sweep``), from
+    one seed: bitwise equal, with the count invariants after every sweep;
+    then the device time per position of replayed sweeps (CUDA events
+    around 5 sweeps over all buckets, uniforms drawn into the static buffers
+    included)."""
+    import torch
+
+    from lda_thesis_tpu_torch.ops.gibbs import exact_sweep
+
+    runs, graphed = bucket_runners(model)
+    eager = dense_state_copy(model)
+    gens = []
+    for _ in range(2):
+        gens.append(torch.Generator(device=DEVICE))
+        gens[-1].manual_seed(seed)
+    vbeta = float(model.V * model.beta)
+    for i in range(3):
+        for g, run in enumerate(runs):
+            run(gens[0])
+            tv, tf = model._toks_v_t[g], model._toks_f_t[g]
+            u = torch.rand(tuple(tv.shape), generator=gens[1], device=DEVICE)
+            exact_sweep(eager.z[g], eager.n_dk[g], eager.n_vk, eager.n_k, tv, tf,
+                        model.labs_t[g], model.alpha, model.beta, vbeta, u)
+        for name, st in (("graphed", graphed), ("eager", eager)):
+            _check_counts(st, float(model.n_tokens), f"{name} sweep {i + 1}")
+    _check(all(run._graph is not None for run in runs), "the runners replay a captured graph")
+    gen = gens[0]
+    flat = [t for st in (graphed, eager) for t in (*st.z, *st.n_dk, st.n_vk, st.n_k)]
+    half = len(flat) // 2
+    _check(_bitwise(flat[:half], flat[half:]), "3 graphed sweeps == 3 eager sweeps, bitwise")
+    reps = 5
+    positions = sum(int(tv.shape[0]) for tv in model._toks_v_t)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        for run in runs:
+            run(gen)
+    end.record()
+    torch.cuda.synchronize()
+    sweep_ms = start.elapsed_time(end) / reps
+    print(f"3 dense sweeps over all buckets, graphed == eager bitwise (z, n_dk, n_vk, n_k); "
+          f"count invariants hold after each; a replayed sweep takes {sweep_ms:.4f} ms, "
+          f"{sweep_ms / positions:.6f} ms per position ({positions} positions)")
+    return dict(sweep_ms=sweep_ms, step_ms_per_position=sweep_ms / positions)
 
 
 def dense_profile(model) -> dict:
@@ -685,10 +950,18 @@ def dense_profile(model) -> dict:
     torch.profiler."""
     from lda_thesis_tpu_torch.ops import draw_update_cuda as duc
 
-    before = duc.launches
+    d0, c0 = duc.launches, duc.commit_launches
     prof = _profile(lambda: model.run_training(THINNING, THINNING, perplexity=False))
-    positions = sum(int(tv.shape[0]) for tv in model._toks_v_t)
-    _check(duc.launches - before == THINNING * positions, "profiled call's launches")
+    plan = [planned_sweep_launches(tf) for tf in model._toks_f_t]
+    planned = (THINNING * sum(p[0] for p in plan), THINNING * sum(p[1] for p in plan))
+    counted = (duc.launches - d0, duc.commit_launches - c0)
+    recorded = tuple(sum(n for key, n, _ in prof["records"] if name in key)
+                     for name in (KERNEL2, COMMIT))
+    _check(counted == planned, f"profiled call's launches {counted}, planned {planned}")
+    _check(all(n - LOST_RECORDS <= r <= n for r, n in zip(recorded, planned)),
+           f"the profiler's records {recorded} == launches {planned}")
+    print(f"  launches (draw, commit): counted {counted}, recorded by the profiler "
+          f"{recorded}")
     tokens_per_s = model.n_tokens * THINNING / (prof["wall_ms"] / 1e3)
     print(f"dense (25; 25) under the profiler, perplexity off: {prof['wall_ms']:.3f} ms "
           f"wall ({tokens_per_s:.1f} tokens/s), device busy {prof['busy_ms']:.3f} ms "
@@ -710,7 +983,7 @@ def cascade_path(jel, jel_dicti, seed: int) -> dict:
     from lda_thesis_tpu_torch.ops import draw_update_cuda as duc
     from lda_thesis_tpu_torch.ops import fused_block_cuda as fbc
 
-    fbc.launches = duc.launches = 0
+    fbc.launches = duc.launches = duc.commit_launches = 0
     t0 = time.perf_counter()
     model = CascadeLDA(jel.train_docs, jel.train_labs, jel.labelset, jel_dicti,
                        alpha=0.001, beta=0.001, seed=seed, device=DEVICE)
@@ -720,12 +993,19 @@ def cascade_path(jel, jel_dicti, seed: int) -> dict:
     l1, l2, l3 = model.test_down_tree_batch(jel.test_docs, CASCADE_IT, CASCADE_S)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    launches = dict(draw_update=duc.launches, fused_block=fbc.launches)
+    launches = dict(draw_update=duc.launches, count_commit=duc.commit_launches,
+                    fused_block=fbc.launches)
 
-    planned = sum(s["sweeps"] * s["positions"] for s in model.level_stats)
-    _check(launches == dict(draw_update=planned, fused_block=0),
-           f"cascade: kernel launches {launches}, planned {planned} draw-update")
     _check(len(model.level_stats) == 3, "cascade: three levels trained")
+    level_f = [model.tok_f] + [model.tok_f[model._level_rows(parents)[0]]
+                               for parents in (model.lablist_l1, model.lablist_l2)]
+    per_sweep = [planned_sweep_launches(torch.from_numpy(tf.T)) for tf in level_f]
+    planned = dict(draw_update=sum(st["sweeps"] * p[0]
+                                   for st, p in zip(model.level_stats, per_sweep)),
+                   count_commit=sum(st["sweeps"] * p[1]
+                                    for st, p in zip(model.level_stats, per_sweep)),
+                   fused_block=0)
+    _check(launches == planned, f"cascade: kernel launches {launches}, planned {planned}")
     _check(bool(np.isfinite(model.ph).all()) and float(model.ph.min()) >= 0,
            "cascade: φ finite and non-negative")
     th_all = setup_theta(l1, l2, l3, model.labelmap)
@@ -741,13 +1021,13 @@ def cascade_path(jel, jel_dicti, seed: int) -> dict:
     print(f"cascade: D={model.D} V={model.V} K={model.K}; go_down_tree({CASCADE_IT}, "
           f"{CASCADE_S}) {t1 - t0:.3f} s, test_down_tree_batch of "
           f"{len(jel.test_docs)} docs {t2 - t1:.3f} s")
-    for name, st in zip(("root", "level 1", "level 2"), model.level_stats):
+    for name, st, p in zip(("root", "level 1", "level 2"), model.level_stats, per_sweep):
         print(f"  {name}: R={st['rows']} U={st['positions']} K={st['topics']} "
-              f"sweeps={st['sweeps']} draw-update launches "
-              f"{st['sweeps'] * st['positions']} ({st['seconds']:.3f} s)")
+              f"sweeps={st['sweeps']} launches: draw {st['sweeps'] * p[0]}, commit "
+              f"{st['sweeps'] * p[1]} ({st['seconds']:.3f} s)")
     print(f"  macro AUC by depth {aucs}")
-    return dict(launches=launches["draw_update"], aucs=aucs, levels=model.level_stats,
-                train_s=t1 - t0, test_s=t2 - t1)
+    return dict(launches=launches["draw_update"], commit_launches=launches["count_commit"],
+                aucs=aucs, levels=model.level_stats, train_s=t1 - t0, test_s=t2 - t1)
 
 
 def main(argv=None) -> int:
@@ -820,9 +1100,12 @@ def main(argv=None) -> int:
 
     # 6. dense path
     dense = exact_path(corpus, dicti, args.seed, "dense", TRAIN_ITERS, THINNING)
-    _check(dense["launches"] == TRAIN_ITERS * dense["positions"],
-           "dense: one draw-update launch per position per sweep")
-    dense_prof = dense_profile(dense.pop("model"))
+    _check(dense["launches"] == TRAIN_ITERS * draw["draws_per_sweep"],
+           "dense: one draw launch per live position per sweep")
+    dense_model = dense.pop("model")
+    graphed = graph_check(dense_model, args.seed + 4)
+    dense_prof = dense_profile(dense_model)
+    del dense_model
     phase_done("dense path")
 
     # 7. compact path
@@ -876,13 +1159,27 @@ def main(argv=None) -> int:
         "bound_ms": draw["bound_ms"],
         "bound_by": draw["bound_by"],
         "library_ms": None,
-        "per": f"launch, mean over the dense path's {dense['positions']} positions "
-               "per sweep; ms is device time (torch.profiler), call_ms the call's",
+        "per": "launch as the sweep makes it (table rows in place), mean over the first "
+               "and last positions of the dense path's buckets weighted by their "
+               "positions; ms is device time (CUDA events around replays of a graph of "
+               "20 launches), call_ms the call's; "
+               "ms_all_positions the mean device time over every launch of one replayed "
+               "sweep, step_ms_per_position CUDA events around replayed sweeps over all "
+               f"{dense['positions']} positions",
         "call_ms": draw["call_ms"],
+        "ms_all_positions": draw["ms_all_positions"],
+        "bound_ms_all_positions": draw["bound_ms_all_positions"],
+        "commit_ms": draw["commit_ms"],
+        "step_ms_per_position": graphed["step_ms_per_position"],
+        "sweep_ms": graphed["sweep_ms"],
+        "draws_per_sweep": draw["draws_per_sweep"],
+        "commits_per_sweep": draw["commits_per_sweep"],
         "buckets": draw["buckets"],
         "cascade_level2": draw["cascade_level2"],
         "launches_cascade": cascade["launches"],
         "dense_train_tokens_per_s": dense["tokens_per_s"],
+        "dense_profiled_wall_ms_no_perplexity": dense_prof["wall_ms"],
+        "dense_profiled_busy_ms_no_perplexity": dense_prof["busy_ms"],
         "dense_profiled_tokens_per_s_no_perplexity": dense_prof["tokens_per_s"],
         "dense_device_idle_share_no_perplexity": dense_prof["idle_share"],
         "dense_auc_roc": dense["metrics"]["auc_roc"],
@@ -891,6 +1188,23 @@ def main(argv=None) -> int:
         "cascade_auc_by_depth": cascade["aucs"],
         "cascade_train_s": cascade["train_s"],
         "cascade_test_s": cascade["test_s"],
+    }, {
+        "name": "count_commit",
+        "route": "cuda",
+        "source": DRAW_SOURCE,
+        "replaces": COMMIT_REPLACES,
+        "launches": dense["commit_launches"],
+        "bitwise_equal": True,
+        "max_abs_err": draw["max_abs_err"],
+        "ms": draw["commit_ms"],
+        "plain_ms": draw["commit_plain_ms"],
+        "bound_ms": draw["commit_bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": draw["commit_library_ms"],
+        "per": "launch, mean device time over every commit of one replayed sweep "
+               "(torch.profiler); plain_ms and library_ms (two index_add_ calls) at "
+               "bucket 0 position 1",
+        "launches_cascade": cascade["commit_launches"],
     }]
     print(json.dumps({"phase_seconds": seconds}))
     print(json.dumps({"kernels": kernels}))

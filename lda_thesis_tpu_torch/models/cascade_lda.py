@@ -11,7 +11,8 @@ factorises exactly into the independent per-node trainings.  Test inference
 surviving node) tasks through ``ops/gibbs.cascade_test_loop``.
 
 Samplers: ``sweep="dense"`` (``"auto"``) is the exact per-position sweep,
-one launch of the CUDA draw-update kernel per position on a card;
+on a card a count commit and a draw kernel per position, the level's sweep
+captured once as a CUDA graph and replayed (``ops/gibbs.ExactSweep``);
 ``"compact"`` is the same sampler on compact label slots; ``"fused"`` is the
 merge-block sampler (ops/gibbs_fused.py) with M = ``select_merge_block(5,
 s, it)``.
@@ -39,9 +40,9 @@ import torch
 
 from ..data.encode import compact_labels, encode_bow_types
 from ..ops.gibbs import (
+    ExactSweep,
     cascade_test_loop,
     compact_sweep,
-    exact_sweep,
     init_counts,
     init_counts_compact,
 )
@@ -91,6 +92,10 @@ class _LevelChain:
         self.state = c
         if model.sweep != "fused":
             self.z_t = c.z.T.contiguous()
+        if model.sweep == "dense":
+            # on a card the level's sweep becomes one CUDA graph, replayed
+            self.runner = ExactSweep(self.z_t, c.n_dk, c.n_vk, c.n_k, self.tv_t, self.tf_t,
+                                     self.labs, model.alpha, model.beta, self.vbeta)
 
     @property
     def n_vk(self) -> torch.Tensor:
@@ -104,12 +109,11 @@ class _LevelChain:
                                            generator=md._gen, vbeta=self.vbeta)
             return
         for _ in range(m):
-            u = torch.rand(tuple(self.tv_t.shape), generator=md._gen, device=md.device)
             if md.sweep == "dense":
-                self.z_t = exact_sweep(self.z_t, st.n_dk, st.n_vk, st.n_k, self.tv_t,
-                                       self.tf_t, self.labs, md.alpha, md.beta,
-                                       self.vbeta, u)
+                self.runner(md._gen)
             else:
+                u = torch.rand(tuple(self.tv_t.shape), generator=md._gen,
+                               device=md.device)
                 self.z_t = compact_sweep(self.z_t, st.n_dk, st.n_vk, st.n_k, self.tv_t,
                                          self.tf_t, self.li, self.lv, md.alpha,
                                          md.beta, self.vbeta, u)

@@ -11,8 +11,9 @@ its three samplers:
   block-frozen table (ops/gibbs_fused.py); one launch of the CUDA merge-block
   kernel per bucket per block on a card;
 * ``sweep="dense"``: the exact per-position sweep over (D, K) lanes
-  (ops/gibbs.exact_sweep); one launch of the CUDA draw-update kernel per
-  type position per bucket per sweep;
+  (ops/gibbs.exact_sweep); on a card a count commit and a draw kernel per
+  type position, each bucket's sweep captured once per ``run_training``
+  call as a CUDA graph and replayed (ops/gibbs.ExactSweep);
 * ``sweep="compact"``: the same exact sampler on each document's compact
   label slots (ops/gibbs.compact_sweep), in plain PyTorch.
 
@@ -36,8 +37,8 @@ import torch
 from ..data.buckets import BucketedDocs, bucket_encode
 from ..data.encode import binarize_labels, build_labelmap, compact_labels, encode_bow_types
 from ..ops.gibbs import (
+    ExactSweep,
     compact_sweep,
-    exact_sweep,
     foldin_sweep,
     init_bucket_counts,
     init_bucket_counts_compact,
@@ -186,13 +187,12 @@ class LabeledLDA:
         vbeta = float(self.V * self.beta)
         for _ in range(M):
             for g in range(self.buckets.n_buckets):
-                tv, tf = self._toks_v_t[g], self._toks_f_t[g]
-                u = torch.rand(tuple(tv.shape), generator=self._gen, device=self.device)
                 if self.sweep == "dense":
-                    self._z_t[g] = exact_sweep(
-                        self._z_t[g], st.n_dk[g], st.n_vk, st.n_k, tv, tf, self.labs_t[g],
-                        self.alpha, self.beta, vbeta, u)
+                    self._sweeps[g](self._gen)
                 else:
+                    tv, tf = self._toks_v_t[g], self._toks_f_t[g]
+                    u = torch.rand(tuple(tv.shape), generator=self._gen,
+                                   device=self.device)
                     self._z_t[g] = compact_sweep(
                         self._z_t[g], st.n_dk[g], st.n_vk, st.n_k, tv, tf,
                         self.lab_ids_t[g], self.lab_valid_t[g], self.alpha, self.beta,
@@ -227,9 +227,18 @@ class LabeledLDA:
             # position-major z and private copies of the counts, which the
             # exact sweeps update in place for the rest of this call
             st = self.counts
-            self._z_t = [z.T.contiguous() for z in st.z]
-            self.counts = type(st)(z=st.z, n_dk=tuple(x.clone() for x in st.n_dk),
-                                   n_vk=st.n_vk.clone(), n_k=st.n_k.clone())
+            self._z_t = [z.T.clone(memory_format=torch.contiguous_format) for z in st.z]
+            self.counts = st = type(st)(z=st.z, n_dk=tuple(x.clone() for x in st.n_dk),
+                                        n_vk=st.n_vk.clone(), n_k=st.n_k.clone())
+            if self.sweep == "dense":
+                # one sweep runner per bucket over this call's state: on a
+                # card the bucket's sweep becomes one CUDA graph, replayed
+                vbeta = float(self.V * self.beta)
+                self._sweeps = [
+                    ExactSweep(self._z_t[g], st.n_dk[g], st.n_vk, st.n_k,
+                               self._toks_v_t[g], self._toks_f_t[g], self.labs_t[g],
+                               self.alpha, self.beta, vbeta)
+                    for g in range(self.buckets.n_buckets)]
         if not (continue_avg and self._avg_s > 0):
             self.ph_hat = torch.zeros_like(self.ph_hat)
             self._th_hat_t = self._zeros_th()
@@ -257,6 +266,7 @@ class LabeledLDA:
             self.counts = self.counts._replace(
                 z=tuple(z.T.contiguous() for z in self._z_t))
             del self._z_t
+            self._sweeps = None
         self._check_ph_hat()
 
     def _perplexity_of(self, phi, thetas) -> float:

@@ -1,42 +1,59 @@
-// One position of the exact dense collapsed-Gibbs sweep on Hopper (sm_90a).
+// One position of the exact dense collapsed-Gibbs sweep on Hopper (sm_90a):
+// the draw kernel and the count-commit kernel.
 //
-// Replaces the TPU kernel lda_thesis_tpu/ops/gibbs_pallas.py::_build
-// (pallas_call at gibbs_pallas.py:87, called through fused_draw_update): for
-// every document row d at one type position, with f = f[d], z_old = z_old[d]:
+// The draw kernel replaces the TPU kernel
+// lda_thesis_tpu/ops/gibbs_pallas.py::_build (pallas_call at
+// gibbs_pallas.py:87, called through fused_draw_update): for the i-th live
+// document row d (f = f[d] > 0, z_old = z_old[d]) at one type position, with
+// cv = table[rows[i]] (the topic-word row of its word, read in place) and
+// recip[k] = 1/(n_k[k] + V*beta) (n_k after the position's decrement) or a
+// given recip:
 //   n       = n_dk[d, k] - ((k == z_old) ? f : 0)
-//   w[k]    = ((labs[d, k] * (n + alpha)) * (cv[d, k] + beta)) * recip[k]
+//   w[k]    = ((labs[d, k] * (n + alpha)) * (cv[k] + beta)) * recip[k]
 //   c       = inclusive cumsum of w over the K topics (order below)
-//   z_new   = #{k < K : c[k] < u[d] * c[K-1]}, kept at z_old where f == 0
+//   z_new   = min(#{k < K : c[k] < u[d] * c[K-1]}, K-1)
 //   n_dk[d, z_old] -= f;  n_dk[d, z_new] += f           (in place)
-//   dnk[z_old] -= f;      dnk[z_new] += f                (atomics, all rows)
-// The caller decrements and gathers the topic-word row cv = n_vk[v] and forms
-// recip = 1/(n_k - dec + V*beta) before the launch, and commits the increment
-// to n_vk after it, as the reference does (lda_thesis_tpu/ops/gibbs.py:175-188).
+//   dnk[z_old] -= f;      dnk[z_new] += f                (atomics, if dnk given)
+// A row with f == 0 keeps its topic.  The commit kernel applies the table and
+// topic-total updates the reference makes around the draw
+// (lda_thesis_tpu/ops/gibbs.py:178-187): n_vk[v, z] += s*f and n_k[z] += s*f
+// for the live slots of one position's decrement (s = -1) and the previous
+// position's increment (s = +1), by atomicAdd.  Counts are integers below
+// 2^24 in float32, so every count update is exact in any order.  The two
+// kernels alternate on one stream: every decrement lands before any row
+// reads the table, and every read ends before the increment lands.
 //
-// Summation order of c (draw_update_torch in draw_update_cuda.py repeats it):
-// lane l of the row's warp owns the contiguous topics [l*P, (l+1)*P) with
-// P = ceil(K/32); it sums its w in order starting from 0 (p), the lane totals
-// are scanned across the warp (Hillis-Steele, offsets 1..16, inclusive), and
-// c[k] = base_l + p[k] with base_l the scan at lane l-1 (0 for lane 0).  All
-// in float32 with no FMA contraction (built with -fmad=false).  Counts are
-// integers below 2^24 in float32, so the count updates and the atomics onto
-// dnk are exact in any order.
+// Summation order of c (_chunk_cumsum in draw_update_cuda.py repeats it):
+// lane l of the row's warp takes topics 32*i + l, chunk i = 0, 1, ...; within
+// a chunk the lanes' w are scanned inclusively (Hillis-Steele, offsets
+// 1..16; lanes past K hold 0), giving s_i[l]; then c[32*i + l] = carry_i +
+// s_i[l] with carry_0 = 0 and carry_{i+1} = carry_i + s_i[31].  All in
+// float32 with no FMA contraction (built with -fmad=false); 1/x is
+// correctly rounded (no fast-math).
 //
-// Design.  One warp per document row, rows independent.  Each lane walks its
-// P topics twice: once for its total, once, after the warp scan has given the
-// row total, to count the c below the draw; the second pass re-reads the row
-// from L1/L2 and repeats the first pass's operations bit for bit.  Lane 0
-// applies the two count updates and the two atomics.  A row with f == 0 only
-// copies z_old.  Rows past D are not launched; there is no padding.
+// Design.  One warp per live row, 8 rows per CTA; the grid spans only the
+// position's live rows (lists built once per sweep state, with each live
+// row's word beside it, so the table row's address does not wait on d).
+// Each warp-wide load of labs, n_dk and the table row is 128 contiguous
+// bytes.  For K <= 1024 (NC chunks, a template argument) the code is
+// straight-line: every chunk's loads are issued at once into registers
+// while the CTA stages recip in shared memory, the chunks' scans run level
+// by level across the chunks so that their shuffles overlap, and a running
+// carry joins them; the latency of memory is paid once per launch, not once
+// per chunk.  Wider rows recompute the same w and scan in a second pass,
+// with no bound on K.  The count below the draw is the sum over chunks of
+// popc(ballot(k < K && c < r)).  Lane 0 applies the two n_dk updates.
 //
-// Bound on this card.  Each live row (f > 0) must read its n_dk, cv and labs
-// rows ((K,) float32 each) and write two n_dk elements, so a launch moves
-// about 12*live*K bytes against about 8 fp32 operations per (row, topic): the
-// bytes bound it (3.35 TB/s), e.g. 3.0 us at the first position of the
-// widest dense Labeled-LDA bucket (1,653 live rows, K = 512).  The launch
-// overhead is of the same order, and the exact sweep makes one launch per
-// type position with a handful of small PyTorch ops around it, so the path
-// is bound by the host, not by this kernel (PERF.md).
+// Bound on this card.  Each live row must read its n_dk, labs and table rows
+// ((K,) float32 each) and write two n_dk elements: about 12*live*K bytes
+// against about 8 fp32 operations per (row, topic), so bytes bound it
+// (3.35 TB/s); e.g. 3.0 us at the first position of the widest dense
+// Labeled-LDA bucket (1,653 live rows, K = 512).  The table (V*K*4 bytes,
+// 18.4 MB at the depth-3 shape) and a bucket's labs and n_dk stay in the
+// 50 MB L2 across a sweep, so a launch can run under that bound.  At small
+// positions a launch costs its latency: the CTA's start and two dependent
+// loads (the live list, then the row).  The commit moves a few bytes per
+// live slot; its time is launch latency and the atomics on n_k.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -44,92 +61,281 @@
 namespace {
 
 constexpr int kWarpsPerBlock = 8;
+constexpr int kMaxChunks = 32;  // register path: K <= 32 * kMaxChunks
+constexpr int kCommitThreads = 256;
 constexpr unsigned kFullMask = 0xffffffffu;
 
-__device__ __forceinline__ float weight(const float* __restrict__ labs,
-                                        const float* ndk,
-                                        const float* __restrict__ cv,
-                                        const float* __restrict__ recip,
-                                        size_t row, int k, int z_old, float f,
-                                        float alpha, float beta) {
-  const float n = ndk[row + k] - ((k == z_old) ? f : 0.0f);
-  float w = labs[row + k] * (n + alpha);
-  w = w * (cv[row + k] + beta);
-  return w * recip[k];
+struct DrawArgs {
+  const float* u;          // (D,)
+  const float* f;          // (D,)
+  const int* z_old;        // (D,)
+  int* z_new;              // (D,), may be z_old (in place)
+  const float* labs;       // (D, K)
+  float* ndk;              // (D, K), updated in place
+  const float* table;      // (V, K) topic-word counts, rows read in place
+  const long long* rows;   // (n,) table row of each drawn row, or null: row d
+  const float* nk;         // (K,) topic totals after the decrement, or null
+  const float* recip;      // (K,) given 1/(n_k + V*beta), or null: from nk
+  float* dnk;              // (K,) change of the topic totals, or null
+  const int* live;         // (n,) rows to draw, or null: rows 0..n-1
+  int n, K;
+  float alpha, beta, vbeta;
+};
+
+__device__ __forceinline__ float recip_at(const DrawArgs& a, int k) {
+  return a.recip ? a.recip[k] : 1.0f / (a.nk[k] + a.vbeta);
 }
 
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-draw_update_kernel(const float* __restrict__ u,      // (D,)
-                   const float* __restrict__ f,      // (D,)
-                   const int* __restrict__ z_old,    // (D,)
-                   const float* __restrict__ labs,   // (D, K)
-                   float* ndk,                       // (D, K), updated in place
-                   const float* __restrict__ cv,     // (D, K)
-                   const float* __restrict__ recip,  // (K,)
-                   int* __restrict__ z_new,          // (D,)
-                   float* __restrict__ dnk,          // (K,), zeroed by the caller
-                   int D, int K, float alpha, float beta) {
-  const int lane = threadIdx.x & 31;
-  const int d = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (d >= D) return;  // warp-uniform: the whole warp leaves together
-  const float fd = f[d];
-  const int zo = z_old[d];
-  if (fd == 0.0f) {  // warp-uniform
-    if (lane == 0) z_new[d] = zo;
-    return;
-  }
-  const size_t row = (size_t)d * K;
-  const int per = (K + 31) / 32;
-  const int k0 = min(lane * per, K);
-  const int k1 = min(k0 + per, K);
-
-  float s = 0.0f;
-  for (int k = k0; k < k1; ++k)
-    s = s + weight(labs, ndk, cv, recip, row, k, zo, fd, alpha, beta);
-
-  float incl = s;
+// Inclusive Hillis-Steele scan of one value per lane.
+__device__ __forceinline__ float warp_scan(float x, int lane) {
 #pragma unroll
   for (int off = 1; off < 32; off <<= 1) {
-    const float y = __shfl_up_sync(kFullMask, incl, off);
-    if (lane >= off) incl = incl + y;
+    const float y = __shfl_up_sync(kFullMask, x, off);
+    if (lane >= off) x = x + y;
   }
-  float base = __shfl_up_sync(kFullMask, incl, 1);
-  if (lane == 0) base = 0.0f;
-  const float total = __shfl_sync(kFullMask, base + s, (K - 1) / per);
-  const float r = u[d] * total;
+  return x;
+}
 
+// Loads of one row, issued before anything waits on them (one unused slot
+// each when NC == 0).
+template <int NC>
+struct RowLoads {
+  float labs[NC > 0 ? NC : 1], ndk[NC > 0 ? NC : 1], cv[NC > 0 ? NC : 1];
+};
+
+// One draw per warp, for the li-th drawn row d.  NC > 0: the row's values
+// come preloaded in `ld`, c is kept in NC registers per lane and recip read
+// from shared memory; NC == 0: any K, two passes over device memory, recip
+// computed per topic.
+template <int NC>
+__device__ __forceinline__ void draw_row(const DrawArgs& a, const RowLoads<NC>& ld,
+                                         const float* s_recip, int li, int d, float fd,
+                                         int zo, float u, int lane) {
+  const int K = a.K;
+  const int last = (K - 1) >> 5;  // chunk of topic K-1
+  float carry = 0.0f, total = 0.0f;
   int below = 0;
-  float p = 0.0f;
-  for (int k = k0; k < k1; ++k) {
-    p = p + weight(labs, ndk, cv, recip, row, k, zo, fd, alpha, beta);
-    below += (base + p < r) ? 1 : 0;
-  }
+  if constexpr (NC > 0) {
+    // Straight-line code over all NC chunks, selects and no branches (topics
+    // past K hold w = 0): a branch would let the compiler sink each chunk's
+    // loads to their use and keeps it from interleaving the chunks' scans.
+    float c[NC];
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    below += __shfl_xor_sync(kFullMask, below, off);
-
-  if (lane == 0) {
-    const int zn = min(below, K - 1);
-    z_new[d] = zn;
-    ndk[row + zo] = ndk[row + zo] - fd;
-    ndk[row + zn] = ndk[row + zn] + fd;
-    atomicAdd(dnk + zo, -fd);
-    atomicAdd(dnk + zn, fd);
+    for (int i = 0; i < NC; ++i) {
+      const int k = 32 * i + lane;
+      const float n = ld.ndk[i] - ((k == zo) ? fd : 0.0f);
+      float w = ld.labs[i] * (n + a.alpha);
+      w = w * (ld.cv[i] + a.beta);
+      w = w * s_recip[k];
+      c[i] = k < K ? w : 0.0f;
+    }
+    // the chunks' Hillis-Steele scans, level by level across the chunks so
+    // that their shuffles overlap; each chunk's operations as in warp_scan
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+#pragma unroll
+      for (int i = 0; i < NC; ++i) {
+        const float y = __shfl_up_sync(kFullMask, c[i], off);
+        c[i] = lane >= off ? c[i] + y : c[i];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < NC; ++i) {
+      const float s = c[i];
+      c[i] = carry + s;
+      const float t = __shfl_sync(kFullMask, c[i], (K - 1) & 31);
+      if (i == last) total = t;
+      carry = carry + __shfl_sync(kFullMask, s, 31);
+    }
+    const float r = u * total;
+#pragma unroll
+    for (int i = 0; i < NC; ++i)
+      below += __popc(__ballot_sync(kFullMask, 32 * i + lane < K && c[i] < r));
+    if (lane == 0) {
+      float* ndk = a.ndk + (size_t)d * K;
+      const int zn = min(below, K - 1);
+      a.z_new[d] = zn;
+      // both loads in flight at once; the values of the two updates made
+      // one after the other
+      const float n_old = ndk[zo], n_new = ndk[zn];
+      const float dec = n_old - fd;
+      if (zn == zo) {
+        ndk[zo] = dec + fd;
+      } else {
+        ndk[zo] = dec;
+        ndk[zn] = n_new + fd;
+      }
+      if (a.dnk) {
+        atomicAdd(a.dnk + zo, -fd);
+        atomicAdd(a.dnk + zn, fd);
+      }
+    }
+  } else {
+    const float* __restrict__ labs = a.labs + (size_t)d * K;
+    const float* __restrict__ cv = a.table + (size_t)(a.rows ? a.rows[li] : d) * K;
+    const float* ndk = a.ndk + (size_t)d * K;
+    auto scan = [&](int j) -> float {
+      const int k = 32 * j + lane;
+      float w = 0.0f;
+      if (k < K) {
+        const float n = ndk[k] - ((k == zo) ? fd : 0.0f);
+        w = labs[k] * (n + a.alpha);
+        w = w * (cv[k] + a.beta);
+        w = w * recip_at(a, k);
+      }
+      return warp_scan(w, lane);
+    };
+    for (int j = 0; j <= last; ++j) {
+      const float s = scan(j);
+      if (j == last) total = __shfl_sync(kFullMask, carry + s, (K - 1) & 31);
+      carry = carry + __shfl_sync(kFullMask, s, 31);
+    }
+    const float r = u * total;
+    carry = 0.0f;
+    for (int j = 0; j <= last; ++j) {  // the same operations again
+      const float s = scan(j);
+      below += __popc(__ballot_sync(kFullMask, 32 * j + lane < K && carry + s < r));
+      carry = carry + __shfl_sync(kFullMask, s, 31);
+    }
+    if (lane == 0) {
+      float* ndk = a.ndk + (size_t)d * K;
+      const int zn = min(below, K - 1);
+      a.z_new[d] = zn;
+      ndk[zo] = ndk[zo] - fd;
+      ndk[zn] = ndk[zn] + fd;
+      if (a.dnk) {
+        atomicAdd(a.dnk + zo, -fd);
+        atomicAdd(a.dnk + zn, fd);
+      }
+    }
   }
+}
+
+template <int NC>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+draw_update_kernel(const DrawArgs a) {
+  __shared__ float s_recip[NC > 0 ? 32 * NC : 1];
+  const int lane = threadIdx.x & 31;
+  const int i = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  // this thread's share of n_k (or the given recip) for the CTA's staging,
+  // loaded first: it does not wait on the row index
+  constexpr int kThreads = kWarpsPerBlock * 32;
+  constexpr int kStage = NC > 0 ? (32 * NC + kThreads - 1) / kThreads : 1;
+  float staged[kStage];
+  if constexpr (NC > 0) {
+#pragma unroll
+    for (int j = 0; j < kStage; ++j) {
+      const int k = threadIdx.x + kThreads * j;
+      staged[j] = k < a.K ? __ldg((a.recip ? a.recip : a.nk) + k) : 0.0f;
+    }
+  }
+  int d = 0, zo = 0;
+  float fd = 0.0f, u = 0.0f;
+  RowLoads<NC> ld;
+  if (i < a.n) {  // warp-uniform
+    d = a.live ? a.live[i] : i;
+    fd = a.f[d];
+    zo = a.z_old[d];
+    u = a.u[d];
+    if constexpr (NC > 0) {
+      // every chunk's loads in flight together, not waiting on f (the
+      // sweep launches live rows only), the table row's index not waiting
+      // on d
+      const size_t row = (size_t)d * a.K;
+      const size_t trow = (size_t)(a.rows ? a.rows[i] : d) * a.K;
+#pragma unroll
+      for (int j = 0; j < NC; ++j) {
+        const int k = 32 * j + lane;
+        const bool in = k < a.K;
+        ld.labs[j] = in ? __ldg(a.labs + row + k) : 0.0f;
+        ld.ndk[j] = in ? a.ndk[row + k] : 0.0f;
+        ld.cv[j] = in ? __ldg(a.table + trow + k) : 0.0f;
+      }
+    }
+  }
+  if constexpr (NC > 0) {  // while the row's loads are in flight
+#pragma unroll
+    for (int j = 0; j < kStage; ++j) {
+      const int k = threadIdx.x + kThreads * j;
+      if (k < a.K) s_recip[k] = a.recip ? staged[j] : 1.0f / (staged[j] + a.vbeta);
+    }
+    __syncthreads();
+  }
+  if (i >= a.n) return;  // warp-uniform: the whole warp leaves together
+  if (fd == 0.0f) {      // warp-uniform
+    if (lane == 0) a.z_new[d] = zo;
+    return;
+  }
+  draw_row<NC>(a, ld, s_recip, i, d, fd, zo, u, lane);
+}
+
+struct Slots {
+  const long long* rows;  // (D,) table row of each document
+  const int* z;           // (D,) topic of each document's slot
+  const float* f;         // (D,) frequency
+  const int* live;        // (n,) rows with f > 0
+  int n;
+};
+
+__global__ void __launch_bounds__(kCommitThreads)
+count_commit_kernel(float* table, float* nk, int K, const Slots dec, const Slots inc) {
+  int j = blockIdx.x * kCommitThreads + threadIdx.x;
+  const bool is_dec = j < dec.n;
+  if (!is_dec) j -= dec.n;
+  if (j >= (is_dec ? dec.n : inc.n)) return;
+  // fields picked one by one: a reference to either parameter would copy
+  // both to the stack
+  const int d = (is_dec ? dec.live : inc.live)[j];
+  const int z = (is_dec ? dec.z : inc.z)[d];
+  const float f = is_dec ? -dec.f[d] : inc.f[d];
+  atomicAdd(table + (size_t)(is_dec ? dec.rows : inc.rows)[d] * K + z, f);
+  atomicAdd(nk + z, f);
+}
+
+template <int NC>
+int launch_draw(const DrawArgs& a, cudaStream_t stream) {
+  const int blocks = (a.n + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  draw_update_kernel<NC><<<blocks, kWarpsPerBlock * 32, 0, stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Launches the kernel on `stream`; returns cudaGetLastError() as an int.
-extern "C" int draw_update_launch(const float* u, const float* f,
-                                  const int* z_old, const float* labs,
-                                  float* ndk, const float* cv,
-                                  const float* recip, int* z_new, float* dnk,
-                                  int D, int K, float alpha, float beta,
-                                  void* stream) {
-  const int blocks = (D + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  draw_update_kernel<<<blocks, kWarpsPerBlock * 32, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      u, f, z_old, labs, ndk, cv, recip, z_new, dnk, D, K, alpha, beta);
+// Launches the draw kernel on `stream` for n rows (n >= 1); returns
+// cudaGetLastError() as an int.
+extern "C" int draw_update_launch(const float* u, const float* f, const int* z_old,
+                                  int* z_new, const float* labs, float* ndk,
+                                  const float* table, const long long* rows,
+                                  const float* nk, const float* recip, float* dnk,
+                                  const int* live, int n, int K, float alpha,
+                                  float beta, float vbeta, void* stream) {
+  const DrawArgs a{u, f, z_old, z_new, labs, ndk, table, rows, nk, recip, dnk, live,
+                   n, K, alpha, beta, vbeta};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int chunks = (K + 31) / 32;
+  if (chunks <= 1) return launch_draw<1>(a, s);
+  if (chunks <= 2) return launch_draw<2>(a, s);
+  if (chunks <= 4) return launch_draw<4>(a, s);
+  if (chunks <= 6) return launch_draw<6>(a, s);
+  if (chunks <= 8) return launch_draw<8>(a, s);
+  if (chunks <= 12) return launch_draw<12>(a, s);
+  if (chunks <= 16) return launch_draw<16>(a, s);
+  if (chunks <= 24) return launch_draw<24>(a, s);
+  if (chunks <= kMaxChunks) return launch_draw<kMaxChunks>(a, s);
+  return launch_draw<0>(a, s);
+}
+
+// Launches the commit kernel on `stream` for n_dec + n_inc >= 1 slots.
+extern "C" int count_commit_launch(float* table, float* nk, int K,
+                                   const long long* dec_rows, const int* dec_z,
+                                   const float* dec_f, const int* dec_live, int n_dec,
+                                   const long long* inc_rows, const int* inc_z,
+                                   const float* inc_f, const int* inc_live, int n_inc,
+                                   void* stream) {
+  const Slots dec{dec_rows, dec_z, dec_f, dec_live, n_dec};
+  const Slots inc{inc_rows, inc_z, inc_f, inc_live, n_inc};
+  const int blocks = (n_dec + n_inc + kCommitThreads - 1) / kCommitThreads;
+  count_commit_kernel<<<blocks, kCommitThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      table, nk, K, dec, inc);
   return (int)cudaGetLastError();
 }

@@ -1,10 +1,12 @@
 """Collapsed-Gibbs sweeps and their helpers, on tensors.
 
 Counterpart of ``lda_thesis_tpu/ops/gibbs.py``: the dense and compact-support
-inits, the exact per-position sweeps (dense through the CUDA draw-update
-kernel, :mod:`.draw_update_cuda`; compact in plain PyTorch) and their bucket
-variants, the compact → dense doc-topic helpers, the frozen-φ fold-in sweep,
-CascadeLDA's batched node-level fold-in and the training log-likelihood.
+inits, the exact per-position sweeps (dense through the CUDA draw and
+count-commit kernels, :mod:`.draw_update_cuda`, replayed as one CUDA graph
+per sweep state by :class:`ExactSweep`; compact in plain PyTorch) and their
+bucket variants, the compact → dense doc-topic helpers, the frozen-φ fold-in
+sweep, CascadeLDA's batched node-level fold-in and the training
+log-likelihood.
 Counts are float32 tensors holding integers below 2^24, so every count
 update is exact in any order.
 
@@ -23,12 +25,13 @@ function's shape and otherwise draws from ``generator`` (a
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from .draw_update_cuda import draw_update
+from . import draw_update_cuda as duc
+from .draw_update_cuda import Slots, commit_counts, draw_rows
 from .sampling import gumbel_argmax, mask_to_logits
 
 __all__ = [
@@ -45,6 +48,8 @@ __all__ = [
     "train_sweep_compact",
     "train_sweep_buckets_compact",
     "exact_sweep",
+    "ExactSweep",
+    "live_rows",
     "compact_sweep",
     "densify_ndk",
     "theta_from_compact",
@@ -218,8 +223,21 @@ def init_bucket_counts_compact(toks_v, toks_f, lab_ids_t, lab_valid_t, V: int, K
     return CompactBucketState(z=tuple(zs), n_dk=tuple(ndks), n_vk=n_vk, n_k=n_k)
 
 
+def live_rows(tok_v_t: torch.Tensor,
+              tok_f_t: torch.Tensor) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """Per position of ``tok_f_t (U, D)``, the rows with f > 0 in ascending
+    order (int32) and their words from ``tok_v_t (U, D)`` (int64), as views
+    of two tensors built at once (one host sync)."""
+    live = tok_f_t > 0
+    n = live.sum(dim=1).tolist()
+    order = torch.sort((~live).to(torch.uint8), dim=1, stable=True).indices
+    words = torch.gather(tok_v_t, 1, order)
+    order = order.to(torch.int32)
+    return [(order[p, :n[p]], words[p, :n[p]]) for p in range(len(n))]
+
+
 def exact_sweep(
-    z_t: torch.Tensor,  # (U, D) int32, position-major
+    z_t: torch.Tensor,  # (U, D) int32, position-major, updated in place
     n_dk: torch.Tensor,  # (D, K), updated in place
     n_vk: torch.Tensor,  # (V, K), updated in place
     n_k: torch.Tensor,  # (K,), updated in place
@@ -230,34 +248,100 @@ def exact_sweep(
     beta: float,
     vbeta: float,
     uniforms: torch.Tensor,  # (U, D)
+    live: Optional[Sequence[Tuple[torch.Tensor, torch.Tensor]]] = None,  # live_rows
 ) -> torch.Tensor:
-    """One exact dense sweep in the position-major layout; returns ``z_t``
-    and updates the counts in place.
+    """One exact dense sweep in the position-major layout; updates ``z_t``
+    and the counts in place and returns ``z_t``.
 
     Per position, as the reference (``lda_thesis_tpu/ops/gibbs.py:175-188``):
-    every document's decrement of ``n_vk[v, z_old]`` lands before the gather
-    ``cv = n_vk[v]``; ``recip = 1/(n_k − dec + V·β)``; the kernel draws and
-    updates ``n_dk``; the increments land on ``n_vk``; ``n_k += Δn_k``.
+    one commit lands the previous position's increments and this position's
+    decrements on ``n_vk`` and ``n_k``; then the draw reads each live row's
+    table row ``n_vk[v]`` in place with ``recip = 1/(n_k⁻ + V·β)``, draws,
+    and updates ``n_dk`` and ``z_t[p]``.  A last commit lands the final
+    increments.  On a card each step is one kernel launch
+    (:mod:`.draw_update_cuda`), skipped where a position has no live row.
     """
-    U = tok_v_t.shape[0]
-    K = n_vk.shape[1]
-    flat = n_vk.view(-1)
-    row = tok_v_t * K
-    neg_f = -tok_f_t
-    zs = []
-    for p in range(U):
-        z_old = z_t[p]
-        dec = torch.zeros((K,), dtype=torch.float32, device=n_k.device)
-        dec.index_add_(0, z_old, tok_f_t[p])
-        flat.index_add_(0, row[p] + z_old, neg_f[p])
-        cv = n_vk.index_select(0, tok_v_t[p])
-        recip = 1.0 / ((n_k - dec) + vbeta)
-        n_dk, z_new, dnk = draw_update(uniforms[p], tok_f_t[p], z_old, labs, n_dk,
-                                       cv, recip, alpha, beta)
-        flat.index_add_(0, row[p] + z_new, tok_f_t[p])
-        n_k.add_(dnk)
-        zs.append(z_new)
-    return torch.stack(zs) if zs else z_t.clone()
+    if live is None:
+        live = live_rows(tok_v_t, tok_f_t)
+    prev = None
+    for p in range(tok_v_t.shape[0]):
+        rows, words = live[p]
+        cur = Slots(tok_v_t[p], z_t[p], tok_f_t[p], rows)
+        commit_counts(n_vk, n_k, dec=cur, inc=prev)
+        draw_rows(uniforms[p], tok_f_t[p], z_t[p], labs, n_dk, n_vk, words, n_k, rows,
+                  alpha, beta, vbeta)
+        prev = cur
+    if prev is not None:
+        commit_counts(n_vk, n_k, dec=None, inc=prev)
+    return z_t
+
+
+class ExactSweep:
+    """Repeated exact dense sweeps (:func:`exact_sweep`) over one set of
+    state tensors, which every call updates in place.
+
+    The live rows of each position are listed once.  Each call fills a
+    static uniforms buffer, from ``generator`` as ``torch.rand`` would
+    (``out=``) or from the given ``uniforms (U, D)``, then sweeps.  On a card
+    the first call runs eagerly (it also loads the kernels), the second
+    captures the sweep as one CUDA graph and every call from then on replays
+    it: ``2·U + 1`` launches at most, with no host work per position.  The
+    replay adds its captured launches to the wrappers' counters.  On the CPU
+    every call runs eagerly.
+    """
+
+    def __init__(self, z_t, n_dk, n_vk, n_k, tok_v_t, tok_f_t, labs, alpha: float,
+                 beta: float, vbeta: float):
+        self.z_t = z_t
+        self._args = (z_t, n_dk, n_vk, n_k, tok_v_t, tok_f_t, labs, alpha, beta, vbeta)
+        self.live = live_rows(tok_v_t, tok_f_t)
+        self.u = torch.empty(tuple(tok_v_t.shape), dtype=torch.float32,
+                             device=tok_v_t.device)
+        self._graphed = n_dk.device.type == "cuda"
+        self._graph = None
+        self._replay_launches = (0, 0)
+        self.sweeps = 0
+
+    def _sweep(self) -> None:
+        exact_sweep(*self._args, self.u, live=self.live)
+
+    def _capture(self) -> None:
+        """Capture one sweep; capture runs nothing, and the launches the
+        wrappers counted while capturing are taken back and counted per
+        replay instead."""
+        before = (duc.launches, duc.commit_launches)
+        device = self.u.device
+        graph = torch.cuda.CUDAGraph()
+        stream = torch.cuda.Stream(device)
+        stream.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(stream):
+            graph.capture_begin()
+            try:
+                self._sweep()
+            finally:
+                graph.capture_end()
+        torch.cuda.current_stream(device).wait_stream(stream)
+        self._replay_launches = (duc.launches - before[0], duc.commit_launches - before[1])
+        duc.launches, duc.commit_launches = before
+        self._graph = graph
+
+    def __call__(self, generator: Optional[torch.Generator] = None,
+                 uniforms: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """One sweep; returns ``z_t``."""
+        if uniforms is None:
+            torch.rand(tuple(self.u.shape), generator=generator, out=self.u)
+        else:
+            self.u.copy_(uniforms)
+        if not self._graphed or self.sweeps == 0:
+            self._sweep()
+        else:
+            if self._graph is None:
+                self._capture()
+            self._graph.replay()
+            duc.launches += self._replay_launches[0]
+            duc.commit_launches += self._replay_launches[1]
+        self.sweeps += 1
+        return self.z_t
 
 
 def _vbeta(V: int, beta: float, vbeta: Optional[float]) -> float:
@@ -294,8 +378,11 @@ def train_sweep(
     n_dk = counts.n_dk.to(torch.float32).clone()
     n_vk = counts.n_vk.to(torch.float32).clone()
     n_k = counts.n_k.to(torch.float32).clone()
-    z_t = exact_sweep(counts.z.T.to(torch.int32).contiguous(), n_dk, n_vk, n_k, tv_t,
-                      tf_t, labs.contiguous(), alpha, beta, _vbeta(V, beta, vbeta), u)
+    # a private copy: the sweep writes z in place, and a transpose of a
+    # (1, U) or (D, 1) z would still be the caller's storage
+    z_t = counts.z.to(torch.int32).T.clone(memory_format=torch.contiguous_format)
+    exact_sweep(z_t, n_dk, n_vk, n_k, tv_t, tf_t, labs.contiguous(), alpha, beta,
+                _vbeta(V, beta, vbeta), u)
     return LDACounts(z=z_t.T.contiguous(), n_dk=n_dk, n_vk=n_vk, n_k=n_k)
 
 

@@ -386,10 +386,10 @@ def test_go_down_tree_matches_jax_draw_for_draw(monkeypatch, corpus, sweep):
     queue = _jax_level_uniforms(ref, it, s)
     ref.go_down_tree(it=it, s=s)
 
-    def jax_rand(shape, **_):
+    def jax_rand(shape, out=None, **_):
         u = queue.pop(0)
         assert tuple(u.shape) == tuple(shape)
-        return u
+        return u if out is None else out.copy_(u)
 
     monkeypatch.setattr(torch, "rand", jax_rand)
     port.go_down_tree(it=it, s=s)

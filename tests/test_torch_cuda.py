@@ -47,9 +47,11 @@ def _same_bits(a, b):
                                               b.contiguous().view(torch.int32))
 
 
+DRAW_SHAPES = [(64, 128), (37, 40), (300, 512), (9, 7), (1000, 371), (50, 1100), (5, 1)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(64, 128), (37, 40), (300, 512), (9, 7), (1000, 371)],
-                         ids=lambda s: f"D{s[0]}-K{s[1]}")
+@pytest.mark.parametrize("shape", DRAW_SHAPES, ids=lambda s: f"D{s[0]}-K{s[1]}")
 def test_draw_update_kernel_matches_plain_version(shape):
     _needs_card()
     args = _step_inputs(sum(shape), *shape)
@@ -83,6 +85,171 @@ def test_exact_sweep_on_card_matches_cpu():
     assert duc.launches == before + U
     assert all(_same_bits(a.cpu(), b) for a, b in zip(on_card, on_cpu))
     assert torch.equal(on_card.n_k, on_card.n_vk.sum(0))
+
+
+def _sweep_step(seed, D, K, V=60):
+    """One sweep position in the sweep's own form: slots over a (V, K)
+    table, the decremented totals and the live rows."""
+    rng = np.random.default_rng(seed)
+    u, f, z, labs, n_dk, _, _ = _step_inputs(seed, D, K)
+    rows = torch.from_numpy(rng.integers(0, V, size=D)).cuda()
+    table = torch.from_numpy(rng.integers(0, 300, size=(V, K)).astype(np.float32)).cuda()
+    n_k = table.sum(0) + 17.0
+    live = torch.nonzero(f > 0).flatten().to(torch.int32)
+    return u, f, z, labs, n_dk, table, rows, n_k, live
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", DRAW_SHAPES + [(40, 64, "none live")],
+                         ids=lambda s: "-".join(map(str, s)))
+def test_draw_rows_kernel_matches_plain_version(shape):
+    """The sweep's draw: table rows read in place, recip from n_k, only the
+    live rows launched; with no live row there is no launch."""
+    _needs_card()
+    u, f, z, labs, n_dk, table, rows, n_k, live = _sweep_step(sum(shape[:2]), *shape[:2])
+    if len(shape) > 2:
+        live = live[:0]
+    words = rows[live.long()]
+    outs = []
+    for fn in (duc.draw_rows, duc.draw_rows_torch):
+        zz, nd = z.clone(), n_dk.clone()
+        before = duc.launches
+        fn(u, f, zz, labs, nd, table, words, n_k, live, ALPHA, BETA, 0.6)
+        outs.append((zz, nd, duc.launches - before))
+    torch.cuda.synchronize()
+    (zk, nk_, launched), (zp, np_, _) = outs
+    assert launched == (1 if live.numel() else 0)
+    assert _same_bits(zk, zp) and _same_bits(nk_, np_)
+    if not live.numel():
+        assert torch.equal(zk, z) and _same_bits(nk_, n_dk)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("parts", ["dec", "inc", "both"])
+def test_commit_kernel_matches_index_add(parts):
+    _needs_card()
+    *_, table, rows, n_k, live = _sweep_step(3, 2000, 371)
+    slots = []
+    for seed in (5, 6):
+        r = np.random.default_rng(seed)
+        f = torch.from_numpy(r.integers(0, 4, size=2000).astype(np.float32)).cuda()
+        slots.append(duc.Slots(torch.from_numpy(r.integers(0, 60, size=2000)).cuda(),
+                               torch.from_numpy(r.integers(0, 371, size=2000)
+                                                .astype(np.int32)).cuda(), f,
+                               torch.nonzero(f > 0).flatten().to(torch.int32)))
+    dec = slots[0] if parts in ("dec", "both") else None
+    inc = slots[1] if parts in ("inc", "both") else None
+    got_t, got_k = table.clone(), n_k.clone()
+    before = duc.commit_launches
+    duc.commit_counts(got_t, got_k, dec, inc)
+    want_t, want_k = table.clone(), n_k.clone()
+    duc.commit_counts_torch(want_t, want_k, dec, inc)
+    torch.cuda.synchronize()
+    assert duc.commit_launches == before + 1
+    assert _same_bits(got_t, want_t) and _same_bits(got_k, want_k)
+
+
+def _small_dense_model():
+    from lda_thesis_tpu_torch.data.synthetic import planted_corpus
+    from lda_thesis_tpu_torch.data.vocab import prune_dict
+    from lda_thesis_tpu_torch.models.labeled_lda import LabeledLDA
+
+    c = planted_corpus(1, n_train=400, n_test=8, V=600, n_labels=40, max_labels=6,
+                       mean_types=20.0, max_types=64)
+    dicti = prune_dict(c.train_docs, lower=0, upper=1)
+    return LabeledLDA(c.train_docs, c.train_labs, c.labelset, dicti, alpha=ALPHA,
+                      beta=BETA, seed=3, sweep="dense", device="cuda")
+
+
+def _dense_state(model, device):
+    """A copy of ``model``'s dense state on ``device``, z position-major."""
+    st = model.counts
+    return ([z.T.clone(memory_format=torch.contiguous_format).to(device) for z in st.z],
+            [x.to(device, copy=True) for x in st.n_dk], st.n_vk.to(device, copy=True),
+            st.n_k.to(device, copy=True))
+
+
+def _bucket_runners(model):
+    state = _dense_state(model, "cuda")
+    z_t, n_dk, n_vk, n_k = state
+    runs = [tgibbs.ExactSweep(z_t[g], n_dk[g], n_vk, n_k, model._toks_v_t[g],
+                              model._toks_f_t[g], model.labs_t[g], ALPHA, BETA,
+                              model.V * BETA)
+            for g in range(model.buckets.n_buckets)]
+    return runs, state
+
+
+def _planned(model):
+    """(draws, commits) of one sweep over all of ``model``'s buckets."""
+    plan = [chip_smoke.planned_sweep_launches(tf) for tf in model._toks_f_t]
+    return sum(p[0] for p in plan), sum(p[1] for p in plan)
+
+
+@pytest.mark.cuda
+def test_graphed_sweeps_equal_eager_and_cpu():
+    """Three exact sweeps over all buckets: replayed CUDA graphs, eager
+    launches on the card, and the plain versions on the CPU, from the same
+    uniforms, give the same bits; replays count their captured launches."""
+    _needs_card()
+    model = _small_dense_model()
+    gen = torch.Generator().manual_seed(9)
+    us = [[torch.rand(tuple(tv.shape), generator=gen) for tv in model._toks_v_t]
+          for _ in range(3)]
+    results = {}
+    for name, device in (("graph", "cuda"), ("eager", "cuda"), ("cpu", "cpu")):
+        d0, c0 = duc.launches, duc.commit_launches
+        if name == "graph":
+            runs, state = _bucket_runners(model)
+            for sweep in us:
+                for run, u in zip(runs, sweep):
+                    run(uniforms=u.to(device))
+            assert all(r._graph is not None for r in runs)
+        else:
+            state = _dense_state(model, device)
+            z_t, n_dk, n_vk, n_k = state
+            for sweep in us:
+                for g, u in enumerate(sweep):
+                    tgibbs.exact_sweep(z_t[g], n_dk[g], n_vk, n_k,
+                                       model._toks_v_t[g].to(device),
+                                       model._toks_f_t[g].to(device),
+                                       model.labs_t[g].to(device), ALPHA, BETA,
+                                       model.V * BETA, u.to(device))
+        results[name] = [t.cpu() for part in state for t in
+                         (part if isinstance(part, list) else [part])]
+        if device == "cuda":
+            draws, commits = _planned(model)
+            assert (duc.launches - d0, duc.commit_launches - c0) == (3 * draws, 3 * commits)
+    for name in ("eager", "cpu"):
+        assert all(_same_bits(a, b) for a, b in zip(results["graph"], results[name])), name
+    n_vk, n_k = results["graph"][-2:]
+    assert torch.equal(n_k, n_vk.sum(0))
+
+
+@pytest.mark.cuda
+def test_graph_replay_launches_match_profiler_records():
+    """The counters add a replay's captured launches; the profiler sees
+    each kernel node of the replayed graph."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    _needs_card()
+    model = _small_dense_model()
+    runs, _ = _bucket_runners(model)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    for _ in range(2):  # eager, then capture and the first replay
+        for run in runs:
+            run(gen)
+    torch.cuda.synchronize()
+    d0, c0 = duc.launches, duc.commit_launches
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for run in runs:
+            run(gen)
+        torch.cuda.synchronize()
+    draws, commits = duc.launches - d0, duc.commit_launches - c0
+    assert (draws, commits) == _planned(model)
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    assert sum(e.count for e in events if "draw_update_kernel" in e.key) == draws
+    assert sum(e.count for e in events if "count_commit_kernel" in e.key) == commits
 
 
 # ---- the merge-block kernel (fused_block.cu) against fused_block_torch

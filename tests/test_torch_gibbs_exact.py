@@ -214,7 +214,8 @@ def _step_inputs(seed, Dd, Kk, zero_labs_row=False):
 
 
 @pytest.mark.parametrize("shape", [(64, 128, False), (37, 40, True), (50, 512, False),
-                                   (9, 7, False)], ids=lambda s: f"D{s[0]}-K{s[1]}")
+                                   (9, 7, False), (40, 371, False), (12, 1100, True)],
+                         ids=lambda s: f"D{s[0]}-K{s[1]}")
 def test_draw_update_torch_matches_xla_step(shape):
     Dd, Kk, zero_row = shape
     u, f, z_old, labs, n_dk, cv, nk_minus = _step_inputs(Dd * Kk, Dd, Kk, zero_row)
@@ -232,13 +233,29 @@ def test_draw_update_torch_matches_xla_step(shape):
         assert int(got[1][3]) == int(z_old[3]) and np.isfinite(got[0].numpy()).all()
 
 
-def test_lane_cumsum_is_a_cumsum():
-    rng = np.random.default_rng(3)
-    for Kk in (1, 7, 32, 40, 100, 512):
-        w = torch.from_numpy(rng.random((5, Kk)).astype(np.float32))
-        np.testing.assert_allclose(duc._lane_cumsum(w).numpy(),
-                                   np.cumsum(w.numpy().astype(np.float64), axis=1),
-                                   rtol=1e-5)
+@pytest.mark.parametrize("Kk", [1, 7, 32, 40, 100, 512, 1100])
+def test_chunk_cumsum_is_a_cumsum(Kk):
+    """The kernel's order: a Hillis–Steele scan within each 32-topic chunk
+    plus the running carry of the chunk totals, written out here with
+    float32 numpy adds in that order."""
+    rng = np.random.default_rng(Kk)
+    w = rng.random((5, Kk)).astype(np.float32)
+    got = duc._chunk_cumsum(torch.from_numpy(w)).numpy()
+    np.testing.assert_allclose(got, np.cumsum(w.astype(np.float64), axis=1), rtol=1e-5)
+    n_chunks = -(-Kk // 32)
+    lanes = np.zeros((5, n_chunks * 32), np.float32)
+    lanes[:, :Kk] = w
+    want = np.empty_like(lanes)
+    carry = np.zeros(5, np.float32)
+    for i in range(n_chunks):
+        s = lanes[:, 32 * i:32 * (i + 1)].copy()
+        off = 1
+        while off < 32:
+            s[:, off:] = s[:, off:] + s[:, :-off].copy()
+            off *= 2
+        want[:, 32 * i:32 * (i + 1)] = carry[:, None] + s
+        carry = carry + s[:, 31]
+    np.testing.assert_array_equal(got, want[:, :Kk])
 
 
 def _draw_args():
@@ -291,6 +308,22 @@ def test_exact_sweep_invariants():
         z = c.z.numpy()
         assert all(labs[d, z[d, n]] == 1 for d in range(D) for n in range(U)
                    if tok_f[d, n] > 0)
+
+
+@pytest.mark.parametrize("Dd, Uu", [(1, 6), (9, 1)], ids=["D1", "U1"])
+def test_train_sweep_leaves_input_counts_unmodified(Dd, Uu):
+    """The sweep writes z in place into its position-major copy; at D = 1
+    or U = 1 a transpose of the caller's z would share its storage."""
+    rng = np.random.default_rng(Dd * 10 + Uu)
+    tok_v = torch.from_numpy(rng.integers(0, V, size=(Dd, Uu)))
+    tok_f = torch.from_numpy(rng.integers(1, 4, size=(Dd, Uu)))
+    labs = torch.ones((Dd, K), dtype=torch.float32)
+    g = torch.Generator().manual_seed(2)
+    c = tgibbs.init_counts(tok_v, tok_f, labs, V, generator=g)
+    before = [t.clone() for t in c]
+    out = tgibbs.train_sweep(c, tok_v, tok_f, labs, ALPHA, BETA, generator=g)
+    assert all(torch.equal(a, b) for a, b in zip(c, before))
+    assert not torch.equal(out.z, c.z)  # the sweep did move some topic
 
 
 def test_compact_sweep_equals_dense():

@@ -11,9 +11,9 @@ kernel records, on one CUDA card.
    and the two copies' outputs bitwise equal.
 2. Profiler records: after phases 3 and 4 of chip_smoke.py, ``--sessions``
    torch.profiler sessions of 20 draw-update launches each, in turns with
-   CUDA activity alone (as chip_smoke's ``_device_ms``), with CPU and CUDA
-   activity, and with CUDA activity and 2 ms of host wait at each end of the
-   window; per variant, the launch records each session kept.
+   CUDA activity alone, with CPU and CUDA activity, and with CUDA activity
+   and 2 ms of host wait at each end of the window; per variant, the launch
+   records each session kept.
 
 Prints one JSON line per probe.  Exits 1 without a CUDA device.
 """
