@@ -42,7 +42,19 @@ made from ``--seed``.  Phases:
    (16; 4)) on a JEL-shaped corpus, ``test_down_tree_batch`` of the test
    split and ``setup_theta``: macro AUC at each depth, kernel launches, rows
    and topics per level;
-9. one JSON line of kernel records, the card's line, and the result line.
+9. the product surface, as a user runs it: the CLIs on CSV files of the
+   two corpora (``write_corpus_csv``), loaded, preprocessed and split again
+   by the CLI.  The Labeled-LDA CLI at its defaults (fused, perplexity on)
+   for 200 sweeps at thinning 25, so M = 25 and kernel 1 launches 32 times,
+   with the wall time of each step and tokens/s; the same with ``--sweep
+   dense`` and ``-p``, whose kernel-2 and commit launches must be as
+   planned and whose pickled model must load back on the card; a run
+   checkpointed every 25 sweeps against one killed by SIGKILL after its
+   first checkpoint and resumed in a fresh process: every array of the two
+   checkpoints and the four metric lines equal; the time of one checkpoint
+   write; ``--progress --trace``; the CascadeLDA CLI at (4; 2); and
+   ``lda_thesis_tpu_torch.entry``'s merge block;
+10. one JSON line of kernel records, the card's line, and the result line.
 
 Every check raises; the script exits non-zero without a CUDA device.
 """
@@ -50,11 +62,18 @@ Every check raises; the script exits non-zero without a CUDA device.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
+import os
+import re
+import signal
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 
@@ -82,6 +101,10 @@ STEADY_CALLS = 5
 # mean of those kept
 LOST_RECORDS = 2
 DEVICE = "cuda"
+ROOT = Path(__file__).resolve().parent
+KERNEL1 = "fused_block_kernel"
+CLI_ITERS, CLI_THINNING = 200, 25  # M = 25: 8 merge blocks of 4 bucket launches
+METRIC_LINES = re.compile(r"^(?:AUC ROC|one error|two error|F1 score).*$", re.M)
 
 
 def _median_ms(fn, reps: int) -> float:
@@ -195,6 +218,47 @@ def _bitwise(got, want) -> bool:
     return all(g.dtype == w.dtype and g.shape == w.shape and torch.equal(
         g.contiguous().view(torch.int32), w.contiguous().view(torch.int32))
         for g, w in zip(got, want))
+
+
+CSV_LETTERS = "bcdfghjklmnpqrtvwxz"  # 19 consonants, no "s" or "y"
+
+
+def csv_word(v: int) -> str:
+    """Word ``v`` of a synthetic corpus as "q" and four base-19 digits over
+    ``CSV_LETTERS``: no digit, stopword or suffix that the preprocessing
+    pipeline would strip, so every such word comes through unchanged."""
+    digits = []
+    for _ in range(4):
+        v, r = divmod(v, len(CSV_LETTERS))
+        digits.append(CSV_LETTERS[r])
+    return "q" + "".join(reversed(digits))
+
+
+def csv_label(lab: str) -> str:
+    """A synthetic corpus's label as a three-character JEL-shaped code:
+    "L123" becomes "B23" (a letter for each hundred); JEL codes stay."""
+    if len(lab) == 4 and lab.startswith("L"):
+        n = int(lab[1:])
+        return chr(65 + n // 100) + f"{n % 100:02d}"
+    return lab
+
+
+def write_corpus_csv(path: str, corpus) -> None:
+    """Write a synthetic corpus's training and test documents, in that order,
+    as the ``(id, text, labels)`` CSV that the CLIs load: words by
+    ``csv_word``, labels by ``csv_label``, and of JEL-shaped label lists only
+    the three-character leaves (``load_corpus(mode="prefix")`` rebuilds their
+    ancestors)."""
+    import csv
+
+    docs = corpus.train_docs + corpus.test_docs
+    labs = corpus.train_labs + corpus.test_labs
+    with open(path, "w", newline="") as f:
+        out = csv.writer(f)
+        for i, (doc, lab) in enumerate(zip(docs, labs)):
+            codes = [csv_label(x) for x in lab if len(x) not in (1, 2)]
+            out.writerow([f"doc{i}", " ".join(csv_word(int(w[1:])) for w in doc),
+                          " ".join(codes)])
 
 
 def _auc(theta, labs, labelmap) -> dict:
@@ -1030,6 +1094,256 @@ def cascade_path(jel, jel_dicti, seed: int) -> dict:
                 aucs=aucs, levels=model.level_stats, train_s=t1 - t0, test_s=t2 - t1)
 
 
+# ---------------------------------------------------------- product surface
+
+
+class _Tee(io.StringIO):
+    """Keeps what is written and passes it on to ``out``."""
+
+    def __init__(self, out):
+        super().__init__()
+        self.out = out
+
+    def write(self, s):
+        self.out.write(s)
+        return super().write(s)
+
+
+def _cli(main, argv) -> tuple:
+    """Run a CLI's ``main`` in this process: (its result, what it printed)."""
+    tee = _Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        res = main(argv)
+    return res, tee.getvalue()
+
+
+def _cli_module(argv) -> list:
+    """The command that runs the Labeled-LDA CLI with ``argv`` in a fresh process."""
+    return [sys.executable, "-m", "lda_thesis_tpu_torch.cli.evaluate_labeled_lda", *argv]
+
+
+def _steps(res) -> dict:
+    """The Labeled-LDA CLI's wall seconds by step."""
+    return {k[:-2]: res["stats"][k]
+            for k in ("load_s", "prune_s", "model_s", "train_s", "test_s", "metrics_s")}
+
+
+def _print_cli(name: str, res) -> None:
+    m = res["model"]
+    steps = ", ".join(f"{k} {v:.3f} s" for k, v in _steps(res).items())
+    print(f"CLI {name}: D={m.D} V={m.V} K={m.K} Kp={m.Kp} A={m.A} "
+          f"buckets={[tuple(z.shape) for z in m.counts.z]}; preprocessing: {res['pipeline']}")
+    print(f"  wall by step: {steps}; training {res['tokens_per_s']:.1f} tokens/s "
+          f"({res['stats']['train_iters']} sweeps); test metrics {json.dumps(res['metrics'])}")
+
+
+def _kill_after_first_checkpoint(argv, path: str, log: str) -> tuple:
+    """Start the Labeled-LDA CLI with ``argv`` in a fresh process and SIGKILL
+    it once ``path.json`` records a checkpoint; returns (the iterations that
+    checkpoint records, the process's return code).  Fails if the process
+    ends first."""
+    with open(log, "w") as out:
+        proc = subprocess.Popen(_cli_module(argv), cwd=ROOT, stdout=out,
+                                stderr=subprocess.STDOUT)
+        try:
+            deadline = time.monotonic() + 600
+            while time.monotonic() < deadline and proc.poll() is None:
+                try:
+                    with open(path + ".json") as f:
+                        done = json.load(f)["iters_done"]
+                except FileNotFoundError:
+                    time.sleep(0.002)
+                    continue
+                os.kill(proc.pid, signal.SIGKILL)
+                return done, proc.wait()
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    with open(log) as f:
+        tail = f.read()[-2000:]
+    raise RuntimeError(f"check failed: the CLI run to kill ended (rc {proc.returncode}) "
+                       f"or timed out before its first checkpoint:\n{tail}")
+
+
+def _trace_kernels(path, name: str) -> int:
+    """Device-kernel records in a Chrome trace whose name holds ``name``."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return sum(1 for e in events if e.get("cat") == "kernel" and name in e.get("name", ""))
+
+
+def _same_arrays(a: dict, b: dict) -> bool:
+    return sorted(a) == sorted(b) and all(
+        a[k].dtype == b[k].dtype and a[k].shape == b[k].shape and np.array_equal(a[k], b[k])
+        for k in a)
+
+
+def product_phase(seed: int) -> dict:
+    """The CLIs and ``entry()`` as a user runs them, on CSV files of the two
+    synthetic corpora; the kernel counters are set to 0 just before each run
+    and read just after."""
+    import pickle
+
+    import torch
+
+    from lda_thesis_tpu_torch.cli import evaluate_cascade_lda, evaluate_labeled_lda
+    from lda_thesis_tpu_torch.data.synthetic import jel_corpus, planted_corpus
+    from lda_thesis_tpu_torch.entry import entry
+    from lda_thesis_tpu_torch.ops import draw_update_cuda as duc
+    from lda_thesis_tpu_torch.ops import fused_block_cuda as fbc
+    from lda_thesis_tpu_torch.utils.checkpoint import load_checkpoint, save_model
+
+    lda = evaluate_labeled_lda.main
+    rec = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        csv_path, jel_path = os.path.join(tmp, "planted.csv"), os.path.join(tmp, "jel.csv")
+        write_corpus_csv(csv_path, planted_corpus(seed))
+        write_corpus_csv(jel_path, jel_corpus(seed))
+        flags = ["-f", csv_path, "-d", "3", "-i", str(CLI_ITERS), "-s", str(CLI_THINNING),
+                 "--seed", str(seed)]
+
+        # the CLI's defaults: fused, perplexity on
+        fbc.launches = duc.launches = duc.commit_launches = 0
+        res, _ = _cli(lda, flags)
+        launches = (fbc.launches, duc.launches, duc.commit_launches)
+        m = res["model"]
+        _check(m._merge_M == 25 and launches == (32, 0, 0),
+               f"CLI fused: M == 25 and 32 kernel-1 launches, no other (M={m._merge_M}, "
+               f"launches {launches})")
+        _check_counts(m.counts, float(m.n_tokens), "CLI fused")
+        _check(res["metrics"]["auc_roc"] > MIN_AUC,
+               f"CLI fused: AUC {res['metrics']['auc_roc']} > {MIN_AUC}")
+        _print_cli("fused (the defaults)", res)
+        print(f"  kernel-1 launches {launches[0]} (M = {m._merge_M})")
+        rec["fused"] = dict(launches=launches[0], tokens_per_s=res["tokens_per_s"],
+                            wall_s=_steps(res), auc_roc=res["metrics"]["auc_roc"],
+                            pipeline=res["pipeline"])
+        del res, m
+
+        # --sweep dense, and -p: the pickled model loads back on the card
+        fbc.launches = duc.launches = duc.commit_launches = 0
+        cwd = os.getcwd()
+        os.chdir(tmp)
+        try:
+            res, _ = _cli(lda, flags + ["--sweep", "dense", "-p"])
+        finally:
+            os.chdir(cwd)
+        launches = (duc.launches, duc.commit_launches, fbc.launches)
+        m = res["model"]
+        plan = [planned_sweep_launches(tf) for tf in m._toks_f_t]
+        planned = (CLI_ITERS * sum(p[0] for p in plan), CLI_ITERS * sum(p[1] for p in plan), 0)
+        _check(launches == planned,
+               f"CLI dense: (draw, commit, kernel-1) launches {launches}, planned {planned}")
+        _check_counts(m.counts, float(m.n_tokens), "CLI dense")
+        _check(res["metrics"]["auc_roc"] > MIN_AUC,
+               f"CLI dense: AUC {res['metrics']['auc_roc']} > {MIN_AUC}")
+        with open(os.path.join(tmp, "LabeledLDA_model.pkl"), "rb") as f:
+            back = pickle.load(f)
+        _check(back.device.type == back.counts.n_vk.device.type == back._gen.device.type
+               == DEVICE
+               and torch.equal(back._gen.get_state(), m._gen.get_state())
+               and torch.equal(back.counts.n_vk, m.counts.n_vk)
+               and torch.equal(back.ph_hat, m.ph_hat),
+               "CLI dense -p: the pickled model loads back on the card, generator included")
+        _print_cli("--sweep dense -p", res)
+        print(f"  launches (draw, commit) {launches[:2]}, planned {planned[:2]}; "
+              f"the pickled model loads back on the card")
+        rec["dense"] = dict(launches=launches[0], commit_launches=launches[1],
+                            tokens_per_s=res["tokens_per_s"], wall_s=_steps(res),
+                            auc_roc=res["metrics"]["auc_roc"])
+        del res, m, back
+
+        # kill and resume: A uninterrupted, B killed after its first
+        # checkpoint and resumed in a fresh process
+        ck_a, ck_b = os.path.join(tmp, "A"), os.path.join(tmp, "B")
+        every = ["--save-every", str(CLI_THINNING)]
+        fbc.launches = 0
+        res, text = _cli(lda, flags + ["--checkpoint", ck_a] + every)
+        _check(fbc.launches == 32, f"CLI checkpointed run: 32 kernel-1 launches ({fbc.launches})")
+        want = METRIC_LINES.findall(text)
+        writes = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            save_model(os.path.join(tmp, "W"), res["model"], extra_meta={"iters_done": CLI_ITERS})
+            writes.append(1e3 * (time.perf_counter() - t0))
+        npz_mb = os.path.getsize(os.path.join(tmp, "W.npz")) / 1e6
+        table_mb = res["model"].counts.n_vk.numel() * 4 / 1e6
+        del res
+        done, rc = _kill_after_first_checkpoint(flags + ["--checkpoint", ck_b] + every, ck_b,
+                                                os.path.join(tmp, "B.log"))
+        _check(done == CLI_THINNING and rc == -signal.SIGKILL,
+               f"the CLI run was killed by SIGKILL at its first checkpoint (iteration "
+               f"{done}, rc {rc})")
+        t0 = time.perf_counter()
+        resumed = subprocess.run(_cli_module(flags + ["--checkpoint", ck_b, "--resume"] + every),
+                                 cwd=ROOT, capture_output=True, text=True, timeout=900)
+        resume_s = time.perf_counter() - t0
+        _check(resumed.returncode == 0,
+               f"the resumed CLI run succeeded: {resumed.stdout[-2000:]}{resumed.stderr[-2000:]}")
+        _check(f"resumed from {ck_b} at iteration {CLI_THINNING}" in resumed.stdout,
+               "the fresh process resumed from the checkpoint of iteration 25")
+        got = METRIC_LINES.findall(resumed.stdout)
+        _check(len(want) == 4 and got == want,
+               f"the resumed run prints the uninterrupted run's metric lines: {got} != {want}")
+        (a, _), (b, meta_b) = load_checkpoint(ck_a), load_checkpoint(ck_b)
+        _check(meta_b["iters_done"] == CLI_ITERS and _same_arrays(a, b),
+               "A.npz and B.npz are equal array for array, bitwise")
+        print(f"kill and resume: B killed by SIGKILL at its checkpoint of iteration {done}, "
+              f"resumed in a fresh process ({resume_s:.3f} s); all {len(a)} arrays of A.npz "
+              f"and B.npz bitwise equal ({', '.join(sorted(a))}); the four metric lines equal")
+        print(f"checkpoint write: {[round(w, 3) for w in writes]} ms ({npz_mb:.1f} MB npz; "
+              f"n_vk and ph_hat {table_mb:.1f} MB each)")
+        rec["checkpoint"] = dict(write_ms=float(np.median(writes)), writes_ms=writes,
+                                 npz_mb=npz_mb, arrays=len(a), killed_at=done,
+                                 resumed_run_s=resume_s)
+
+        # --progress and --trace
+        trace_dir = os.path.join(tmp, "trace")
+        fbc.launches = 0
+        _, text = _cli(lda, ["-f", csv_path, "-d", "3", "-i", "16", "-s", "8", "--seed",
+                             str(seed), "--checkpoint", os.path.join(tmp, "C"),
+                             "--save-every", "8", "--progress", "--trace", trace_dir])
+        counted = fbc.launches
+        lines = [x for x in text.splitlines() if "tokens/s" in x and x.startswith("[")]
+        files = list(Path(trace_dir).glob("*.pt.trace.json"))
+        _check(bool(lines) and len(files) == 1, "--progress prints tokens/s, --trace a trace file")
+        recorded = _trace_kernels(files[0], KERNEL1)
+        _check(recorded > 0, f"the trace holds kernel-1 records ({recorded} of {counted})")
+        print(f"--progress: {lines[-1]!r}; --trace: {files[0].name}, "
+              f"{os.path.getsize(files[0]) / 1e6:.1f} MB, {recorded} kernel-1 records of "
+              f"{counted} launches")
+        rec["trace"] = dict(kernel1_records=recorded, kernel1_launches=counted)
+
+        # the CascadeLDA CLI at the thesis config
+        fbc.launches = duc.launches = duc.commit_launches = 0
+        t0 = time.perf_counter()
+        res, _ = _cli(evaluate_cascade_lda.main,
+                      ["-f", jel_path, "-d", "3", "-i", str(CASCADE_IT), "-s", str(CASCADE_S),
+                       "--seed", str(seed)])
+        cascade_s = time.perf_counter() - t0
+        aucs = [x["auc_roc"] for x in res["metrics"]]
+        _check(duc.launches > 0 and duc.commit_launches > 0 and fbc.launches == 0,
+               "the CascadeLDA CLI trains through kernel 2")
+        _check(len(aucs) == 3 and aucs[0] > MIN_AUC,
+               f"CascadeLDA CLI: depth-1 AUC {aucs[0]} > {MIN_AUC}")
+        print(f"CLI CascadeLDA ({CASCADE_IT}; {CASCADE_S}): {cascade_s:.3f} s, macro AUC by "
+              f"depth {aucs}, launches (draw, commit) ({duc.launches}, {duc.commit_launches})")
+        rec["cascade"] = dict(aucs=aucs, seconds=cascade_s, launches=duc.launches)
+        del res
+
+    # entry(): one fused merge block of the toy problem
+    fbc.launches = 0
+    fn, args = entry()
+    st = fn(*args)
+    torch.cuda.synchronize()
+    _check(fbc.launches == 1 and float(st.n_vk.sum()) == float(args[2].sum()),
+           f"entry(): one kernel-1 launch ({fbc.launches}), sum n_vk == sum f")
+    print(f"entry(): one merge block (M = 2), {fbc.launches} kernel-1 launch, "
+          f"sum n_vk == sum f == {float(args[2].sum())}")
+    return rec
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1118,7 +1432,11 @@ def main(argv=None) -> int:
     cascade = cascade_path(jel, jel_dicti, args.seed)
     phase_done("cascade path")
 
-    # 9. records
+    # 9. the product surface: the CLIs, checkpoint/resume, entry()
+    product = product_phase(args.seed)
+    phase_done("product surface")
+
+    # 10. records
     kernels = [{
         "name": "fused_block",
         "route": "cuda",
@@ -1146,6 +1464,15 @@ def main(argv=None) -> int:
         "device_idle_share": steady[True]["device_idle_share"],
         "device_idle_share_no_perplexity": steady[False]["device_idle_share"],
         "auc_roc": run["metrics"]["auc_roc"],
+        "cli_launches": product["fused"]["launches"],
+        "cli_train_tokens_per_s": product["fused"]["tokens_per_s"],
+        "cli_wall_s_by_step": product["fused"]["wall_s"],
+        "cli_auc_roc": product["fused"]["auc_roc"],
+        "cli_preprocessing": product["fused"]["pipeline"],
+        "checkpoint_write_ms": product["checkpoint"]["write_ms"],
+        "checkpoint_npz_mb": product["checkpoint"]["npz_mb"],
+        "kill_resume_bitwise_arrays": product["checkpoint"]["arrays"],
+        "trace_records": product["trace"]["kernel1_records"],
     }, {
         "name": "draw_update",
         "route": "cuda",
@@ -1188,6 +1515,12 @@ def main(argv=None) -> int:
         "cascade_auc_by_depth": cascade["aucs"],
         "cascade_train_s": cascade["train_s"],
         "cascade_test_s": cascade["test_s"],
+        "cli_dense_launches": product["dense"]["launches"],
+        "cli_dense_train_tokens_per_s": product["dense"]["tokens_per_s"],
+        "cli_dense_wall_s_by_step": product["dense"]["wall_s"],
+        "cli_dense_auc_roc": product["dense"]["auc_roc"],
+        "cli_cascade_auc_by_depth": product["cascade"]["aucs"],
+        "cli_cascade_s": product["cascade"]["seconds"],
     }, {
         "name": "count_commit",
         "route": "cuda",
@@ -1205,6 +1538,7 @@ def main(argv=None) -> int:
                "(torch.profiler); plain_ms and library_ms (two index_add_ calls) at "
                "bucket 0 position 1",
         "launches_cascade": cascade["commit_launches"],
+        "cli_dense_launches": product["dense"]["commit_launches"],
     }]
     print(json.dumps({"phase_seconds": seconds}))
     print(json.dumps({"kernels": kernels}))

@@ -1,0 +1,267 @@
+"""Labeled-LDA train/eval CLI (reference evaluate_LabeledLDA.py:110-183), on PyTorch.
+
+Counterpart of ``lda_thesis_tpu/cli/evaluate_labeled_lda.py``, with its flags:
+
+    python -m lda_thesis_tpu_torch.cli.evaluate_labeled_lda \
+        -f abstracts_data.csv -d 3 -i 4 -s 4 -l 0 -u 1 -a 0.1 -b 0.01
+
+plus ``--seed``, ``--no-perplexity``, ``--sweep``, ``--n-buckets``,
+checkpoint/resume (``--checkpoint PATH --save-every N --resume
+[--max-restarts R]``), ``--progress``, ``--trace DIR`` and ``--device
+{cuda,cpu}`` (default ``cuda``, the port's counterpart of ``JAX_PLATFORMS``).
+The flow is the JAX CLI's: split, prune, chunked training through
+utils/elastic, fold-in test, the reference's filtering and the metric
+block; a line of wall times by step follows it.
+
+Not ported yet, and refused with an error instead of running something
+else: ``--engine vi`` (ROADMAP.md Queue 1 item 8) and multi-device training,
+``--n-chains`` or ``--n-data`` above 1 and ``--table-shard vocab`` (item 9).
+The JAX CLI's persistent XLA compile cache has no counterpart: the port's
+CUDA kernels are built once into ``lda_thesis_tpu_torch/_build/`` and
+reused by later runs.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import json
+import os
+import pickle
+import time
+
+import numpy as np
+import torch
+
+from ..data.native import pipeline
+from ..eval.metrics import binary_yreal, evaluate_ranking
+from ..pipeline import split_corpus
+from ..utils.config import GibbsConfig, RunConfig
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("-f", dest="file", required=True, help="dataset location")
+    p.add_argument("-d", dest="lvl", type=int, default=3, help="depth of label level")
+    p.add_argument("-i", dest="it", type=int, required=True, help="# of iterations")
+    p.add_argument("-s", dest="thinning", type=int, default=0, help="save frequency")
+    p.add_argument("-l", dest="lower", type=float, default=0,
+                   help="lower df threshold for dictionary pruning")
+    p.add_argument("-u", dest="upper", type=float, default=1,
+                   help="upper df threshold for dictionary pruning")
+    p.add_argument("-a", dest="alpha", type=float, default=0.1, help="alpha prior")
+    p.add_argument("-b", dest="beta", type=float, default=0.01, help="beta prior")
+    p.add_argument("-p", dest="pickle", action="store_true",
+                   help="save the model as pickle")
+    p.add_argument("--seed", type=int, default=None, help="RNG seed")
+    p.add_argument("--no-perplexity", action="store_true",
+                   help="skip perplexity tracking during training")
+    p.add_argument("--engine", choices=("gibbs", "vi"), default="gibbs",
+                   help="inference engine: collapsed Gibbs (vi is not ported yet)")
+    p.add_argument("--sweep", choices=("auto", "fused", "dense", "compact"),
+                   default="auto",
+                   help="Gibbs sweep kernel (auto=fused); needed e.g. to "
+                        "--resume a checkpoint written with another kernel")
+    p.add_argument("--n-buckets", type=int, default=None,
+                   help="document length buckets (default: the model's 4; "
+                        "the bucket layout is part of the draw stream, so "
+                        "pass the recorded value when using --resume)")
+    p.add_argument("--checkpoint", default=None, metavar="PATH",
+                   help="checkpoint path prefix (writes PATH.npz + PATH.json)")
+    p.add_argument("--save-every", type=int, default=0, metavar="N",
+                   help="checkpoint every N training iterations "
+                        "(must be a multiple of -s; default: only at the end)")
+    p.add_argument("--resume", action="store_true",
+                   help="resume training from --checkpoint if it exists")
+    p.add_argument("--max-restarts", type=int, default=0, metavar="R",
+                   help="with --checkpoint: absorb up to R in-process "
+                        "training faults by restarting from the last "
+                        "durable checkpoint (utils/elastic.elastic_train)")
+    p.add_argument("--progress", action="store_true",
+                   help="report tokens/s + ETA at chunk boundaries "
+                        "(utils/tracing.Progress; no per-iteration syncs)")
+    p.add_argument("--trace", default=None, metavar="DIR",
+                   help="write a torch.profiler trace of training and the "
+                        "fold-in test into DIR (utils/tracing.trace)")
+    p.add_argument("--n-chains", type=int, default=1,
+                   help="independent Gibbs chains (not ported yet)")
+    p.add_argument("--n-data", type=int, default=1,
+                   help="document shards over devices (not ported yet)")
+    p.add_argument("--table-shard", choices=("replicated", "vocab"),
+                   default="replicated",
+                   help="vocab: shard the topic-word table (not ported yet)")
+    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                   help="device to train and test on")
+    return p
+
+
+def make_config(opt) -> RunConfig:
+    return RunConfig(
+        file=opt.file,
+        depth=opt.lvl,
+        label_mode="truncate",
+        lower=opt.lower,
+        upper=opt.upper,
+        gibbs=GibbsConfig(
+            iters=opt.it, thinning=opt.thinning, alpha=opt.alpha,
+            beta=opt.beta, seed=opt.seed if opt.seed is not None else 0,
+        ),
+        pickle=opt.pickle,
+        n_chains=opt.n_chains,
+        n_data_shards=opt.n_data,
+    )
+
+
+def check_supported(opt) -> None:
+    """Refuse, with ``SystemExit``, the options whose code is not ported yet,
+    and ``--device cuda`` where no card is visible (both CLIs)."""
+    if getattr(opt, "engine", "gibbs") == "vi":
+        raise SystemExit("--engine vi: the CAVI engine is not ported to PyTorch yet "
+                         "(ROADMAP.md Queue 1 item 8)")
+    if (getattr(opt, "n_chains", 1) > 1 or getattr(opt, "n_data", 1) > 1
+            or getattr(opt, "table_shard", "replicated") == "vocab"):
+        raise SystemExit("--n-chains, --n-data and --table-shard vocab: multi-device "
+                         "training is not ported to PyTorch yet (ROADMAP.md Queue 1 "
+                         "item 9)")
+    if getattr(opt, "device", "cuda") == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("--device cuda: no CUDA device is visible; pass --device cpu "
+                         "to run on the CPU")
+
+
+def _resumed_at(opt) -> int:
+    """The iteration a ``--resume`` run starts from (0 without a checkpoint)."""
+    if not (opt.resume and opt.checkpoint and os.path.exists(opt.checkpoint + ".json")):
+        return 0
+    with open(opt.checkpoint + ".json") as f:
+        return int(json.load(f).get("iters_done", 0))
+
+
+def _train_gibbs(cfg: RunConfig, opt, train, stats: dict = None):
+    """Construct + train the model through the one chunked-training loop,
+    utils/elastic.ElasticGibbs (kill the process mid-run, rerun with
+    --resume, and the final state is bit-identical to the uninterrupted run;
+    --max-restarts additionally absorbs in-process faults via
+    elastic_train).  ``stats`` receives the seconds of pruning, of building
+    the model and of training, and the sweeps this call trained."""
+    from ..data.vocab import prune_dict
+    from ..models.labeled_lda import LabeledLDA
+    from ..utils.elastic import ElasticGibbs, elastic_train
+
+    check_supported(opt)
+    stats = {} if stats is None else stats
+    g = cfg.gibbs
+    t0 = time.perf_counter()
+    dicti = prune_dict(train.docs, lower=cfg.lower, upper=cfg.upper)
+    stats["prune_s"] = time.perf_counter() - t0
+    stats["model_s"] = 0.0
+
+    bucket_kw = {}
+    if getattr(opt, "n_buckets", None):
+        bucket_kw["n_buckets"] = int(opt.n_buckets)
+
+    def make_model():
+        t = time.perf_counter()
+        model = LabeledLDA(
+            train.docs, train.labs, list(train.labelset), dicti,
+            alpha=g.alpha, beta=g.beta, seed=g.seed, sweep=opt.sweep,
+            device=getattr(opt, "device", "cuda"), **bucket_kw,
+        )
+        stats["model_s"] += time.perf_counter() - t
+        return model
+
+    train_kw = {"perplexity": not opt.no_perplexity}
+    save_every = opt.save_every or g.iters
+    if opt.checkpoint and opt.save_every and save_every % g.thinning:
+        raise SystemExit("--save-every must be a multiple of -s (thinning)")
+    max_restarts = getattr(opt, "max_restarts", 0)
+    progress = True if getattr(opt, "progress", False) else None
+    stats["train_iters"] = g.iters - _resumed_at(opt)
+    t0 = time.perf_counter()
+    if max_restarts > 0:
+        if not opt.checkpoint:
+            raise SystemExit("--max-restarts requires --checkpoint")
+        model = elastic_train(
+            make_model, g.iters, g.thinning, opt.checkpoint, save_every,
+            max_restarts=max_restarts, verbose=True,
+            resume_first=opt.resume, progress=progress, **train_kw,
+        )
+    else:
+        eg = ElasticGibbs(make_model(), opt.checkpoint, resume=opt.resume,
+                          verbose=True)
+        eg.run(g.iters, g.thinning, save_every, progress=progress, **train_kw)
+        model = eg.model
+    stats["train_s"] = time.perf_counter() - t0 - stats["model_s"]
+    return model
+
+
+def main(argv=None) -> dict:
+    """Run the CLI; returns the model, the metrics, ``stats`` (the wall
+    seconds by step and the sweeps trained), the training rate and the
+    preprocessing pipeline that ran."""
+    from ..utils.tracing import annotate, trace
+
+    opt = build_parser().parse_args(argv)
+    check_supported(opt)
+    cfg = make_config(opt)  # applies the thinning == 0 -> iters rule
+    g = cfg.gibbs
+
+    t_start = time.time()
+    t0 = time.perf_counter()
+    train, test = split_corpus(cfg.file, d=cfg.depth, seed=opt.seed)
+    stats = {"load_s": time.perf_counter() - t0}
+
+    tracer = trace(opt.trace) if opt.trace else contextlib.nullcontext()
+    print("Starting training...")
+    with tracer:
+        with annotate("train"):
+            model = _train_gibbs(cfg, opt, train, stats)
+        print("Testing test data...")
+        t0 = time.perf_counter()
+        with annotate("test"):
+            th = model.run_test(test.docs, cfg.test_iters, cfg.test_thinning)
+        stats["test_s"] = time.perf_counter() - t0
+    if opt.trace:
+        print(f"device profile written to {opt.trace} "
+              f"(view: tensorboard --logdir {opt.trace})")
+    th = np.array(th)
+
+    if cfg.pickle:
+        for name, obj in (("model", model), ("testset", test), ("theta", th)):
+            with open(f"LabeledLDA_{name}.pkl", "wb") as f:
+                pickle.dump(obj, f)
+
+    t0 = time.perf_counter()
+    print(f"Model:               Labeled LDA (PyTorch, {model.device.type})")
+    print("Corpus:             ", cfg.file)
+    print("Label depth         ", cfg.depth)
+    print("# of Gibbs samples: ", int(g.iters))
+    print("-----------------------------------")
+
+    y_bin = binary_yreal(test.labs, model.labelmap)
+
+    # reference filtering (evaluate_LabeledLDA.py:159-167): drop the root
+    # column, then docs with all-zero prediction rows
+    y_bin = y_bin[:, 1:]
+    th = th[:, 1:]
+    nonzero = np.where(th.sum(axis=1) != 0)[0]
+    y_bin, th = y_bin[nonzero], th[nonzero]
+
+    m = evaluate_ranking(th, y_bin)
+    print("AUC ROC:                 ", m["auc_roc"])
+    print("one error:               ", m["one_hit"])
+    print("two error:               ", m["two_hit"])
+    print("F1 score (macro average) ", m["f1_macro"])
+    stats["metrics_s"] = time.perf_counter() - t0
+    tokens_per_s = model.n_tokens * stats["train_iters"] / max(stats["train_s"], 1e-9)
+    print(f"wall time by step: load+preprocess {stats['load_s']:.3f} s ({pipeline()}), "
+          f"prune {stats['prune_s']:.3f} s, model {stats['model_s']:.3f} s, train "
+          f"{stats['train_s']:.3f} s ({stats['train_iters']} sweeps, "
+          f"{tokens_per_s:.1f} tokens/s), test {stats['test_s']:.3f} s, metrics "
+          f"{stats['metrics_s']:.3f} s")
+    print(f"total wall time: {time.time()-t_start:.1f}s")
+    return dict(model=model, metrics=m, stats=stats, tokens_per_s=tokens_per_s,
+                pipeline=pipeline())
+
+
+if __name__ == "__main__":
+    main()

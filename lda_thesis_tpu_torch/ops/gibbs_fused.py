@@ -26,7 +26,16 @@ import torch
 from .fused_block_cuda import fused_block
 from .gibbs import _uniforms, densify_ndk, init_counts_compact, theta_from_compact
 
+# Bumped whenever the port's fused sampler changes its floating-point
+# operation order (in fused_block.cu and fused_block_torch together).
+# Checkpoints of a fused run carry this stamp; utils/checkpoint.restore_model
+# warns when a chain recorded under another version is resumed, since its
+# draws are then no longer bit-identical to the uninterrupted run.  The JAX
+# package keeps its own numbering.
+SAMPLER_FORMULA_VERSION = 1
+
 __all__ = [
+    "SAMPLER_FORMULA_VERSION",
     "FusedLDAState",
     "FusedBucketState",
     "select_merge_block",

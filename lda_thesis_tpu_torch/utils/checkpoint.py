@@ -1,0 +1,214 @@
+"""Checkpoint / resume: count-tensor and generator-state snapshots.
+
+Counterpart of ``lda_thesis_tpu/utils/checkpoint.py``, with its layout:
+
+* arrays in one ``.npz`` (count tensors, thinned means, the generator's
+  state), metadata (hyperparameters, labelmap) as JSON; no pickled code
+  objects, so checkpoints survive refactors;
+* writes are atomic: both files are written in full to temporary names and
+  then renamed, the ``.npz`` first, so an interrupted run never leaves a
+  corrupt file and the ``.json`` that marks a checkpoint appears last;
+* :func:`save_model` / :func:`restore_model` round-trip the training state of
+  ``LabeledLDA`` (fused, dense and compact) and ``CascadeLDA``; training
+  resumes mid-chain with the same draws as the uninterrupted run.
+
+The array names and meta keys are the JAX package's, except that the port
+has no ``rng_key``: it stores its ``torch.Generator`` state as ``rng_state``
+(uint8) with the generator's device type as meta ``rng_device``, and stamps
+``framework: "torch"``.  A CPU (mt19937) state and a CUDA (Philox) state do
+not interchange, so a state restores only into a generator of its own
+device type.  :func:`restore_model` also reads a checkpoint that the JAX
+package wrote: its counts and means load as they are, and the chain then
+continues from the constructor's generator, in distribution but not draw
+for draw.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import tempfile
+import warnings
+from typing import Any, Dict, Tuple
+
+import numpy as np
+import torch
+
+__all__ = ["save_checkpoint", "load_checkpoint", "save_model", "restore_model"]
+
+# model kinds of the JAX package whose port is still to come
+_NOT_PORTED = {
+    "LocalLDA": "ROADMAP.md Queue 1 item 5",
+    "HSLDA": "ROADMAP.md Queue 1 item 7",
+    "DistributedLabeledLDA": "ROADMAP.md Queue 1 item 9",
+    "DistributedHSLDA": "ROADMAP.md Queue 1 item 9",
+}
+
+
+def _write_tmp(path: str, write_fn) -> str:
+    d = os.path.dirname(os.path.abspath(path)) or "."
+    os.makedirs(d, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=d, suffix=".tmp")
+    try:
+        with os.fdopen(fd, "wb") as f:
+            write_fn(f)
+    except BaseException:
+        os.unlink(tmp)
+        raise
+    return tmp
+
+
+def save_checkpoint(path: str, arrays: Dict[str, Any], meta: Dict[str, Any]) -> None:
+    """Atomically write ``{path}.npz`` (arrays) and ``{path}.json`` (metadata)."""
+    np_arrays = {k: np.asarray(v) for k, v in arrays.items()}
+    tmps = []
+    try:
+        tmps.append(_write_tmp(path + ".npz", lambda f: np.savez(f, **np_arrays)))
+        tmps.append(_write_tmp(
+            path + ".json", lambda f: f.write(json.dumps(meta, indent=1).encode())))
+        os.replace(tmps[0], path + ".npz")
+        os.replace(tmps[1], path + ".json")
+    finally:
+        for tmp in tmps:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+
+
+def load_checkpoint(path: str) -> Tuple[Dict[str, np.ndarray], Dict[str, Any]]:
+    with np.load(path + ".npz") as z:
+        arrays = {k: z[k] for k in z.files}
+    with open(path + ".json") as f:
+        meta = json.load(f)
+    return arrays, meta
+
+
+# --------------------------------------------------------------------------
+# model-level snapshots
+# --------------------------------------------------------------------------
+
+
+def _model_kind(model) -> str:
+    kind = type(model).__name__
+    if kind in _NOT_PORTED:
+        raise NotImplementedError(
+            f"{kind} is not ported yet ({_NOT_PORTED[kind]}); only LabeledLDA and "
+            f"CascadeLDA checkpoints are")
+    if kind not in ("LabeledLDA", "CascadeLDA"):
+        raise TypeError(f"unknown model kind: {kind}")
+    return kind
+
+
+def save_model(path: str, model, extra_meta: Dict[str, Any] = None) -> None:
+    """Snapshot a LabeledLDA / CascadeLDA training state.
+
+    ``extra_meta`` lets callers record run-level progress (e.g. the CLI's
+    ``iters_done``) alongside the model state.
+    """
+    kind = _model_kind(model)
+    arrays: Dict[str, Any] = {"rng_state": model._gen.get_state().numpy()}
+    meta: Dict[str, Any] = {"kind": kind, "framework": "torch",
+                            "rng_device": model._gen.device.type}
+    if extra_meta:
+        meta.update(extra_meta)
+
+    if kind == "LabeledLDA":
+        # bucketed state: one z/n_dk pair per length bucket
+        meta["n_buckets"] = len(model.counts.z)
+        for g in range(len(model.counts.z)):
+            arrays[f"z_{g}"] = model.counts.z[g].cpu().numpy()
+            arrays[f"n_dk_{g}"] = model.counts.n_dk[g].cpu().numpy()
+        arrays.update(n_vk=model.counts.n_vk.cpu().numpy(),
+                      n_k=model.counts.n_k.cpu().numpy(),
+                      ph_hat=model.ph_hat.cpu().numpy(), th_hat=model.th_hat)
+        meta.update(alpha=model.alpha, beta=model.beta, K=model.K,
+                    Kp=model.Kp, V=model.V, D=model.D,
+                    sweep=model.sweep, avg_s=int(model._avg_s),
+                    merge_M=getattr(model, "_merge_M", None),
+                    labelmap=model.labelmap,
+                    cur_perplx=list(map(float, model.cur_perplx)))
+        if model.sweep == "fused":
+            from ..ops.gibbs_fused import SAMPLER_FORMULA_VERSION
+
+            meta["sampler_formula"] = SAMPLER_FORMULA_VERSION
+    else:
+        arrays.update(ph=model.ph)
+        meta.update(alpha=model.alpha, beta=model.beta, K=model.K, V=model.V,
+                    D=model.D, labelmap=model.labelmap)
+    save_checkpoint(path, arrays, meta)
+
+
+def _stream_warning(what: str) -> None:
+    warnings.warn(
+        f"checkpoint was recorded {what}: the resumed chain is statistically "
+        f"valid but not bit-identical to an uninterrupted run", stacklevel=3)
+
+
+def restore_model(path: str, model) -> Dict[str, Any]:
+    """Restore a snapshot into a *compatibly constructed* model instance.
+
+    The instance must be built over the same corpus/vocabulary (shapes are
+    validated); counts, thinned means and the generator's state are replaced
+    so training continues exactly where the snapshot left off.  Returns the
+    checkpoint metadata (including any ``extra_meta`` recorded at save time,
+    e.g. ``iters_done``).
+    """
+    from ..convert import labeled_lda_state_from_numpy
+
+    kind = _model_kind(model)
+    arrays, meta = load_checkpoint(path)
+    if meta["kind"] != kind:
+        raise ValueError(f"checkpoint is {meta['kind']}, model is {kind}")
+
+    def _chk(name, got, want):
+        if int(got) != int(want):
+            raise ValueError(f"{name} mismatch: checkpoint {want}, model {got}")
+
+    _chk("V", model.V, meta["V"])
+    _chk("D", model.D, meta["D"])
+    from_jax = meta.get("framework") is None
+    if not from_jax:
+        want, got = meta["rng_device"], model._gen.device.type
+        if want != got:
+            raise ValueError(
+                f"checkpoint holds a {want} generator state, the model draws on "
+                f"{got}: CPU (mt19937) and CUDA (Philox) states do not "
+                f"interchange; restore on a {want} device")
+
+    if kind == "LabeledLDA":
+        G = int(meta["n_buckets"])
+        if len(model.counts.z) != G:
+            raise ValueError(
+                f"bucket count mismatch: checkpoint {G}, model "
+                f"{len(model.counts.z)} (construct with n_buckets={G}; "
+                f"CLI: --n-buckets {G})"
+            )
+        sweep = meta.get("sweep", "dense")
+        if sweep != model.sweep:
+            raise ValueError(
+                f"sweep kernel mismatch: checkpoint {sweep!r}, model "
+                f"{model.sweep!r} (construct with sweep={sweep!r})"
+            )
+        labeled_lda_state_from_numpy(arrays, model, meta)
+        model.cur_perplx = list(meta.get("cur_perplx", []))
+        model._avg_s = int(meta.get("avg_s", 0))
+        if meta.get("merge_M") is not None:
+            model._ckpt_merge_M = int(meta["merge_M"])
+        if sweep == "fused" and not from_jax:
+            from ..ops.gibbs_fused import SAMPLER_FORMULA_VERSION
+
+            got = meta.get("sampler_formula")
+            if got is None or int(got) != SAMPLER_FORMULA_VERSION:
+                _stream_warning(f"with fused sampler formula v{got}, current is "
+                                f"v{SAMPLER_FORMULA_VERSION}")
+    else:
+        model.ph = np.array(arrays["ph"], dtype=np.float32)
+
+    if from_jax:
+        # a JAX key has no torch counterpart: the constructor's generator
+        # stays, so the chain goes on in distribution, not draw for draw
+        _stream_warning("by the JAX package, whose threefry key does not carry "
+                        "over to a torch.Generator; the chain continues from the "
+                        "constructor's generator")
+    else:
+        model._gen.set_state(torch.from_numpy(arrays["rng_state"]))
+    return meta

@@ -1,0 +1,91 @@
+"""Profiling / tracing / progress observability.
+
+Counterpart of ``lda_thesis_tpu/utils/tracing.py``:
+
+* :func:`trace` — context manager around ``torch.profiler.profile`` (CPU
+  activity, and CUDA where a card is visible) writing a TensorBoard-loadable
+  Chrome trace (``*.pt.trace.json``: host ops, kernel launches and device
+  kernels) into a directory;
+* :func:`annotate` — named ``record_function`` scopes for host-side phases;
+* :class:`Progress` — rate/ETA progress reporting for long Gibbs runs
+  (tokens/s, sweeps/s) without per-iteration host syncs.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import time
+from typing import Iterator
+
+import torch
+from torch.profiler import ProfilerActivity, profile, record_function, tensorboard_trace_handler
+
+__all__ = ["trace", "annotate", "Progress"]
+
+
+@contextlib.contextmanager
+def trace(log_dir: str) -> Iterator[None]:
+    """Capture a profile of the enclosed block into ``log_dir``.
+
+    View with ``tensorboard --logdir <log_dir>`` (profile plugin) or load the
+    JSON file in a Chrome trace viewer.
+    """
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(log_dir)):
+        yield
+
+
+@contextlib.contextmanager
+def annotate(name: str) -> Iterator[None]:
+    """Named host-side scope that shows up on the profiler timeline."""
+    with record_function(name):
+        yield
+
+
+class Progress:
+    """Throughput/ETA reporter for iterative training.
+
+    ``done`` is the iteration count the run starts from (a resumed run's
+    checkpointed iterations): the ``[done/total]`` display counts the whole
+    run, while the rate and the ETA count only this session's iterations.
+
+    >>> prog = Progress(total_iters=2000, tokens_per_iter=250_000)
+    >>> for i in range(2000):
+    ...     step()
+    ...     prog.update()   # prints at most every `interval` seconds
+    """
+
+    def __init__(
+        self,
+        total_iters: int,
+        tokens_per_iter: int = 0,
+        interval: float = 5.0,
+        printer=print,
+        done: int = 0,
+    ):
+        self.total = int(total_iters)
+        self.tokens_per_iter = int(tokens_per_iter)
+        self.interval = float(interval)
+        self.printer = printer
+        self.done = self.done_at_start = int(done)
+        self.t0 = time.perf_counter()
+        self._last = self.t0
+
+    def update(self, n: int = 1) -> None:
+        self.done += n
+        now = time.perf_counter()
+        if now - self._last < self.interval and self.done < self.total:
+            return
+        self._last = now
+        dt = now - self.t0
+        rate = (self.done - self.done_at_start) / max(dt, 1e-9)
+        eta = (self.total - self.done) / max(rate, 1e-9)
+        msg = (
+            f"[{self.done}/{self.total}] {rate:.2f} it/s, "
+            f"eta {eta:.0f}s"
+        )
+        if self.tokens_per_iter:
+            msg += f", {rate * self.tokens_per_iter / 1e6:.2f}M tokens/s"
+        self.printer(msg)
