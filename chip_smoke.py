@@ -11,10 +11,13 @@ made from ``--seed``.  Phases:
 2. kernel builds, one ``nvcc`` per source, all started together;
 3. the merge-block kernel against ``fused_block_torch`` at every bucket of
    the fused path's first merge block (A = 24, M = 25) and at the edge
-   cases (``edge_cases``), and one whole merge block on the card against
-   the same block on the CPU; the kernel's device time, its chain steps
-   (M × the most live positions of a document) and time per step, and the
-   times of its call, its plain version and the block's gather and scatter;
+   cases (``edge_cases``, the general route's slot and position counts
+   among them), and one whole merge block on the card against the same
+   block on the CPU; the kernel's device time, its chain steps (M × the
+   most live positions of a document) and time per step, and the times of
+   its call, its plain version and the block's gather and scatter; the
+   general route's device time per launch at LocalLDA's K = 50 shape and at
+   U = 1,024, A = 32, beside their bounds;
 4. the fused Labeled-LDA path (``LabeledLDA`` → ``run_training`` →
    ``run_test`` → ranking metrics): 50 sweeps at (50; 25) within a
    2000-sweep budget, so the merge block is M = 25; count invariants, kernel
@@ -54,7 +57,16 @@ made from ``--seed``.  Phases:
    checkpoints and the four metric lines equal; the time of one checkpoint
    write; ``--progress --trace``; the CascadeLDA CLI at (4; 2); and
    ``lda_thesis_tpu_torch.entry``'s merge block;
-10. one JSON line of kernel records, the card's line, and the result line.
+10. LocalLDA as a user runs it: its CLI on a CSV of the planted corpus at
+    the abstracts' vocabulary (V = 11,889), at its defaults (K = 20, fused,
+    100 sweeps at thinning 10, one merge per sweep: 100 kernel-1 launches),
+    with ``--sweep dense`` (its draw and commit launches as planned) and with
+    ``-k 50`` (A = 56: kernel 1's general route), each with the count
+    invariants and a perplexity below V; and a save/restore round trip of
+    the LocalLDA checkpoint whose next call equals the uninterrupted one's;
+11. the VI engine: the Labeled-LDA CLI with ``--engine vi -i 20`` on phase
+    9's CSV, a non-falling ELBO, held-out AUC and seconds per CAVI step;
+12. one JSON line of kernel records, the card's line, and the result line.
 
 Every check raises; the script exits non-zero without a CUDA device.
 """
@@ -88,12 +100,16 @@ COMMIT_REPLACES = "lda_thesis_tpu/ops/gibbs.py:178-187 (XLA scatter-adds, no TPU
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12  # H100 SXM data sheet, fp32 outside the tensor cores
 OPS_PER_SLOT_DRAW = 12  # fp32 operations per (slot, position, sweep)
+# fused_block_cuda.max_positions(32) on an H100: the staged route's widest
+# document at 32 slots (checked against the card in kernel_phase)
+STAGED_LIMIT_H100 = 563
 # fp32 operations per (row, topic) of one exact-sweep position: the
 # decrement, +α, ·labs, +β, ·cv, ·recip, the cumsum add and the comparison
 OPS_PER_TOPIC_DRAW = 8
 TRAIN_ITERS, THINNING, TOTAL_ITERS = 50, 25, 2000
 COMPACT_ITERS, COMPACT_THINNING = 10, 5
 CASCADE_IT, CASCADE_S = 4, 2  # the thesis config; the root level runs (16; 4)
+VI_ITERS = 20  # CAVI iterations of the --engine vi run
 MIN_AUC = 0.6
 STEADY_CALLS = 5
 # launch records a profiler session may lose (PERF.md: sessions of a long
@@ -313,7 +329,12 @@ def edge_cases() -> dict:
     """name -> (D, U, A, M, gaps, zero_doc): ragged shapes, one more
     document than an H100 holds at once (32 one-warp CTAs on each of 132
     SMs), one and 32 slots, a document with no live position, interior
-    gaps, U = 512, and documents of one or two positions."""
+    gaps, U = 512, and documents of one or two positions; then the general
+    route: 33, 56 (LocalLDA at K = 50), 136 and 1,032 slots, one position
+    past the staged route's limit at A = 32 (563 on an H100), 1,024
+    positions, 600 positions at 13 slots, 1,032 slots at 40 positions, and
+    16,000 slots, whose state overflows shared memory into a global scratch
+    buffer."""
     return {
         "ragged D=37 U=20 A=13": (37, 20, 13, 3, 0.3, False),
         "two waves D=4225": (32 * 132 + 1, 8, 8, 2, 0.3, True),
@@ -325,6 +346,16 @@ def edge_cases() -> dict:
         "U=1": (67, 1, 7, 3, 0.0, True),
         "U=1 A=1": (67, 1, 1, 3, 0.0, False),
         "U=2": (101, 2, 10, 4, 0.0, False),
+        "A=33": (301, 40, 33, 4, 0.2, True),
+        "A=56": (301, 40, 56, 3, 0.2, False),
+        "A=136": (150, 40, 136, 3, 0.3, True),
+        "A=1032": (60, 16, 1032, 2, 0.2, False),
+        "U=564 A=32": (40, STAGED_LIMIT_H100 + 1, 32, 2, 0.3, True),
+        "U=1024 A=32": (40, 1024, 32, 2, 0.3, False),
+        "U=600 A=13": (40, 600, 13, 2, 0.3, True),
+        "U=40 A=1032": (30, 40, 1032, 2, 0.3, True),
+        "U=1 A=56": (67, 1, 56, 3, 0.0, False),
+        "A=16000": (3, 4, 16000, 2, 0.0, False),
     }
 
 
@@ -345,14 +376,17 @@ def bucket_inputs(model, g: int, M: int, gen):
 
 
 def bound(args) -> tuple:
-    """(seconds bound by bytes, seconds bound by operations) for one launch:
-    each input read once and each output written once; operations for the
-    positions whose f > 0 (the kernel skips the rest)."""
+    """(seconds bound by bytes, seconds bound by operations) for one launch,
+    counting what this run's data needs: f, z and the per-slot inputs read
+    once and z and n_dk written once, but the cv rows and the uniforms only
+    of the positions whose f > 0, as the operations (the function draws
+    nothing at the others, so it needs neither there)."""
     cv, f, u, z0, nkg, valid, ndk0 = args
     D, U, A = cv.shape
     M = u.shape[0]
-    n_bytes = 4 * (sum(t.numel() for t in args) + U * D + A * D)
-    n_ops = OPS_PER_SLOT_DRAW * A * int((f > 0).sum()) * M
+    live = int((f > 0).sum())
+    n_bytes = 4 * (live * (A + M) + 3 * U * D + 4 * A * D)
+    n_ops = OPS_PER_SLOT_DRAW * A * live * M
     return n_bytes / HBM_BYTES_PER_S, n_ops / FP32_FLOP_PER_S
 
 
@@ -412,18 +446,26 @@ def kernel_phase(model, seed: int) -> dict:
                                    bound_ms=1e3 * max(by_bytes, by_ops)))
     rec["ns_per_step"] = 1e6 * rec["ms"] / rec["chain_steps"]
 
+    limit = fbc.max_positions(32)
+    _check(limit == STAGED_LIMIT_H100, f"max_positions(32) == {STAGED_LIMIT_H100} ({limit})")
+    print(f"staged route: at most {limit} positions at A = 32 on this card")
     for i, (name, shape) in enumerate(edge_cases().items()):
         args = block_case(DEVICE, seed + i, *shape)
+        D, U, A, M_e = shape[:4]
+        general = fbc.general_launches
         got = fbc.fused_block(*args, a, b)
         want = fbc.fused_block_torch(*args, a, b)
         torch.cuda.synchronize()
         _check(_bitwise(got, want), f"kernel == plain version, {name}")
+        route = fbc.route(U, A)
+        _check((fbc.general_launches - general == 1) == (route == "general"),
+               f"{name}: launched on the {route} route")
         if shape[-1]:
             _check(torch.equal(got[0][:, 0], args[3][:, 0]) and _bitwise([got[1][:, 0]],
                    [args[6][:, 0]]), f"{name}: the all-zero document is unchanged")
         rec["max_abs_err"] = max(rec["max_abs_err"], _max_abs_err(got, want))
-        D, U, A, M_e = shape[:4]
-        print(f"{name} (D={D} U={U} A={A} M={M_e}): bitwise equal")
+        print(f"{name} (D={D} U={U} A={A} M={M_e}, {route} route): bitwise equal")
+    rec.update(general_route_timing(seed, a, b))
 
     # one whole merge block of the first bucket: card (kernel, gather and
     # scatter on CUDA) against CPU (plain version), the same uniforms
@@ -451,6 +493,48 @@ def kernel_phase(model, seed: int) -> dict:
           f"{rec['ops_s'] * FP32_FLOP_PER_S / 1e9:.3f} GFLOP), gather "
           f"{rec['gather_ms']:.4f} ms, scatter {rec['scatter_ms']:.4f} ms")
     return rec
+
+
+# (D, U, A, M) of the general route's timed shapes: LocalLDA at K = 50 on
+# the abstracts (one bucket, merge every sweep), and a 1,024-position bucket
+# at 32 slots, past the staged route's limit
+WIDE_SLOT_SHAPE = (4635, 128, 56, 1)
+STREAMED_SHAPE = (4635, 1024, 32, 1)
+
+
+def general_route_timing(seed: int, alpha: float, beta: float) -> dict:
+    """Device ms per launch of the general route at ``WIDE_SLOT_SHAPE`` and
+    ``STREAMED_SHAPE`` (CUDA events around 10 back-to-back launches), beside
+    ``bound`` and the plain version's time; each bitwise against the plain
+    version first."""
+    import torch
+
+    from lda_thesis_tpu_torch.ops import fused_block_cuda as fbc
+
+    out = {}
+    for key, (D, U, A, M) in (("wide_slot", WIDE_SLOT_SHAPE), ("streamed", STREAMED_SHAPE)):
+        args = block_case(DEVICE, seed + A, D, U, A, M, gaps=0.0)
+        _check(fbc.route(U, A) == "general", f"{key}: the general route's shape")
+        got = fbc.fused_block(*args, alpha, beta)
+        t0 = time.perf_counter()
+        want = fbc.fused_block_torch(*args, alpha, beta)
+        torch.cuda.synchronize()
+        plain_ms = 1e3 * (time.perf_counter() - t0)
+        _check(_bitwise(got, want), f"kernel == plain version, {key} (D={D} U={U} A={A})")
+        ms = _batch_ms(lambda: fbc.fused_block(*args, alpha, beta), 10)
+        by_bytes, by_ops = bound(args)
+        steps = M * int((args[1] > 0).sum(dim=0).max())
+        out[f"{key}_ms"] = ms
+        out[f"{key}_bound_ms"] = 1e3 * max(by_bytes, by_ops)
+        out[f"{key}_bound_by"] = "operations" if by_ops >= by_bytes else "bytes"
+        out[f"{key}_plain_ms"] = plain_ms
+        out[f"{key}_ns_per_step"] = 1e6 * ms / steps
+        print(f"general route, {key} (D={D} U={U} A={A} M={M}): {ms:.4f} ms per launch on "
+              f"the card, {steps} chain steps, {1e6 * ms / steps:.1f} ns per step, bound "
+              f"{out[f'{key}_bound_ms']:.5f} ms ({out[f'{key}_bound_by']}), plain "
+              f"{plain_ms:.2f} ms, bitwise equal")
+        del args, got, want
+    return out
 
 
 def main_path(corpus, dicti, seed: int) -> dict:
@@ -1344,6 +1428,200 @@ def product_phase(seed: int) -> dict:
     return rec
 
 
+LOCAL_V = 11_889  # the abstracts' vocabulary in LocalLDA's lemma mode
+LOCAL_ITERS, LOCAL_THINNING = 100, 10  # the JAX package's LocalLDA record
+LOCAL_SHORT = 20  # sweeps of the dense and K = 50 runs
+
+
+def _local_steps(res) -> dict:
+    return {k[:-2]: v for k, v in res["stats"].items()}
+
+
+def _local_card_equals_cpu(m, seed: int, what: str) -> None:
+    """One merge block (fused) or one exact sweep (dense) of every bucket of
+    ``m`` from its trained state, on the card (the kernels at the shapes
+    this path gives them) and on the CPU (their plain versions), from the
+    same uniforms, held bit for bit."""
+    import torch
+
+    from lda_thesis_tpu_torch.ops.gibbs import ExactSweep
+    from lda_thesis_tpu_torch.ops.gibbs_fused import fused_train_block_buckets
+
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed)
+    us = [torch.rand(tuple(tv.shape), generator=gen, device=DEVICE) for tv in m._toks_v_t]
+    ends = []
+    for dev in (DEVICE, "cpu"):
+        st = type(m.counts)(*(tuple(t.to(dev, copy=True) for t in part)
+                              if isinstance(part, tuple) else part.to(dev, copy=True)
+                              for part in m.counts))
+        tv, tf = [t.to(dev) for t in m._toks_v_t], [t.to(dev) for t in m._toks_f_t]
+        if m.sweep == "fused":
+            st = fused_train_block_buckets(
+                st, tv, tf, [t.to(dev) for t in m.lab_ids_t],
+                [t.to(dev) for t in m._lab_valid_tt], m.a, m.b, 1,
+                uniforms=[u[None].to(dev) for u in us])
+            state = [*st.z, *st.n_dk, st.n_vk, st.n_k]
+        else:
+            z_t = [z.T.clone(memory_format=torch.contiguous_format) for z in st.z]
+            for g, u in enumerate(us):
+                ExactSweep(z_t[g], st.n_dk[g], st.n_vk, st.n_k, tv[g], tf[g],
+                           m.labs_t[g].to(dev), m.a, m.b, m.V * m.b)(uniforms=u.to(dev))
+            state = [*z_t, *st.n_dk, st.n_vk, st.n_k]
+        ends.append([t.cpu() for t in state])
+    _check(_bitwise(*ends), f"{what}: one {'merge block' if m.sweep == 'fused' else 'sweep'} "
+                            f"on the card == the same on the CPU")
+    print(f"{what}: one {'merge block' if m.sweep == 'fused' else 'exact sweep'} of the "
+          f"trained state on the card == the same on the CPU (z, n_dk, n_vk, n_k)")
+
+
+def local_lda_phase(seed: int) -> dict:
+    """LocalLDA as a user runs it: its CLI on a CSV of the planted corpus at
+    the abstracts' vocabulary (each abstract one sentence document, one
+    bucket of U = 128), at its defaults (K = 20, fused, M = 1), with
+    ``--sweep dense`` and with ``-k 50`` (the general route); the kernel
+    counters are set to 0 just before each run and read just after.  After
+    each run, one block of its trained state on the card against the CPU;
+    and a save/restore round trip of the LocalLDA checkpoint."""
+    import torch
+
+    from lda_thesis_tpu_torch.cli import evaluate_local_lda
+    from lda_thesis_tpu_torch.data.synthetic import planted_corpus
+    from lda_thesis_tpu_torch.models.local_lda import LocalLDA
+    from lda_thesis_tpu_torch.ops import draw_update_cuda as duc
+    from lda_thesis_tpu_torch.ops import fused_block_cuda as fbc
+    from lda_thesis_tpu_torch.utils.checkpoint import restore_model, save_model
+
+    def counters_zero():
+        fbc.launches = fbc.general_launches = duc.launches = duc.commit_launches = 0
+
+    def check_model(m, what):
+        _check_counts(m.counts, float(m.n_tokens), what)
+        perp = m.perplexity()
+        _check(np.isfinite(perp) and 1.0 < perp < m.V,
+               f"{what}: perplexity {perp} below V = {m.V}, the uniform model's")
+        return perp
+
+    rec = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        csv_path = os.path.join(tmp, "local.csv")
+        write_corpus_csv(csv_path, planted_corpus(seed, V=LOCAL_V))
+        flags = ["-f", csv_path, "--seed", str(seed)]
+
+        counters_zero()
+        res, _ = _cli(evaluate_local_lda.main,
+                      flags + ["-i", str(LOCAL_ITERS), "-s", str(LOCAL_THINNING)])
+        m = res["model"]
+        n_buckets = m.buckets.n_buckets
+        launches = (fbc.launches, fbc.general_launches, duc.launches, duc.commit_launches)
+        _check(m.K == 20 and m.A == 24 and m._merge_M == 1 and n_buckets == 1,
+               f"LocalLDA CLI defaults: K 20, A 24, M 1, one bucket ({m.K}, {m.A}, "
+               f"{m._merge_M}, {n_buckets})")
+        _check(launches == (LOCAL_ITERS, 0, 0, 0)
+               and res["launches"]["fused_block"] == LOCAL_ITERS,
+               f"LocalLDA CLI: {LOCAL_ITERS} kernel-1 launches on the staged route, no "
+               f"other (kernel 1, general, draw, commit: {launches})")
+        perp = check_model(m, "LocalLDA CLI fused")
+        _check(perp == res["perplexity"], "LocalLDA CLI: its perplexity")
+        shape = (m.D, m.V, tuple(m.counts.z[0].shape))
+        print(f"LocalLDA CLI, defaults (K = 20, ({LOCAL_ITERS}; {LOCAL_THINNING}), fused, "
+              f"M = 1): D={m.D} V={m.V} A={m.A} z {shape[2]}; {launches[0]} kernel-1 launches; "
+              f"perplexity {perp:.2f}; wall by step "
+              f"{json.dumps({k: round(v, 4) for k, v in _local_steps(res).items()})}; "
+              f"{res['tokens_per_s']:.1f} tokens/s")
+        rec["fused"] = dict(launches=launches[0], perplexity=perp, wall_s=_local_steps(res),
+                            tokens_per_s=res["tokens_per_s"], D=m.D, V=m.V)
+        _local_card_equals_cpu(m, seed + 2, "LocalLDA K = 20 (staged route)")
+
+        # the checkpoint round trip: a model restored from a save of the
+        # trained one takes the same next call, bit for bit
+        ck = os.path.join(tmp, "ck")
+        t0 = time.perf_counter()
+        save_model(ck, m, extra_meta={"iters_done": LOCAL_ITERS})
+        write_ms = 1e3 * (time.perf_counter() - t0)
+        back = LocalLDA(evaluate_local_lda._read_texts(csv_path), alpha=m.a, beta=m.b,
+                        K=m.K, seed=seed + 1, device=DEVICE)
+        restore_model(ck, back)
+        m.run_training(LOCAL_THINNING, LOCAL_THINNING, total_iters=LOCAL_ITERS)
+        back.run_training(LOCAL_THINNING, LOCAL_THINNING, total_iters=LOCAL_ITERS)
+        same = (all(torch.equal(x, y) for x, y in zip(m.counts.z, back.counts.z))
+                and _bitwise(list(m.counts.n_dk) + [m.counts.n_vk, m.counts.n_k],
+                             list(back.counts.n_dk) + [back.counts.n_vk, back.counts.n_k])
+                and torch.equal(m._gen.get_state(), back._gen.get_state())
+                and np.array_equal(m.ph_hat, back.ph_hat)
+                and np.array_equal(m.th_hat, back.th_hat))
+        _check(same, "LocalLDA checkpoint: the restored model's next call equals the "
+                     "uninterrupted model's")
+        print(f"LocalLDA checkpoint: write {write_ms:.1f} ms; restored into a fresh model, "
+              f"its next ({LOCAL_THINNING}; {LOCAL_THINNING}) call equals the "
+              f"uninterrupted model's (z, n_dk, n_vk, n_k, generator, means)")
+        rec["checkpoint_write_ms"] = write_ms
+        del m, back, res
+
+        short = ["-i", str(LOCAL_SHORT), "-s", str(LOCAL_THINNING)]
+        counters_zero()
+        res, _ = _cli(evaluate_local_lda.main, flags + short + ["--sweep", "dense"])
+        m = res["model"]
+        plan = [planned_sweep_launches(tf) for tf in m._toks_f_t]
+        planned = (LOCAL_SHORT * sum(p[0] for p in plan), LOCAL_SHORT * sum(p[1] for p in plan))
+        launches = (duc.launches, duc.commit_launches, fbc.launches)
+        _check(launches == planned + (0,),
+               f"LocalLDA CLI dense: (draw, commit, kernel-1) launches {launches}, "
+               f"planned {planned}")
+        perp_dense = check_model(m, "LocalLDA CLI dense")
+        print(f"LocalLDA CLI --sweep dense ({LOCAL_SHORT}; {LOCAL_THINNING}): launches (draw, "
+              f"commit) {launches[:2]} as planned; perplexity {perp_dense:.2f} (fused at "
+              f"({LOCAL_ITERS}; {LOCAL_THINNING}): {perp:.2f}); wall by step "
+              f"{json.dumps({k: round(v, 4) for k, v in _local_steps(res).items()})}")
+        rec["dense"] = dict(launches=launches[0], commit_launches=launches[1],
+                            perplexity=perp_dense, wall_s=_local_steps(res))
+        _local_card_equals_cpu(m, seed + 3, "LocalLDA --sweep dense")
+        del m, res
+
+        counters_zero()
+        res, _ = _cli(evaluate_local_lda.main, flags + short + ["-k", "50"])
+        m = res["model"]
+        launches = (fbc.launches, fbc.general_launches)
+        _check(m.A == 56 and launches == (LOCAL_SHORT, LOCAL_SHORT),
+               f"LocalLDA CLI -k 50: A 56, every kernel-1 launch on the general route "
+               f"(A {m.A}, launches {launches})")
+        perp50 = check_model(m, "LocalLDA CLI -k 50")
+        print(f"LocalLDA CLI -k 50 ({LOCAL_SHORT}; {LOCAL_THINNING}): A = {m.A}, "
+              f"{launches[1]} kernel-1 launches on the general route; perplexity "
+              f"{perp50:.2f}; wall by step "
+              f"{json.dumps({k: round(v, 4) for k, v in _local_steps(res).items()})}")
+        rec["k50"] = dict(launches=launches[1], perplexity=perp50, wall_s=_local_steps(res))
+        _local_card_equals_cpu(m, seed + 4, "LocalLDA K = 50 (general route)")
+    return rec
+
+
+def vi_phase(seed: int) -> dict:
+    """The Labeled-LDA CLI with ``--engine vi -i 20`` on phase 9's CSV: the
+    ELBO must not fall (within tests/test_vi.py's float32 slack) and the
+    held-out AUC must pass; the seconds per CAVI step at full width."""
+    from lda_thesis_tpu_torch.cli import evaluate_labeled_lda
+    from lda_thesis_tpu_torch.data.synthetic import planted_corpus
+
+    with tempfile.TemporaryDirectory() as tmp:
+        csv_path = os.path.join(tmp, "planted.csv")
+        write_corpus_csv(csv_path, planted_corpus(seed))
+        res, _ = _cli(evaluate_labeled_lda.main,
+                      ["-f", csv_path, "-d", "3", "-i", str(VI_ITERS), "--seed", str(seed),
+                       "--engine", "vi"])
+    m = res["model"]
+    e = np.asarray(m.elbo_history)
+    _check(len(e) >= 2 and bool(np.all(np.diff(e) >= -1e-3 * np.abs(e[:-1]))),
+           f"VI: the ELBO does not fall ({e.tolist()})")
+    auc = res["metrics"]["auc_roc"]
+    _check(auc > MIN_AUC, f"VI: held-out AUC {auc} > {MIN_AUC}")
+    step_s = res["stats"]["train_s"] / len(e)
+    print(f"CLI --engine vi (-i {VI_ITERS}): D={m.D} Kp={m.Kp} V={m.V}, {len(e)} CAVI "
+          f"steps, {step_s:.4f} s per step, ELBO {e[0]:.6g} -> {e[-1]:.6g}, AUC {auc}; "
+          f"wall by step {json.dumps({k: round(v, 4) for k, v in _steps(res).items()})}")
+    return dict(cavi_step_s=step_s, steps=len(e), auc_roc=auc, elbo_first=float(e[0]),
+                elbo_last=float(e[-1]), D=m.D, Kp=m.Kp, V=m.V, wall_s=_steps(res))
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1436,7 +1714,14 @@ def main(argv=None) -> int:
     product = product_phase(args.seed)
     phase_done("product surface")
 
-    # 10. records
+    # 10. LocalLDA through its CLI, and 11. the VI engine through the
+    # Labeled-LDA CLI
+    local = local_lda_phase(args.seed)
+    phase_done("LocalLDA")
+    vi = vi_phase(args.seed)
+    phase_done("VI engine")
+
+    # 12. records
     kernels = [{
         "name": "fused_block",
         "route": "cuda",
@@ -1473,6 +1758,21 @@ def main(argv=None) -> int:
         "checkpoint_npz_mb": product["checkpoint"]["npz_mb"],
         "kill_resume_bitwise_arrays": product["checkpoint"]["arrays"],
         "trace_records": product["trace"]["kernel1_records"],
+        "launches_local_lda": local["fused"]["launches"],
+        "launches_local_lda_k50_general": local["k50"]["launches"],
+        "wide_slot_ms": rec["wide_slot_ms"],
+        "wide_slot_bound_ms": rec["wide_slot_bound_ms"],
+        "wide_slot_plain_ms": rec["wide_slot_plain_ms"],
+        "wide_slot_ns_per_step": rec["wide_slot_ns_per_step"],
+        "streamed_ms": rec["streamed_ms"],
+        "streamed_bound_ms": rec["streamed_bound_ms"],
+        "streamed_plain_ms": rec["streamed_plain_ms"],
+        "streamed_ns_per_step": rec["streamed_ns_per_step"],
+        "general_route_per": "launch of the general route at (D, U, A, M) = "
+                             f"{WIDE_SLOT_SHAPE} (wide_slot) and {STREAMED_SHAPE} "
+                             "(streamed); device time from CUDA events around 10 "
+                             "back-to-back launches",
+        "local_lda": local,
     }, {
         "name": "draw_update",
         "route": "cuda",
@@ -1541,6 +1841,7 @@ def main(argv=None) -> int:
         "cli_dense_launches": product["dense"]["commit_launches"],
     }]
     print(json.dumps({"phase_seconds": seconds}))
+    print(json.dumps({"vi": vi}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -10,12 +10,13 @@ checkpoint/resume (``--checkpoint PATH --save-every N --resume
 [--max-restarts R]``), ``--progress``, ``--trace DIR`` and ``--device
 {cuda,cpu}`` (default ``cuda``, the port's counterpart of ``JAX_PLATFORMS``).
 The flow is the JAX CLI's: split, prune, chunked training through
-utils/elastic, fold-in test, the reference's filtering and the metric
-block; a line of wall times by step follows it.
+utils/elastic (or, with ``--engine vi``, batch CAVI for ``-i`` iterations
+and a CAVI fold-in of as many), fold-in test, the reference's filtering and
+the metric block; a line of wall times by step follows it.
 
 Not ported yet, and refused with an error instead of running something
-else: ``--engine vi`` (ROADMAP.md Queue 1 item 8) and multi-device training,
-``--n-chains`` or ``--n-data`` above 1 and ``--table-shard vocab`` (item 9).
+else: multi-device training, ``--n-chains`` or ``--n-data`` above 1 and
+``--table-shard vocab`` (ROADMAP.md Queue 1 item 9).
 The JAX CLI's persistent XLA compile cache has no counterpart: the port's
 CUDA kernels are built once into ``lda_thesis_tpu_torch/_build/`` and
 reused by later runs.
@@ -57,7 +58,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no-perplexity", action="store_true",
                    help="skip perplexity tracking during training")
     p.add_argument("--engine", choices=("gibbs", "vi"), default="gibbs",
-                   help="inference engine: collapsed Gibbs (vi is not ported yet)")
+                   help="inference engine: collapsed Gibbs or variational (CAVI)")
     p.add_argument("--sweep", choices=("auto", "fused", "dense", "compact"),
                    default="auto",
                    help="Gibbs sweep kernel (auto=fused); needed e.g. to "
@@ -114,10 +115,7 @@ def make_config(opt) -> RunConfig:
 
 def check_supported(opt) -> None:
     """Refuse, with ``SystemExit``, the options whose code is not ported yet,
-    and ``--device cuda`` where no card is visible (both CLIs)."""
-    if getattr(opt, "engine", "gibbs") == "vi":
-        raise SystemExit("--engine vi: the CAVI engine is not ported to PyTorch yet "
-                         "(ROADMAP.md Queue 1 item 8)")
+    and ``--device cuda`` where no card is visible (every CLI)."""
     if (getattr(opt, "n_chains", 1) > 1 or getattr(opt, "n_data", 1) > 1
             or getattr(opt, "table_shard", "replicated") == "vocab"):
         raise SystemExit("--n-chains, --n-data and --table-shard vocab: multi-device "
@@ -194,6 +192,28 @@ def _train_gibbs(cfg: RunConfig, opt, train, stats: dict = None):
     return model
 
 
+def _train_vi(cfg: RunConfig, opt, train, stats: dict):
+    """Construct + fit the CAVI model (the JAX CLI's ``--engine vi``);
+    ``stats`` receives the seconds of pruning, building and fitting, and
+    the CAVI iterations run."""
+    from ..data.vocab import prune_dict
+    from ..models.labeled_lda_vi import LabeledLDAVI
+
+    g = cfg.gibbs
+    t0 = time.perf_counter()
+    dicti = prune_dict(train.docs, lower=cfg.lower, upper=cfg.upper)
+    stats["prune_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    model = LabeledLDAVI(train.docs, train.labs, list(train.labelset), dicti,
+                         alpha=g.alpha, beta=g.beta, seed=g.seed, device=opt.device)
+    stats["model_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    model.fit(iters=g.iters)
+    stats["train_s"] = time.perf_counter() - t0
+    stats["train_iters"] = len(model.elbo_history)
+    return model
+
+
 def main(argv=None) -> dict:
     """Run the CLI; returns the model, the metrics, ``stats`` (the wall
     seconds by step and the sweeps trained), the training rate and the
@@ -213,12 +233,16 @@ def main(argv=None) -> dict:
     tracer = trace(opt.trace) if opt.trace else contextlib.nullcontext()
     print("Starting training...")
     with tracer:
+        vi = opt.engine == "vi"
         with annotate("train"):
-            model = _train_gibbs(cfg, opt, train, stats)
+            model = (_train_vi if vi else _train_gibbs)(cfg, opt, train, stats)
         print("Testing test data...")
         t0 = time.perf_counter()
         with annotate("test"):
-            th = model.run_test(test.docs, cfg.test_iters, cfg.test_thinning)
+            if vi:
+                th = model.infer(test.docs, iters=g.iters)
+            else:
+                th = model.run_test(test.docs, cfg.test_iters, cfg.test_thinning)
         stats["test_s"] = time.perf_counter() - t0
     if opt.trace:
         print(f"device profile written to {opt.trace} "
@@ -231,7 +255,8 @@ def main(argv=None) -> dict:
                 pickle.dump(obj, f)
 
     t0 = time.perf_counter()
-    print(f"Model:               Labeled LDA (PyTorch, {model.device.type})")
+    engine = "CAVI" if opt.engine == "vi" else "Gibbs"
+    print(f"Model:               Labeled LDA ({engine}, PyTorch, {model.device.type})")
     print("Corpus:             ", cfg.file)
     print("Label depth         ", cfg.depth)
     print("# of Gibbs samples: ", int(g.iters))
@@ -255,7 +280,8 @@ def main(argv=None) -> dict:
     tokens_per_s = model.n_tokens * stats["train_iters"] / max(stats["train_s"], 1e-9)
     print(f"wall time by step: load+preprocess {stats['load_s']:.3f} s ({pipeline()}), "
           f"prune {stats['prune_s']:.3f} s, model {stats['model_s']:.3f} s, train "
-          f"{stats['train_s']:.3f} s ({stats['train_iters']} sweeps, "
+          f"{stats['train_s']:.3f} s ({stats['train_iters']} "
+          f"{'CAVI iterations' if opt.engine == 'vi' else 'sweeps'}, "
           f"{tokens_per_s:.1f} tokens/s), test {stats['test_s']:.3f} s, metrics "
           f"{stats['metrics_s']:.3f} s")
     print(f"total wall time: {time.time()-t_start:.1f}s")

@@ -1,17 +1,21 @@
-"""Carry a trained Labeled-LDA state from NumPy arrays into the port.
+"""Carry a trained Labeled-LDA or LocalLDA state from NumPy arrays into the port.
 
 The arrays are those that ``lda_thesis_tpu/utils/checkpoint.save_model``
-writes for a ``LabeledLDA``: per bucket ``z_{g}`` and ``n_dk_{g}``, the
-tables ``n_vk (V, Kp)`` and ``n_k (Kp,)``, and the thinned means
-``ph_hat (V, Kp)`` and ``th_hat (D, Kp)`` in original document order.  The
-per-bucket layout depends on the sampler (the checkpoint meta's ``sweep``):
+writes for a ``LabeledLDA`` or a ``LocalLDA``: per bucket ``z_{g}`` and
+``n_dk_{g}``, the tables ``n_vk (V, Kp)`` and ``n_k (Kp,)``, and the thinned
+means.  The per-bucket layout depends on the sampler (the checkpoint meta's
+``sweep``):
 
 * ``fused``: ``z_{g} (U_g, D_g)`` slot indices, ``n_dk_{g} (A, D_g)``;
 * ``dense``: ``z_{g} (D_g, U_g)`` topics, ``n_dk_{g} (D_g, Kp)``;
-* ``compact``: ``z_{g} (D_g, U_g)`` slot indices, ``n_dk_{g} (D_g, A)``.
+* ``compact`` (Labeled LDA only): ``z_{g} (D_g, U_g)`` slot indices,
+  ``n_dk_{g} (D_g, A)``.
 
-The target model must be built with the same sampler over the same
-documents, labels, dictionary and ``n_buckets``, so that its buckets match.
+A ``LabeledLDA``'s means are ``ph_hat (V, Kp)`` and ``th_hat (D, Kp)`` in
+original document order; a ``LocalLDA``'s, where it has trained, are
+``ph_hat (K, V)`` and ``th_hat (D, K)``.  The target model must be built
+with the same sampler over the same documents (and, for Labeled LDA, labels
+and dictionary) and ``n_buckets``, so that its buckets match.
 """
 
 from __future__ import annotations
@@ -24,17 +28,23 @@ import torch
 from .ops.gibbs import BucketLDAState, CompactBucketState
 from .ops.gibbs_fused import FusedBucketState
 
-__all__ = ["labeled_lda_state_from_numpy"]
+__all__ = ["labeled_lda_state_from_numpy", "local_lda_state_from_numpy"]
 
 
-def labeled_lda_state_from_numpy(arrays: Mapping[str, np.ndarray], model,
-                                 meta: Optional[Mapping[str, Any]] = None) -> None:
-    """Load ``arrays`` into ``model`` (a port ``LabeledLDA``) on its device.
+def _taker(arrays, device):
+    def take(name, shape, dtype):
+        if name not in arrays:
+            raise ValueError(f"missing array {name!r}")
+        a = np.asarray(arrays[name])
+        if a.shape != tuple(shape):
+            raise ValueError(f"{name} has shape {a.shape}, model needs {tuple(shape)}")
+        return torch.tensor(a, dtype=dtype, device=device)  # a copy: sweeps update in place
+    return take
 
-    ``meta`` is the checkpoint's metadata; where it names a ``sweep``, that
-    must be the model's.  Raises ``ValueError`` when the sampler, the bucket
-    count or any shape differs from the model's.
-    """
+
+def _bucket_state(arrays, model, meta):
+    """The model's bucketed Gibbs state from ``arrays``, checked against its
+    sampler, bucket count and shapes."""
     sweep = (meta or {}).get("sweep", model.sweep)
     if sweep != model.sweep:
         raise ValueError(f"sweep mismatch: arrays are {sweep!r}, model {model.sweep!r}")
@@ -42,15 +52,7 @@ def labeled_lda_state_from_numpy(arrays: Mapping[str, np.ndarray], model,
     got_g = sum(1 for k in arrays if k.startswith("z_"))
     if got_g != G:
         raise ValueError(f"bucket count mismatch: arrays have {got_g}, model {G}")
-
-    def take(name, shape, dtype):
-        if name not in arrays:
-            raise ValueError(f"missing array {name!r}")
-        a = np.asarray(arrays[name])
-        if a.shape != tuple(shape):
-            raise ValueError(f"{name} has shape {a.shape}, model needs {tuple(shape)}")
-        return torch.tensor(a, dtype=dtype, device=model.device)  # a copy: sweeps update in place
-
+    take = _taker(arrays, model.device)
     zs, ndks = [], []
     for g in range(G):
         U_g, D_g = model._toks_v_t[g].shape
@@ -64,11 +66,37 @@ def labeled_lda_state_from_numpy(arrays: Mapping[str, np.ndarray], model,
     table = (model.V, model.Kp)
     state = {"fused": FusedBucketState, "dense": BucketLDAState,
              "compact": CompactBucketState}[sweep]
-    model.counts = state(
-        z=tuple(zs), n_dk=tuple(ndks),
-        n_vk=take("n_vk", table, torch.float32),
-        n_k=take("n_k", (model.Kp,), torch.float32))
-    model.ph_hat = take("ph_hat", table, torch.float32)
+    return state(z=tuple(zs), n_dk=tuple(ndks),
+                 n_vk=take("n_vk", table, torch.float32),
+                 n_k=take("n_k", (model.Kp,), torch.float32))
+
+
+def labeled_lda_state_from_numpy(arrays: Mapping[str, np.ndarray], model,
+                                 meta: Optional[Mapping[str, Any]] = None) -> None:
+    """Load ``arrays`` into ``model`` (a port ``LabeledLDA``) on its device.
+
+    ``meta`` is the checkpoint's metadata; where it names a ``sweep``, that
+    must be the model's.  Raises ``ValueError`` when the sampler, the bucket
+    count or any shape differs from the model's.
+    """
+    model.counts = _bucket_state(arrays, model, meta)
+    take = _taker(arrays, model.device)
+    model.ph_hat = take("ph_hat", (model.V, model.Kp), torch.float32)
     th = take("th_hat", (model.D, model.Kp), torch.float32)
     model._th_hat_t = tuple(th[torch.as_tensor(ix, device=model.device)]
                             for ix in model.buckets.doc_idx)
+
+
+def local_lda_state_from_numpy(arrays: Mapping[str, np.ndarray], model,
+                               meta: Optional[Mapping[str, Any]] = None) -> None:
+    """Load ``arrays`` into ``model`` (a port ``LocalLDA``) on its device:
+    the bucketed counts, and the thinned means ``ph_hat (K, V)`` and
+    ``th_hat (D, K)`` (host arrays) where the arrays hold them.  Raises
+    ``ValueError`` as :func:`labeled_lda_state_from_numpy` does."""
+    model.counts = _bucket_state(arrays, model, meta)
+    if "ph_hat" not in arrays:
+        model.ph_hat = model.th_hat = None
+        return
+    take = _taker(arrays, "cpu")
+    model.ph_hat = take("ph_hat", (model.K, model.V), torch.float32).numpy()
+    model.th_hat = take("th_hat", (model.D, model.K), torch.float32).numpy()

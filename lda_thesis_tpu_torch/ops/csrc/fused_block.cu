@@ -77,6 +77,44 @@
 // n_dk and valid stay in registers for the block.  The staging bounds U:
 // fused_block_max_positions(A) gives the largest U whose shared memory fits
 // one CTA on the current device (563 at A = 32 on an H100).
+//
+// The general route (fused_block_general_kernel) takes every other shape:
+// any A, any U, with the same arithmetic and the same scan order, so the two
+// routes give the same bits where both apply.  The wrapper sends a launch
+// there when A > 32 or U > fused_block_max_positions(A).
+//   * A CTA still owns one document; thread t owns slot t (and, past 1,024
+//     slots, slots t + T, t + 2T, ...), T = 32 * ceil(A / 32) threads, at
+//     most 1,024.  Each warp scans its slots in groups of eight lanes with
+//     the staged kernel's shuffles.
+//   * The group totals go to shared memory and, after a barrier, every
+//     thread forms the sequential prefix P[h] = P[h-1] + T[h-1] itself over
+//     the ceil(A/8) groups (the staged kernel's P[3] = (T0+T1)+T2 is this
+//     chain's fourth term); the draw is a count across the CTA (a warp
+//     reduction, then the warps' counts through shared memory after a
+//     second barrier).  Only the owners of the two slots a draw touches
+//     update n_dk.  One step path serves every A, one warp included.
+//   * Nothing of the document is staged: each step reads its scalars (f,
+//     block-start and current slot, uniform) and cv row from global memory
+//     (L2), the next position's loaded a step ahead and the cv rows
+//     prefetched into L2 four positions ahead.  (Staging chunks of 32
+//     positions' scalars in shared memory, a chunk ahead, was no faster on
+//     the H100: at the timed shapes an SM holds 32-64 of these warps, and
+//     the step's instruction count rather than these loads appears to set
+//     the time.)  The walk covers the positions
+//     up to the document's last one with f > 0, skipping those with
+//     f == 0, so U has no limit.  The reciprocal of a slot's total is
+//     formed once per launch; only the slot of the position's own token
+//     forms rcp_rn(nk - f) in the step, as the staged kernel does for it.
+//   * Slot t's n_dk and constants stay in registers.  The other slots'
+//     state, the scan values and the group totals live in shared memory,
+//     about 20.5 bytes per slot; past the card's limit (about 11,000 slots
+//     on an H100) the wrapper hands the kernel a scratch buffer in global
+//     memory instead, so A has no limit either.
+// Its bound is the function's, as above: the work and the bytes do not
+// change with the route.  Its chain step is longer than the staged route's
+// by the two barriers, the prefix over the groups and the shared-memory
+// round trips of the totals; and a step waits for its operands where the
+// loads ahead have not landed.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -317,6 +355,191 @@ fused_block_kernel(const float* __restrict__ cv,     // (D, U, A)
   if (live) ndk_out[(size_t)lane * D + d] = ndk;
 }
 
+// ------------------------------------------------------------ general route
+
+constexpr int kMaxThreads = 1024;
+constexpr int kPrefetch = 4;  // positions ahead for the cv rows' L2 prefetch
+
+__host__ __device__ inline int n_groups(int A) { return (A + kGroup - 1) / kGroup; }
+
+// One thread per slot in whole warps, at most 1024; beyond, thread t also
+// owns slots t + T, t + 2T, ...
+__host__ __device__ inline int general_threads(int A) {
+  const int T = (A + 31) / 32 * 32;
+  return T < kMaxThreads ? T : kMaxThreads;
+}
+
+// Slots the threads cover: (slots per thread) x threads.
+__host__ __device__ inline int general_slots(int A) {
+  const int T = general_threads(A);
+  return (A + T - 1) / T * T;
+}
+
+// Per document: n_dk, valid, totals, their reciprocals and scan values per
+// covered slot, the group totals, and 32 warp counts.
+__host__ __device__ inline size_t general_state_floats(int A) {
+  const size_t N = general_slots(A);
+  return 5 * N + N / kGroup + 32;
+}
+
+// The weight of slot a at a position of frequency fp, current slot zo and
+// block-start slot zb: the staged kernel's product, in its order.  r0 is
+// rcp_rn(nk), the reciprocal where the slot holds no own count.
+__device__ __forceinline__ float general_weight(float ndk, float vl, float nk, float r0,
+                                                float cvv, int a, int zo, int zb,
+                                                float fp, float alpha, float beta) {
+  const float own = (a == zb) ? fp : 0.0f;
+  const float ndk_m = ndk - ((a == zo) ? fp : 0.0f);
+  float w = vl * (ndk_m + alpha);
+  w = w * ((cvv - own) + beta);
+  return w * ((a == zb) ? __frcp_rn(nk - own) : r0);
+}
+
+// The inclusive scan within each group of eight lanes (offsets 1, 2, 4).
+__device__ __forceinline__ float group_scan(float c, int lane) {
+#pragma unroll
+  for (int off = 1; off < kGroup; off <<= 1) {
+    const float y = __shfl_up_sync(kFullMask, c, off, kGroup);
+    if ((lane & (kGroup - 1)) >= off) c = c + y;
+  }
+  return c;
+}
+
+__global__ void __launch_bounds__(kMaxThreads)
+fused_block_general_kernel(const float* __restrict__ cv,     // (D, U, A)
+                           const float* __restrict__ f,      // (U, D)
+                           const float* __restrict__ uni,    // (M, U, D)
+                           const int* __restrict__ z0,       // (U, D)
+                           const float* __restrict__ nkg,    // (A, D)
+                           const float* __restrict__ valid,  // (A, D)
+                           const float* __restrict__ ndk0,   // (A, D)
+                           int* __restrict__ z_out,          // (U, D), the live z
+                           float* __restrict__ ndk_out,      // (A, D)
+                           float* __restrict__ scratch,      // per-document state, or null
+                           int M, int U, int A, int D, float alpha, float beta) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int t = threadIdx.x, T = blockDim.x, d = blockIdx.x;
+  const int lane = t & 31, warp = t >> 5, n_warps = T >> 5;
+  const int G = n_groups(A), N = general_slots(A);
+  float* state = scratch ? scratch + (size_t)d * general_state_floats(A)
+                         : reinterpret_cast<float*>(smem);
+  float* ndk = state;          // (N,) live n_dk of slots t + j*T, j >= 1; owner-only
+  float* vl = ndk + N;         // (N,) valid
+  float* nk = vl + N;          // (N,) block-start totals, pre-biased
+  float* r0 = nk + N;          // (N,) rcp_rn(nk)
+  float* lsc = r0 + N;         // (N,) in-group scan values of the step
+  float* tot = lsc + N;        // (N / 8,) group totals of the step
+  int* cnt = reinterpret_cast<int*>(tot + N / kGroup);  // (32,) warp counts
+
+  // 1. per-slot state (slot t in registers, the rest in `state`), the live
+  //    z, and the last position with f > 0
+  for (int a = t; a < N; a += T) {
+    const bool in = a < A;
+    const float nka = in ? nkg[(size_t)a * D + d] : 1.0f;
+    ndk[a] = in ? ndk0[(size_t)a * D + d] : 0.0f;
+    vl[a] = in ? valid[(size_t)a * D + d] : 0.0f;
+    nk[a] = nka;
+    r0[a] = __frcp_rn(nka);
+  }
+  const bool mine = t < A;  // slot t is a real slot
+  float ndk_t = ndk[t];
+  const float vl_t = vl[t], nk_t = nk[t], r0_t = r0[t];
+  int last = -1;
+  for (int p = t; p < U; p += T) {
+    z_out[(size_t)p * D + d] = z0[(size_t)p * D + d];
+    if (f[(size_t)p * D + d] > 0.0f) last = p;
+  }
+  last = __reduce_max_sync(kFullMask, last);
+  if (lane == 0) cnt[warp] = last;
+  __syncthreads();
+  for (int w = 0; w < n_warps; ++w) last = max(last, cnt[w]);
+  const int walk = last + 1;  // positions walked per sweep
+
+  // 2. M sweeps over positions 0..walk-1; the next position's scalars and
+  //    slot t's cv are loaded before this one's draw.  Every thread writes
+  //    the same draw into z_out, so each reads back its own write.
+  if (walk > 0 && M > 0) {
+    const float* cv_doc = cv + (size_t)d * U * A;
+    float fp1 = f[d], u1 = uni[d];
+    int zo1 = z_out[d], zb1 = z0[d];
+    float cv1 = mine ? cv_doc[t] : 0.0f;
+    for (int m = 0; m < M; ++m) {
+      for (int p = 0; p < walk; ++p) {
+        const float fp = fp1, u = u1, cv_t = cv1;
+        const int zo = zo1, zb = zb1;
+        int pn = p + 1, mn = m;
+        if (pn == walk) { pn = 0; ++mn; }
+        if (mn < M) {
+          fp1 = f[(size_t)pn * D + d];
+          zb1 = z0[(size_t)pn * D + d];
+          zo1 = z_out[(size_t)pn * D + d];
+          u1 = uni[((size_t)mn * U + pn) * D + d];
+          cv1 = mine ? cv_doc[(size_t)pn * A + t] : 0.0f;
+        }
+        const int pf = p + kPrefetch < walk ? p + kPrefetch : p + kPrefetch - walk;
+        if (lane == 0 && mine && pf < walk)
+          asm volatile("prefetch.global.L2 [%0];\n" :: "l"(cv_doc + (size_t)pf * A + t));
+        if (!(fp > 0.0f)) continue;
+
+        // phase 1: each slot's weight and the in-group scan; the group
+        // totals to shared memory
+        const float* cv_row = cv_doc + (size_t)p * A;
+        const float l_t = group_scan(
+            mine ? general_weight(ndk_t, vl_t, nk_t, r0_t, cv_t, t, zo, zb, fp, alpha, beta)
+                 : 0.0f, lane);
+        lsc[t] = l_t;
+        if ((lane & (kGroup - 1)) == kGroup - 1) tot[t / kGroup] = l_t;
+        for (int a = t + T; a < N; a += T) {
+          const float l = group_scan(
+              a < A ? general_weight(ndk[a], vl[a], nk[a], r0[a], cv_row[a], a, zo, zb,
+                                     fp, alpha, beta)
+                    : 0.0f, lane);
+          lsc[a] = l;
+          if ((lane & (kGroup - 1)) == kGroup - 1) tot[a / kGroup] = l;
+        }
+        __syncthreads();
+
+        // phase 2: the groups' sequential prefix P[h] = P[h-1] + T[h-1],
+        // u * c[A-1], and the count of slots with c < u * c[A-1]
+        float P = 0.0f, P_t = 0.0f;
+        const int h_t = t / kGroup;
+        for (int h = 0; h < G; ++h) {
+          if (h == h_t) P_t = P;
+          if (h + 1 < G) P = P + tot[h];
+        }
+        const float r = u * (P + lsc[A - 1]);
+        int n = (mine && P_t + l_t < r) ? 1 : 0;
+        if (N > T) {  // slots t + j*T, j >= 1: their prefixes from the start
+          float Ph = 0.0f;
+          int h = 0;
+          for (int a = t + T; a < A; a += T) {
+            for (; h < a / kGroup; ++h) Ph = Ph + tot[h];
+            n += (Ph + lsc[a] < r) ? 1 : 0;
+          }
+        }
+        n = __reduce_add_sync(kFullMask, n);
+        if (lane == 0) cnt[warp] = n;
+        __syncthreads();
+        int zn = 0;
+        for (int w = 0; w < n_warps; ++w) zn += cnt[w];
+
+        // phase 3: the owners of the two slots the draw touches, in the
+        // plain version's order: (n_dk - f·[a = zo]) + f·[a = zn]
+        if (t == zo) ndk_t = ndk_t - fp;
+        if (t == zn) ndk_t = ndk_t + fp;
+        if (N > T) {
+          if (zo >= T && zo < N && zo % T == t) ndk[zo] = ndk[zo] - fp;
+          if (zn >= T && zn < N && zn % T == t) ndk[zn] = ndk[zn] + fp;
+        }
+        z_out[(size_t)p * D + d] = zn;
+        if (pn == p) zo1 = zn;  // walk == 1: the next draw is this position's
+      }
+    }
+  }
+  if (mine) ndk_out[(size_t)t * D + d] = ndk_t;
+  for (int a = t + T; a < A; a += T) ndk_out[(size_t)a * D + d] = ndk[a];
+}
+
 // The device's shared memory per CTA (opt-in), or -1 on a CUDA error.
 int smem_limit() {
   int dev = 0, limit = 0;
@@ -339,7 +562,44 @@ extern "C" int fused_block_max_positions(int A) {
   return U;
 }
 
-// Launches the kernel on `stream`, one CTA per document; returns
+// Bytes of per-document state of the general route at A slots; it lives
+// in shared memory where it fits (fused_block_smem_limit()), else in a
+// scratch buffer of D times as many bytes that the caller passes.
+extern "C" long long fused_block_general_state_bytes(int A) {
+  return A < 1 ? -1 : (long long)(general_state_floats(A) * sizeof(float));
+}
+
+// The device's opt-in shared memory per CTA; -1 on a CUDA error.
+extern "C" int fused_block_smem_limit() { return smem_limit(); }
+
+// Launches the general route on `stream`, one CTA per document, with its
+// state in `scratch` (D * fused_block_general_state_bytes(A) bytes) or, if
+// that is null, in shared memory; returns cudaGetLastError() as an int.
+extern "C" int fused_block_general_launch(const float* cv, const float* f,
+                                          const float* uni, const int* z0,
+                                          const float* nkg, const float* valid,
+                                          const float* ndk0, int* z_out,
+                                          float* ndk_out, float* scratch, int M,
+                                          int U, int A, int D, float alpha,
+                                          float beta, void* stream) {
+  const int limit = smem_limit();
+  const size_t smem = scratch ? 0 : general_state_floats(A) * sizeof(float);
+  if (A < 1 || U < 0 || M < 0 || limit < 0 || smem > (size_t)limit)
+    return (int)cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        fused_block_general_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  fused_block_general_kernel<<<D, general_threads(A), smem,
+                               static_cast<cudaStream_t>(stream)>>>(
+      cv, f, uni, z0, nkg, valid, ndk0, z_out, ndk_out, scratch, M, U, A, D,
+      alpha, beta);
+  return (int)cudaGetLastError();
+}
+
+// Launches the staged kernel on `stream`, one CTA per document; returns
 // cudaGetLastError() as an int.
 extern "C" int fused_block_launch(const float* cv, const float* f,
                                   const float* uni, const int* z0,

@@ -3,13 +3,16 @@
 :func:`fused_block` runs ``M`` collapsed-Gibbs sweeps of every document
 against a topic-word table frozen at block start (the algorithm of
 ``lda_thesis_tpu/ops/gibbs_fused.py``, whose Pallas kernel
-``_build_block_kernel`` the CUDA kernel ``csrc/fused_block.cu`` replaces).
-On a CUDA tensor it launches that kernel; on a CPU tensor it runs
-:func:`fused_block_torch`, which repeats the kernel's floating-point
-operations in the same order, so the two agree bit for bit.  The kernel
-runs one document per CTA, stages its frozen operands and uniforms in
-shared memory and walks only its positions with f > 0; that staging bounds
-the positions it takes (:func:`max_positions`).
+``_build_block_kernel`` the CUDA kernels of ``csrc/fused_block.cu``
+replace).  On a CUDA tensor it launches one of them; on a CPU tensor it
+runs :func:`fused_block_torch`, which repeats their floating-point
+operations in the same order, so the two agree bit for bit.  Both routes
+run one document per CTA and walk only its positions with f > 0.  The
+staged route (one warp, one lane per slot) stages the document's frozen
+operands and uniforms in shared memory, which bounds it to A <= 32 slots
+and :func:`max_positions` ``(A)`` positions; the general route takes every
+other shape, with one thread per slot, reading its operands
+from global memory (:func:`route`).
 
 The kernel is compiled with ``nvcc`` at first use and loaded with ``ctypes``
 (:mod:`._nvcc`); importing this module needs neither ``nvcc`` nor a card.
@@ -26,13 +29,15 @@ import torch
 
 from . import _nvcc
 
-__all__ = ["fused_block", "fused_block_torch", "build", "max_positions"]
+__all__ = ["fused_block", "fused_block_torch", "build", "max_positions", "route"]
 
 SOURCE = _nvcc.CSRC / "fused_block.cu"
-MAX_SLOTS = 32  # one lane per slot
+STAGED_SLOTS = 32  # the staged route: one lane per slot
 
-# Number of kernel launches since import (or since a caller reset it).
+# Number of kernel launches since import (or since a caller reset it), of
+# both routes, and of the general route alone.
 launches = 0
+general_launches = 0
 
 
 def build() -> Tuple[Path, float, str]:
@@ -48,16 +53,23 @@ def _library() -> ctypes.CDLL:
     lib.fused_block_launch.restype = ctypes.c_int
     lib.fused_block_max_positions.argtypes = [i32]
     lib.fused_block_max_positions.restype = ctypes.c_int
+    lib.fused_block_general_launch.argtypes = [ptr] * 10 + [i32] * 4 + [f32, f32, ptr]
+    lib.fused_block_general_launch.restype = ctypes.c_int
+    lib.fused_block_general_state_bytes.argtypes = [i32]
+    lib.fused_block_general_state_bytes.restype = ctypes.c_longlong
+    lib.fused_block_smem_limit.argtypes = []
+    lib.fused_block_smem_limit.restype = ctypes.c_int
     return lib
 
 
 @functools.lru_cache(maxsize=None)
 def max_positions(A: int, index: int = 0) -> int:
-    """The largest U the kernel takes at ``A`` slots on CUDA device
-    ``index``: one document's staging must fit one CTA's shared memory
-    (563 positions at A = 32 on an H100)."""
-    if not 1 <= A <= MAX_SLOTS:
-        raise ValueError(f"the kernel takes 1..{MAX_SLOTS} slots, got A={A}")
+    """The largest U the staged route takes at ``A`` (1..32) slots on CUDA
+    device ``index``: one document's staging must fit one CTA's shared
+    memory (563 positions at A = 32 on an H100).  Wider documents take the
+    general route."""
+    if not 1 <= A <= STAGED_SLOTS:
+        raise ValueError(f"the staged route takes 1..{STAGED_SLOTS} slots, got A={A}")
     with torch.cuda.device(index):
         U = _library().fused_block_max_positions(A)
     if U < 0:
@@ -65,10 +77,31 @@ def max_positions(A: int, index: int = 0) -> int:
     return U
 
 
+def route(U: int, A: int, index: int = 0) -> str:
+    """The kernel a CUDA launch at ``U`` positions and ``A`` slots takes:
+    ``"staged"`` where one document's staging fits one CTA, else
+    ``"general"``."""
+    return "staged" if A <= STAGED_SLOTS and U <= max_positions(A, index) else "general"
+
+
+@functools.lru_cache(maxsize=None)
+def _general_scratch_floats(A: int, index: int) -> int:
+    """Floats of global scratch per document that the general route needs
+    at ``A`` slots: 0 where its state fits in shared memory."""
+    with torch.cuda.device(index):
+        lib = _library()
+        state, limit = lib.fused_block_general_state_bytes(A), lib.fused_block_smem_limit()
+    if state < 0 or limit < 0:
+        raise RuntimeError("fused_block_general_state_bytes failed: no CUDA device")
+    return 0 if state <= limit else state // 4
+
+
 def _check_inputs(cv, f, uniforms, z0, nkg, valid, ndk0) -> Tuple[int, int, int, int]:
     if cv.dim() != 3:
         raise ValueError(f"cv must be (D, U, A), got shape {tuple(cv.shape)}")
     D, U, A = cv.shape
+    if A < 1:
+        raise ValueError("fused_block needs at least one slot, got A=0")
     M = uniforms.shape[0]
     want = {
         "f": (f, (U, D), torch.float32),
@@ -98,11 +131,9 @@ def fused_block(cv, f, uniforms, z0, nkg, valid, ndk0, alpha: float,
     draw, ``z0 (U, D)`` block-start slots, ``nkg (A, D)`` block-start topic
     totals pre-biased by V·β, ``valid (A, D)`` slot mask, ``ndk0 (A, D)``
     doc-topic counts.  CPU tensors take :func:`fused_block_torch`; CUDA
-    tensors launch the kernel, which takes 1..32 slots and at most
-    :func:`max_positions` ``(A)`` positions (563 at A = 32 on an H100) and
-    raises beyond them.
+    tensors launch a kernel of the route :func:`route` picks, at any shape.
     """
-    global launches
+    global launches, general_launches
     M, U, A, D = _check_inputs(cv, f, uniforms, z0, nkg, valid, ndk0)
     if cv.device.type == "cpu":
         return fused_block_torch(cv, f, uniforms, z0, nkg, valid, ndk0, alpha, beta)
@@ -111,11 +142,8 @@ def fused_block(cv, f, uniforms, z0, nkg, valid, ndk0, alpha: float,
     tensors = (cv, f, uniforms, z0, nkg, valid, ndk0)
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("fused_block inputs must be contiguous")
-    limit = max_positions(A, cv.device.index)
-    if U > limit:
-        raise ValueError(
-            f"U={U} positions at A={A} do not fit the kernel's shared memory: it "
-            f"takes at most {limit} positions at A={A} on this device")
+    index = cv.device.index
+    staged = route(U, A, index) == "staged"
     lib = _library()
     z_out = torch.empty((U, D), dtype=torch.int32, device=cv.device)
     ndk_out = torch.empty((A, D), dtype=torch.float32, device=cv.device)
@@ -123,12 +151,21 @@ def fused_block(cv, f, uniforms, z0, nkg, valid, ndk0, alpha: float,
         return z_out, ndk_out
     with torch.cuda.device(cv.device):
         stream = torch.cuda.current_stream(cv.device).cuda_stream
-        err = lib.fused_block_launch(
-            *(t.data_ptr() for t in tensors), z_out.data_ptr(),
-            ndk_out.data_ptr(), M, U, A, D, float(alpha), float(beta), stream)
+        ptrs = [t.data_ptr() for t in (*tensors, z_out, ndk_out)]
+        if staged:
+            err = lib.fused_block_launch(*ptrs, M, U, A, D, float(alpha),
+                                         float(beta), stream)
+        else:
+            per_doc = _general_scratch_floats(A, index)
+            scratch = (torch.empty(D * per_doc, dtype=torch.float32, device=cv.device)
+                       if per_doc else None)
+            err = lib.fused_block_general_launch(
+                *ptrs, None if scratch is None else scratch.data_ptr(), M, U, A, D,
+                float(alpha), float(beta), stream)
     if err != 0:
         raise RuntimeError(f"fused_block kernel launch failed: CUDA error {err}")
     launches += 1
+    general_launches += not staged
     return z_out, ndk_out
 
 

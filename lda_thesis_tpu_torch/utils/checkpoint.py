@@ -9,8 +9,9 @@ Counterpart of ``lda_thesis_tpu/utils/checkpoint.py``, with its layout:
   then renamed, the ``.npz`` first, so an interrupted run never leaves a
   corrupt file and the ``.json`` that marks a checkpoint appears last;
 * :func:`save_model` / :func:`restore_model` round-trip the training state of
-  ``LabeledLDA`` (fused, dense and compact) and ``CascadeLDA``; training
-  resumes mid-chain with the same draws as the uninterrupted run.
+  ``LabeledLDA`` (fused, dense and compact), ``LocalLDA`` (fused and dense)
+  and ``CascadeLDA``; training resumes mid-chain with the same draws as the
+  uninterrupted run.
 
 The array names and meta keys are the JAX package's, except that the port
 has no ``rng_key``: it stores its ``torch.Generator`` state as ``rng_state``
@@ -38,7 +39,6 @@ __all__ = ["save_checkpoint", "load_checkpoint", "save_model", "restore_model"]
 
 # model kinds of the JAX package whose port is still to come
 _NOT_PORTED = {
-    "LocalLDA": "ROADMAP.md Queue 1 item 5",
     "HSLDA": "ROADMAP.md Queue 1 item 7",
     "DistributedLabeledLDA": "ROADMAP.md Queue 1 item 9",
     "DistributedHSLDA": "ROADMAP.md Queue 1 item 9",
@@ -91,15 +91,15 @@ def _model_kind(model) -> str:
     kind = type(model).__name__
     if kind in _NOT_PORTED:
         raise NotImplementedError(
-            f"{kind} is not ported yet ({_NOT_PORTED[kind]}); only LabeledLDA and "
-            f"CascadeLDA checkpoints are")
-    if kind not in ("LabeledLDA", "CascadeLDA"):
+            f"{kind} is not ported yet ({_NOT_PORTED[kind]}); only LabeledLDA, "
+            f"LocalLDA and CascadeLDA checkpoints are")
+    if kind not in ("LabeledLDA", "LocalLDA", "CascadeLDA"):
         raise TypeError(f"unknown model kind: {kind}")
     return kind
 
 
 def save_model(path: str, model, extra_meta: Dict[str, Any] = None) -> None:
-    """Snapshot a LabeledLDA / CascadeLDA training state.
+    """Snapshot a LabeledLDA / LocalLDA / CascadeLDA training state.
 
     ``extra_meta`` lets callers record run-level progress (e.g. the CLI's
     ``iters_done``) alongside the model state.
@@ -111,21 +111,29 @@ def save_model(path: str, model, extra_meta: Dict[str, Any] = None) -> None:
     if extra_meta:
         meta.update(extra_meta)
 
-    if kind == "LabeledLDA":
+    if kind in ("LabeledLDA", "LocalLDA"):
         # bucketed state: one z/n_dk pair per length bucket
         meta["n_buckets"] = len(model.counts.z)
         for g in range(len(model.counts.z)):
             arrays[f"z_{g}"] = model.counts.z[g].cpu().numpy()
             arrays[f"n_dk_{g}"] = model.counts.n_dk[g].cpu().numpy()
         arrays.update(n_vk=model.counts.n_vk.cpu().numpy(),
-                      n_k=model.counts.n_k.cpu().numpy(),
-                      ph_hat=model.ph_hat.cpu().numpy(), th_hat=model.th_hat)
-        meta.update(alpha=model.alpha, beta=model.beta, K=model.K,
-                    Kp=model.Kp, V=model.V, D=model.D,
-                    sweep=model.sweep, avg_s=int(model._avg_s),
-                    merge_M=getattr(model, "_merge_M", None),
-                    labelmap=model.labelmap,
-                    cur_perplx=list(map(float, model.cur_perplx)))
+                      n_k=model.counts.n_k.cpu().numpy())
+        if kind == "LabeledLDA":
+            arrays.update(ph_hat=model.ph_hat.cpu().numpy(), th_hat=model.th_hat)
+            meta.update(alpha=model.alpha, beta=model.beta, K=model.K,
+                        Kp=model.Kp, V=model.V, D=model.D,
+                        sweep=model.sweep, avg_s=int(model._avg_s),
+                        merge_M=getattr(model, "_merge_M", None),
+                        labelmap=model.labelmap,
+                        cur_perplx=list(map(float, model.cur_perplx)))
+        else:
+            if model.ph_hat is not None:
+                arrays.update(ph_hat=model.ph_hat, th_hat=model.th_hat)
+            meta.update(alpha=model.a, beta=model.b, K=model.K, Kp=model.Kp,
+                        V=model.V, D=model.D, token2id=model.word2id.token2id,
+                        sweep=model.sweep,
+                        merge_M=getattr(model, "_merge_M", None))
         if model.sweep == "fused":
             from ..ops.gibbs_fused import SAMPLER_FORMULA_VERSION
 
@@ -152,7 +160,7 @@ def restore_model(path: str, model) -> Dict[str, Any]:
     checkpoint metadata (including any ``extra_meta`` recorded at save time,
     e.g. ``iters_done``).
     """
-    from ..convert import labeled_lda_state_from_numpy
+    from ..convert import labeled_lda_state_from_numpy, local_lda_state_from_numpy
 
     kind = _model_kind(model)
     arrays, meta = load_checkpoint(path)
@@ -174,7 +182,7 @@ def restore_model(path: str, model) -> Dict[str, Any]:
                 f"{got}: CPU (mt19937) and CUDA (Philox) states do not "
                 f"interchange; restore on a {want} device")
 
-    if kind == "LabeledLDA":
+    if kind in ("LabeledLDA", "LocalLDA"):
         G = int(meta["n_buckets"])
         if len(model.counts.z) != G:
             raise ValueError(
@@ -188,9 +196,12 @@ def restore_model(path: str, model) -> Dict[str, Any]:
                 f"sweep kernel mismatch: checkpoint {sweep!r}, model "
                 f"{model.sweep!r} (construct with sweep={sweep!r})"
             )
-        labeled_lda_state_from_numpy(arrays, model, meta)
-        model.cur_perplx = list(meta.get("cur_perplx", []))
-        model._avg_s = int(meta.get("avg_s", 0))
+        if kind == "LabeledLDA":
+            labeled_lda_state_from_numpy(arrays, model, meta)
+            model.cur_perplx = list(meta.get("cur_perplx", []))
+            model._avg_s = int(meta.get("avg_s", 0))
+        else:
+            local_lda_state_from_numpy(arrays, model, meta)
         if meta.get("merge_M") is not None:
             model._ckpt_merge_M = int(meta["merge_M"])
         if sweep == "fused" and not from_jax:

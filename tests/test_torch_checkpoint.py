@@ -197,8 +197,7 @@ def test_formula_version_mismatch_warns(tmp_path):
 
 
 def test_kinds_not_ported_raise(tmp_path):
-    for name, item in (("LocalLDA", "item 5"), ("HSLDA", "item 7"),
-                       ("DistributedLabeledLDA", "item 9")):
+    for name, item in (("HSLDA", "item 7"), ("DistributedLabeledLDA", "item 9")):
         kind = type(name, (), {})
         with pytest.raises(NotImplementedError, match=item):
             save_model(str(tmp_path / "x"), kind())

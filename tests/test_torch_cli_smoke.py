@@ -2,8 +2,9 @@
 
 The port of ``tests/test_cli_smoke.py``, on the CPU (``--device cpu``):
 drives the product ``main()`` functions, load → preprocess → prune → train →
-fold-in test → metrics.  Also: the options that are not ported yet exit
-with an error, a run killed after its first checkpoint and resumed prints
+fold-in test → metrics, with the Gibbs and the CAVI engine, and the
+LocalLDA CLI.  Also: the options that are not ported yet exit with an
+error, a run killed after its first checkpoint and resumed prints
 the uninterrupted run's metrics, the corpus split and vocabulary equal the
 JAX CLI's, and ``entry()`` builds ``__graft_entry__``'s toy problem.
 """
@@ -16,7 +17,11 @@ import numpy as np
 import pytest
 import torch
 
-from lda_thesis_tpu_torch.cli import evaluate_cascade_lda, evaluate_labeled_lda
+from lda_thesis_tpu_torch.cli import (
+    evaluate_cascade_lda,
+    evaluate_labeled_lda,
+    evaluate_local_lda,
+)
 from lda_thesis_tpu_torch.utils.checkpoint import load_checkpoint
 from lda_thesis_tpu_torch.utils.elastic import ElasticGibbs
 from test_cli_smoke import _capture, corpus_csv  # noqa: F401  (a fixture)
@@ -130,8 +135,7 @@ def test_cascade_cli_with_test_budget(corpus_csv, capsys):
     assert [s["sweeps"] for s in res["model"].level_stats] == [3, 2, 2]
 
 
-@pytest.mark.parametrize("flags,item", [(["--engine", "vi"], "item 8"),
-                                        (["--n-chains", "2"], "item 9"),
+@pytest.mark.parametrize("flags,item", [(["--n-chains", "2"], "item 9"),
                                         (["--n-data", "2"], "item 9"),
                                         (["--table-shard", "vocab"], "item 9")])
 def test_options_not_ported_exit(corpus_csv, flags, item):
@@ -139,8 +143,43 @@ def test_options_not_ported_exit(corpus_csv, flags, item):
         _run(corpus_csv, *flags)
 
 
+def test_engine_vi_runs(corpus_csv, capsys):
+    """``--engine vi``, once refused, runs the CAVI engine: -i CAVI
+    iterations with a non-falling ELBO, a CAVI fold-in and the metric block."""
+    from lda_thesis_tpu_torch.models.labeled_lda_vi import LabeledLDAVI
+
+    res = _run(corpus_csv, "--engine", "vi")
+    out, aucs = _capture(capsys)
+    m = res["model"]
+    assert isinstance(m, LabeledLDAVI) and m.device.type == "cpu"
+    assert len(aucs) == 1 and res["metrics"]["auc_roc"] == aucs[0]
+    assert "Labeled LDA (CAVI" in out and "CAVI iterations" in out
+    e = np.asarray(m.elbo_history)
+    assert res["stats"]["train_iters"] == len(e) >= 2
+    assert np.all(np.diff(e) >= -1e-3 * np.abs(e[:-1]))
+
+
+def test_local_lda_cli(corpus_csv, capsys):
+    res = evaluate_local_lda.main(["-f", corpus_csv, "-k", "5", "-i", "4", "-s", "2",
+                                   "--device", "cpu"])
+    out = capsys.readouterr().out
+    m = res["model"]
+    assert m.sweep == "fused" and m.K == 5 and m.device.type == "cpu"
+    assert f"LocalLDA: D={m.D} sentence-docs, V={m.V}, K=5" in out
+    assert "perplexity:" in out and 1.0 < res["perplexity"] < m.V
+    assert "wall time by step: load" in out and res["tokens_per_s"] > 0
+    assert m.ph_hat.shape == (5, m.V)
+    # CPU tensors take the plain versions: no kernel launches
+    assert res["launches"] == {"fused_block": 0, "draw": 0, "commit": 0}
+    dense = evaluate_local_lda.main(["-f", corpus_csv, "-k", "5", "-i", "2",
+                                     "--sweep", "dense", "--no-sentences",
+                                     "--device", "cpu"])
+    assert dense["model"].sweep == "dense" and dense["model"].D <= m.D
+
+
 @pytest.mark.skipif(torch.cuda.is_available(), reason="a CUDA device is visible")
-@pytest.mark.parametrize("cli", [evaluate_labeled_lda, evaluate_cascade_lda])
+@pytest.mark.parametrize("cli", [evaluate_labeled_lda, evaluate_cascade_lda,
+                                 evaluate_local_lda])
 def test_device_cuda_without_a_card_exits(corpus_csv, cli):
     with pytest.raises(SystemExit, match="no CUDA device"):
         cli.main(["-f", corpus_csv, "-i", "2"])

@@ -269,7 +269,8 @@ def _check_block(args):
 # abstracts, A = 24, M = 25), then chip_smoke.py's edge cases: ragged
 # shapes, two waves of CTAs, one and 32 slots, a document with no live
 # position, interior gaps, U = 512, and documents of one or two positions
-# (with one, each step's next step is the same position)
+# (with one, each step's next step is the same position); then the general
+# route's slot and position counts past the staged route's limits
 BLOCK_CASES = {
     "bucket0": (1653, 32, 24, 25, 0.0, False),
     "bucket1": (1148, 48, 24, 25, 0.0, False),
@@ -293,15 +294,80 @@ def test_fused_block_kernel_matches_plain_version(case):
 
 @pytest.mark.cuda
 def test_fused_block_shared_memory_layout_and_limit():
-    """The kernel runs at the widest document its shared memory holds and
-    the wrapper raises one position past it; at A = 32 that is at least
-    the 512 positions the port's models may give it."""
+    """The staged route runs at the widest document its shared memory holds
+    (at A = 32, at least the 512 positions of the old cap); one position
+    past it, and at A = 33, the general route runs, bitwise equal to the
+    plain version, and nothing is refused."""
     _needs_card()
     U = fbc.max_positions(32)
     assert U >= 512
+    assert fbc.route(U, 32) == "staged"
+    assert fbc.route(U + 1, 32) == fbc.route(8, 33) == "general"
+    general = fbc.general_launches
     _check_block(chip_smoke.block_case("cuda", 1, 4, U, 32, 1))
-    args = chip_smoke.block_case("cuda", 1, 4, U + 1, 32, 1)
-    with pytest.raises(ValueError, match=f"at most {U} positions at A=32"):
-        fbc.fused_block(*args, ALPHA, BETA)
+    assert fbc.general_launches == general
+    _check_block(chip_smoke.block_case("cuda", 1, 4, U + 1, 32, 1))
+    _check_block(chip_smoke.block_case("cuda", 2, 4, 8, 33, 2))
+    assert fbc.general_launches == general + 2
     with pytest.raises(ValueError, match="slots"):
         fbc.max_positions(33)
+
+
+# ---- LocalLDA on the card against the CPU
+
+
+def _local_lda(K, sweep, device):
+    from lda_thesis_tpu_torch.data.synthetic import planted_corpus
+    from lda_thesis_tpu_torch.models.local_lda import LocalLDA
+
+    c = planted_corpus(2, n_train=300, n_test=0, V=500, n_labels=30, max_labels=4,
+                       mean_types=20.0, max_types=64)
+    docs = [" ".join(chip_smoke.csv_word(int(w[1:])) for w in d) for d in c.train_docs]
+    return LocalLDA(docs, alpha=ALPHA, beta=BETA, K=K, seed=4, sweep=sweep, device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sweep,K", [("fused", 20), ("fused", 50), ("dense", 20)])
+def test_local_lda_sweeps_on_card_equal_cpu(sweep, K):
+    """Three LocalLDA sweeps from one state and the same uniforms: on the
+    card (kernel 1 on the staged route at K = 20 and the general route at
+    K = 50, or the dense sweep's graphed kernels) and on the CPU (the plain
+    versions) give the same bits."""
+    from lda_thesis_tpu_torch.ops import gibbs_fused as tfused
+
+    _needs_card()
+    card, cpu = _local_lda(K, sweep, "cuda"), _local_lda(K, sweep, "cpu")
+    st = card.counts
+    cpu.counts = type(st)(*([t.to("cpu", copy=True) for t in part] if isinstance(part, tuple)
+                            else part.to("cpu", copy=True) for part in st))
+    gen = torch.Generator().manual_seed(5)
+    us = [[torch.rand(tuple(tv.shape), generator=gen) for tv in card._toks_v_t]
+          for _ in range(3)]
+    ends = []
+    for m in (card, cpu):
+        dev = m.device
+        if sweep == "fused":
+            before = (fbc.launches, fbc.general_launches)
+            for sw in us:
+                m.counts = tfused.fused_train_block_buckets(
+                    m.counts, m._toks_v_t, m._toks_f_t, m.lab_ids_t, m._lab_valid_tt,
+                    m.a, m.b, 1, uniforms=[u[None].to(dev) for u in sw])
+            if dev.type == "cuda":
+                n = 3 * m.buckets.n_buckets
+                assert (fbc.launches - before[0], fbc.general_launches - before[1]) == (
+                    n, n if K > 32 else 0)
+            state = [*m.counts.z, *m.counts.n_dk, m.counts.n_vk, m.counts.n_k]
+        else:
+            st = m.counts
+            z_t = [z.T.clone(memory_format=torch.contiguous_format) for z in st.z]
+            runs = [tgibbs.ExactSweep(z_t[g], st.n_dk[g], st.n_vk, st.n_k, m._toks_v_t[g],
+                                      m._toks_f_t[g], m.labs_t[g], m.a, m.b, m.V * m.b)
+                    for g in range(m.buckets.n_buckets)]
+            for sw in us:
+                for run, u in zip(runs, sw):
+                    run(uniforms=u.to(dev))
+            state = [*z_t, *st.n_dk, st.n_vk, st.n_k]
+        ends.append([t.cpu() for t in state])
+    assert all(_same_bits(a, b) for a, b in zip(*ends))
+    n_vk, n_k = ends[0][-2:]
+    assert torch.equal(n_k, n_vk.sum(0)) and float(n_vk.sum()) == card.n_tokens

@@ -27,11 +27,13 @@ D, U, A, K, V = 16, 8, 8, 128, 40
 ALPHA, BETA = 0.1, 0.01
 
 
-def _make_problem(D=D, U=U, A=A, gaps=0.0, zero_doc=False, max_labels=4, label_set=20):
+def _make_problem(D=D, U=U, A=A, gaps=0.0, zero_doc=False, max_labels=4, label_set=20,
+                  all_valid=False):
     """tests/test_fused.py's problem: (tok_v, tok_f, lab_ids, lab_valid),
-    each document carrying 2..``max_labels`` labels of ``label_set``;
-    optionally a share ``gaps`` of f = 0 positions inside the documents and
-    a first document whose f is all zero."""
+    each document carrying 2..``max_labels`` labels of ``label_set`` (all
+    ``A`` with ``all_valid``); optionally a share ``gaps`` of f = 0
+    positions inside the documents and a first document whose f is all
+    zero."""
     rng = np.random.default_rng(1)
     tok_v = rng.integers(0, V, size=(D, U)).astype(np.int32)
     n_types = rng.integers(2, U + 1, size=(D,))
@@ -40,7 +42,7 @@ def _make_problem(D=D, U=U, A=A, gaps=0.0, zero_doc=False, max_labels=4, label_s
     lab_ids = np.zeros((D, A), np.int32)
     lab_valid = np.zeros((D, A), np.float32)
     for d in range(D):
-        n_labels = min(A, rng.integers(2, max_labels + 1))
+        n_labels = A if all_valid else min(A, rng.integers(2, max_labels + 1))
         ids = np.sort(rng.choice(label_set, size=n_labels, replace=False))
         lab_ids[d, : len(ids)] = ids
         lab_valid[d, : len(ids)] = 1.0
@@ -55,6 +57,10 @@ def _make_problem(D=D, U=U, A=A, gaps=0.0, zero_doc=False, max_labels=4, label_s
 # slots of the port's grouped scan and its group-total prefix decides them
 WIDE_24 = dict(D=37, A=24, max_labels=24, label_set=100)
 WIDE_32 = dict(D=37, A=32, max_labels=32, label_set=120)
+# every slot valid, past the staged kernel's 32 lanes (the general route's
+# shapes: LocalLDA at K = 50, and a label set of 136)
+WIDE_56 = dict(D=37, A=56, label_set=100, all_valid=True)
+WIDE_136 = dict(D=37, A=136, label_set=200, all_valid=True)
 
 
 @pytest.fixture(scope="module")
@@ -66,11 +72,16 @@ def _t(*xs):
     return tuple(torch.from_numpy(np.array(x)) for x in xs)
 
 
+def _topics(lab_ids) -> int:
+    """The topic count: K, or the label set padded to 128 where it is wider."""
+    return max(K, -(-(int(lab_ids.max()) + 1) // 128) * 128)
+
+
 def _jax_state(problem, seed=0):
     tok_v, tok_f, lab_ids, lab_valid = problem
     return jfused.init_fused(jax.random.PRNGKey(seed), jnp.asarray(tok_v),
                              jnp.asarray(tok_f), jnp.asarray(lab_ids),
-                             jnp.asarray(lab_valid), V, K)
+                             jnp.asarray(lab_valid), V, _topics(lab_ids))
 
 
 def _to_torch_state(st):
@@ -100,6 +111,8 @@ def _kernel_inputs(problem, st):
     pytest.param(3, dict(D=37), id="D37"),
     pytest.param(3, WIDE_24, id="A24"),
     pytest.param(3, WIDE_32, id="A32"),
+    pytest.param(2, WIDE_56, id="A56"),
+    pytest.param(2, WIDE_136, id="A136"),
 ])
 def test_fused_block_torch_matches_xla_twin(M, shape):
     problem = _make_problem(**shape)
@@ -130,6 +143,8 @@ def test_fused_block_torch_matches_xla_twin(M, shape):
     pytest.param(3, {}, id="3"),
     pytest.param(3, WIDE_24, id="A24"),
     pytest.param(3, WIDE_32, id="A32"),
+    pytest.param(2, WIDE_56, id="A56"),
+    pytest.param(2, WIDE_136, id="A136"),
 ])
 def test_fused_train_block_matches_jax(M, shape):
     problem = _make_problem(**shape)
