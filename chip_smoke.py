@@ -66,7 +66,20 @@ made from ``--seed``.  Phases:
     the LocalLDA checkpoint whose next call equals the uninterrupted one's;
 11. the VI engine: the Labeled-LDA CLI with ``--engine vi -i 20`` on phase
     9's CSV, a non-falling ELBO, held-out AUC and seconds per CAVI step;
-12. one JSON line of kernel records, the card's line, and the result line.
+12. HSLDA (no CUDA kernel of its own: its z-sweep is plain PyTorch, on the
+    card one CUDA graph per sweep): one cycle of each coupling form (opt 1,
+    opt 2 compact and blockwise, opt 3) at D = 64, L = 12, K = 8 on the card
+    against the CPU from one state and one set of draws (count invariants
+    exact, at least 99% of the draws equal, η, a and β within 1e-4); 3
+    replayed cycles against 3 eager ones, bitwise, at D = 64 and at full
+    width, and a replay's device records against the eager sweep's; the
+    seconds per cycle of each block and the device time of a replayed sweep
+    at full width; the HSLDA CLI on a CSV of ``jel_corpus(seed,
+    n_l3=371)`` (D = 4,171, N = 192, L = 512, K = 15) at ``-i 25 -s 5
+    --opt 1`` with the default test (AUC > 0.6), a run of it killed by
+    SIGKILL after its first checkpoint and resumed in a fresh process (every
+    array and metric line equal), and ``--opt 2`` / ``--opt 3`` at ``-i 5``;
+13. one JSON line of kernel records, the card's line, and the result line.
 
 Every check raises; the script exits non-zero without a CUDA device.
 """
@@ -116,6 +129,9 @@ STEADY_CALLS = 5
 # process have lost one of 20 without a cause found); a time is then the
 # mean of those kept
 LOST_RECORDS = 2
+# spin kernels launched ahead of a counted region to take a session's loss
+# of its first records (_most_records)
+PAD_LAUNCHES = 256
 DEVICE = "cuda"
 ROOT = Path(__file__).resolve().parent
 KERNEL1 = "fused_block_kernel"
@@ -1201,9 +1217,10 @@ def _cli(main, argv) -> tuple:
     return res, tee.getvalue()
 
 
-def _cli_module(argv) -> list:
-    """The command that runs the Labeled-LDA CLI with ``argv`` in a fresh process."""
-    return [sys.executable, "-m", "lda_thesis_tpu_torch.cli.evaluate_labeled_lda", *argv]
+def _cli_module(argv, cli: str = "evaluate_labeled_lda") -> list:
+    """The command that runs a CLI (the Labeled-LDA one unless ``cli`` names
+    another) with ``argv`` in a fresh process."""
+    return [sys.executable, "-m", f"lda_thesis_tpu_torch.cli.{cli}", *argv]
 
 
 def _steps(res) -> dict:
@@ -1221,13 +1238,14 @@ def _print_cli(name: str, res) -> None:
           f"({res['stats']['train_iters']} sweeps); test metrics {json.dumps(res['metrics'])}")
 
 
-def _kill_after_first_checkpoint(argv, path: str, log: str) -> tuple:
-    """Start the Labeled-LDA CLI with ``argv`` in a fresh process and SIGKILL
-    it once ``path.json`` records a checkpoint; returns (the iterations that
-    checkpoint records, the process's return code).  Fails if the process
-    ends first."""
+def _kill_after_first_checkpoint(argv, path: str, log: str,
+                                 cli: str = "evaluate_labeled_lda") -> tuple:
+    """Start a CLI (the Labeled-LDA one unless ``cli`` names another) with
+    ``argv`` in a fresh process and SIGKILL it once ``path.json`` records a
+    checkpoint; returns (the iterations that checkpoint records, the
+    process's return code).  Fails if the process ends first."""
     with open(log, "w") as out:
-        proc = subprocess.Popen(_cli_module(argv), cwd=ROOT, stdout=out,
+        proc = subprocess.Popen(_cli_module(argv, cli), cwd=ROOT, stdout=out,
                                 stderr=subprocess.STDOUT)
         try:
             deadline = time.monotonic() + 600
@@ -1622,6 +1640,402 @@ def vi_phase(seed: int) -> dict:
                 elbo_last=float(e[-1]), D=m.D, Kp=m.Kp, V=m.V, wall_s=_steps(res))
 
 
+# ---------------------------------------------------------------- HSLDA
+
+HSLDA_K, HSLDA_IT, HSLDA_S = 15, 25, 5  # the JAX package's real-corpus record
+HSLDA_N_L3 = 371  # jel_corpus(seed, n_l3=371): 1 + 20 + 120 + 371 = 512 labels
+HSLDA_SHORT_IT, HSLDA_SHORT_TEST_IT = 5, 25  # the --opt 2 and --opt 3 runs
+HSLDA_SMALL_K = 8
+# the z-sweep's coupling forms: (opt, compact positive labels)
+HSLDA_FORMS = {"opt1": (1, False), "opt2-sparse": (2, True), "opt2-blockwise": (2, False),
+               "opt3": (3, False)}
+HSLDA_TOL = 1e-4  # η, a and β, card against the CPU
+
+
+def hslda_small_problem(seed: int) -> tuple:
+    """64 documents of 8–32 tokens over 120 words, labels from a two-letter
+    tree of 11 codes (L = 12 with the root): (docs, labs, labelset)."""
+    rng = np.random.default_rng(seed)
+    labelset = ["A", "A1", "A11", "A12", "A2", "A21", "B", "B1", "B11", "B2", "B21"]
+    leaves = [x for x in labelset if len(x) == 3]
+    docs, labs = [], []
+    for d in range(64):
+        mine = list(rng.choice(len(leaves), size=1 + int(rng.random() < 0.3), replace=False))
+        n = 32 if d == 0 else int(rng.integers(8, 33))
+        own = rng.random(n) < 0.6
+        words = np.where(own, 20 * np.array(mine)[rng.integers(0, len(mine), n)]
+                         + rng.integers(0, 20, n), rng.integers(0, 120, n))
+        docs.append([f"w{w}" for w in words])
+        labs.append(list(dict.fromkeys(p for i in mine
+                                       for p in (leaves[i][0], leaves[i][:2], leaves[i]))))
+    return docs, labs, labelset
+
+
+def _hslda_counts_ok(n_dk, n_vk, n_k, total: int, what: str) -> None:
+    import torch
+
+    _check(int(n_dk.sum()) == int(n_vk.sum()) == int(n_k.sum()) == total,
+           f"{what}: sum n_dk == sum n_vk == sum n_k == sum mask ({total})")
+    _check(int(n_dk.min()) >= 0 and int(n_vk.min()) >= 0 and int(n_k.min()) >= 0,
+           f"{what}: no negative count")
+    _check(torch.equal(n_vk.sum(dim=0, dtype=torch.int32), n_k), f"{what}: n_k == n_vk.sum(0)")
+
+
+def hslda_cycle_case(device, seed: int, form: str) -> dict:
+    """One HSLDA cycle (``_train_cycle``) of the small problem on ``device``
+    and on the CPU, from one state and one set of draws (made on the CPU):
+    {device type: (z, n_dk, n_vk, n_k, η, a, β)}, with the total count."""
+    import torch
+
+    from lda_thesis_tpu_torch.models.hslda import HSLDA, CycleNoise, _train_cycle
+    from lda_thesis_tpu_torch.ops.sampling import gumbel
+
+    opt, sparse = HSLDA_FORMS[form]
+    docs, labs, labelset = hslda_small_problem(seed)
+    m = HSLDA(docs, labs, labelset, k=HSLDA_SMALL_K, seed=seed, device="cpu")
+    D, N = m.tok_v.shape
+    K, L, S = m.K, m.L, m._stirling_logs.shape[0]
+    g = torch.Generator().manual_seed(seed + 1)
+    noise = dict(z=gumbel((N, D, K), "cpu", g), eta=torch.randn((K, L), generator=g),
+                 a=torch.rand((D, L), generator=g) * float(np.float32(1.0) - np.float32(1e-7))
+                 + float(np.float32(1e-7)),
+                 m=gumbel((D, K, S), "cpu", g))
+
+    def beta_draws(conc):
+        return torch._standard_gamma(conc.cpu(), generator=torch.Generator().manual_seed(seed + 2))
+
+    out = {}
+    for dev in (torch.device(device), torch.device("cpu")):
+        def on(x):
+            return x.to(dev)
+
+        res = _train_cycle(
+            type(m.counts)(*(on(t) for t in m.counts)), on(m.tok_v), on(m.mask), on(m.labs),
+            on(m.eta), on(m.a), on(m.beta), on(m._stirling_logs), m.mu, m.sigma, m.aprime,
+            m.alpha, m.gamma, m.xi, opt,
+            lab_pos_ids=on(m._lab_pos_ids) if sparse else None,
+            lab_pos_valid=on(m._lab_pos_valid) if sparse else None,
+            noise=CycleNoise(**{k: on(v) for k, v in noise.items()}, beta=beta_draws))
+        counts, eta, a, beta = res[:4]
+        out[dev.type] = [t.cpu() for t in (*counts, eta, a, beta)]
+    out["total"] = int(m.mask.sum())
+    return out
+
+
+def hslda_replay_case(device, docs, labs, labelset, seed: int, opt: int, cycles: int,
+                      k: int) -> dict:
+    """``cycles`` HSLDA cycles from one generator seed twice on ``device``:
+    eagerly (``_train_cycle`` over ``hslda_z_sweep``) and through the
+    model's ``HSLDASweep`` (the first sweep eager, then a captured graph
+    replayed); returns both runs' (z, n_dk, n_vk, n_k, η, a, β) and the
+    replaying model."""
+    from lda_thesis_tpu_torch.models.hslda import HSLDA, _train_cycle
+
+    eager = HSLDA(docs, labs, labelset, k=k, seed=seed, device=device)
+    graphed = HSLDA(docs, labs, labelset, k=k, seed=seed, device=device)
+    ids, valid = (eager._lab_pos_ids, eager._lab_pos_valid) if opt == 2 else (None, None)
+    counts, eta, a, beta = eager.counts, eager.eta, eager.a, eager.beta
+    for _ in range(cycles):
+        counts, eta, a, beta, _, _ = _train_cycle(
+            counts, eager.tok_v, eager.mask, eager.labs, eta, a, beta, eager._stirling_logs,
+            eager.mu, eager.sigma, eager.aprime, eager.alpha, eager.gamma, eager.xi, opt,
+            lab_pos_ids=ids, lab_pos_valid=valid, generator=eager._gen)
+        graphed.train_cycle(opt)
+    return dict(eager=[*counts, eta, a, beta],
+                graphed=[*graphed.counts, graphed.eta, graphed.a, graphed.beta],
+                model=graphed)
+
+
+def hslda_sweep_bound_ms(model, rows=None) -> tuple:
+    """(bytes bound, operations bound) in ms of one opt-1 z-sweep: each live
+    token instance reads its document's rows of M, a and labs and writes
+    its row of M ((D, L) passes), and reads n_dk, its noise and its word's
+    n_vk row and writes n_dk ((D, K) passes); its coupling matmul is
+    2·L·K operations.  ``rows`` counts other (document, position) rows
+    than the live instances (every row of every position: N·D)."""
+    n, L, K = model.n_tokens if rows is None else rows, model.L, model.K
+    return (n * (4 * L + 4 * K) * 4 / HBM_BYTES_PER_S * 1e3,
+            n * 2 * L * K / FP32_FLOP_PER_S * 1e3)
+
+
+def hslda_block_timing(model, cycles: int) -> dict:
+    """Seconds per block of ``cycles`` opt-1 cycles of a fresh model at full
+    width, host clock around each block ending in a synchronize (CUDA
+    events agree within their own gaps): the first z-sweep (eager), the
+    replayed ones, η, a, m and β; then the device ms of 5 replayed sweeps
+    (CUDA events) against the sweep's bound."""
+    import torch
+
+    from lda_thesis_tpu_torch.models.hslda import a_block, antoniak_draw, beta_block, eta_block
+
+    sweep = model.z_sweep(1)
+    gen = model._gen
+    times = {k: [] for k in ("z", "eta", "a", "m", "beta")}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times[name].append(time.perf_counter() - t0)
+        return out
+
+    for _ in range(cycles):
+        timed("z", lambda: sweep(model.eta, model.a, model.alpha * model.beta, generator=gen))
+        zbar = model._n_dk.to(torch.float32) / model._n_d[:, None]
+        eta = timed("eta", lambda: eta_block(zbar, model.a, model.mu, model.sigma,
+                                             generator=gen))
+        model.a, _ = timed("a", lambda: a_block(zbar, eta, model.labs, generator=gen))
+        mdot = timed("m", lambda: antoniak_draw(model._n_dk, model.alpha, model.beta,
+                                                model._stirling_logs, generator=gen)
+                     .sum(dim=0).to(torch.float32) / model.D)
+        model.beta = timed("beta", lambda: beta_block(mdot, model.aprime, generator=gen))
+        model.eta = eta
+    _check(sweep._graph is not None and sweep.sweeps == cycles,
+           "the full-width sweep replays its captured graph")
+    replay_ms = _batch_ms(sweep._graph.replay, 5)
+    bytes_ms, ops_ms = hslda_sweep_bound_ms(model)
+    rec = dict(z_eager_s=times["z"][0], z_capture_s=times["z"][1],
+               z_replayed_s=float(np.mean(times["z"][2:])),
+               **{f"{k}_s": float(np.mean(v)) for k, v in times.items() if k != "z"},
+               replayed_sweep_ms=replay_ms, sweep_bound_ms=max(bytes_ms, ops_ms),
+               sweep_bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+               sweep_bytes_bound_ms=bytes_ms, sweep_ops_bound_ms=ops_ms,
+               sweep_every_row_bound_ms=hslda_sweep_bound_ms(model, model.tok_v.numel())[0])
+    return rec
+
+
+def _graph_nodes(graph) -> int:
+    """Nodes of a captured graph (``keep_graph=True``), by CUDA's
+    ``cuGraphGetNodes``: the device operations that each replay runs."""
+    import ctypes
+
+    cu = ctypes.CDLL("libcuda.so.1")
+    n = ctypes.c_size_t(0)
+    rc = cu.cuGraphGetNodes(ctypes.c_void_p(graph.raw_cuda_graph()), None, ctypes.byref(n))
+    _check(rc == 0, f"cuGraphGetNodes returned {rc}")
+    return n.value
+
+
+def _most_records(fn, want: int, sessions: int = 3) -> int:
+    """Device records of one call of ``fn`` under torch.profiler, the most
+    that any of up to ``sessions`` sessions kept (stopping at ``want``).
+    A session late in this process drops the first records it would keep
+    (a dozen or more by phase 12 on the H100; PERF.md),
+    so ``PAD_LAUNCHES`` spin kernels run first and take that loss; a session
+    counts only if a spin record survived, so none of ``fn``'s was lost."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    best = 0
+    for _ in range(sessions):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.002)
+            for _ in range(PAD_LAUNCHES):
+                torch.cuda._sleep(0)
+            fn()
+            torch.cuda.synchronize()
+            time.sleep(0.002)
+        records = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        pad = sum(e.count for e in records if "spin_kernel" in e.key)
+        _check(pad <= PAD_LAUNCHES, f"{pad} spin records of {PAD_LAUNCHES} launches")
+        if pad:
+            best = max(best, sum(e.count for e in records) - pad)
+        if best >= want:
+            break
+    return best
+
+
+def hslda_launch_check(model) -> dict:
+    """Device operations of one opt-1 sweep over a copy of the model's
+    state: the nodes of a graph of the sweep (counted by CUDA), and
+    the profiler's records of the eager sweep and of one replay of the
+    sweep's own graph; both records must reach the node count, less what a
+    session may lose."""
+    import torch
+
+    from lda_thesis_tpu_torch.ops.hslda_gibbs import HSLDASweep
+
+    c = model.counts
+    run = HSLDASweep(c.z.T.contiguous(), c.n_dk.clone(), c.n_vk.clone(), c.n_k.clone(),
+                     model.tok_v, model.mask, model.labs, model.gamma, model.xi, 1, model.V)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(7)
+    ab = model.alpha * model.beta
+    run(model.eta, model.a, ab, generator=gen)  # eager: loads what the sweep needs
+
+    twin = torch.cuda.CUDAGraph(keep_graph=True)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        twin.capture_begin()
+        run._sweep()
+        twin.capture_end()
+    torch.cuda.current_stream().wait_stream(stream)
+    nodes = _graph_nodes(twin)
+    del twin  # captured only to be counted: never replayed
+
+    eager = _most_records(run._sweep, nodes)
+    run(model.eta, model.a, ab, generator=gen)  # captures, then replays
+    _check(run._graph is not None, "the sweep was captured")
+    replayed = _most_records(run._graph.replay, nodes)
+    _check(nodes - LOST_RECORDS <= eager <= nodes and nodes - LOST_RECORDS <= replayed <= nodes,
+           f"a replayed sweep runs the eager sweep's device operations ({nodes} nodes in "
+           f"the sweep's graph; {replayed} recorded in a replay, {eager} in the eager sweep)")
+    return dict(graph_nodes=nodes, eager_records=eager, replay_records=replayed,
+                per_position=nodes / model.tok_v.shape[1])
+
+
+def hslda_phase(seed: int) -> dict:
+    """HSLDA on the card (phase 12): (a) one cycle of each coupling form on
+    the card against the CPU; (b) 3 cycles replayed against 3 eager ones,
+    bitwise, and the replay's device records against the eager sweep's;
+    (c) the HSLDA CLI at full width (L = 512, K = 15, D = 4,171), a
+    SIGKILL-and-resume run, and --opt 2 / --opt 3; (d) timings."""
+    import torch
+
+    from lda_thesis_tpu_torch.cli import evaluate_hslda
+    from lda_thesis_tpu_torch.data.synthetic import jel_corpus
+    from lda_thesis_tpu_torch.models.hslda import HSLDA
+    from lda_thesis_tpu_torch.utils.checkpoint import load_checkpoint, save_model
+
+    card = _card_line()
+    rec = {"card": card, "forms": {}}
+    # a. the card against the CPU, one cycle of each form
+    for form in HSLDA_FORMS:
+        out = hslda_cycle_case(DEVICE, seed, form)
+        for dev in (DEVICE, "cpu"):
+            _hslda_counts_ok(*out[dev][1:4], out["total"], f"12a {form} on {dev}")
+        share = float((out[DEVICE][0] == out["cpu"][0]).to(torch.float32).mean())
+        errs = [_max_abs_err([g], [w]) for g, w in zip(out[DEVICE][4:], out["cpu"][4:])]
+        _check(share >= 0.99, f"12a {form}: {share:.4f} of the draws equal (>= 0.99)")
+        _check(max(errs) <= HSLDA_TOL,
+               f"12a {form}: η, a, β within {HSLDA_TOL} of the CPU ({errs})")
+        print(f"HSLDA 12a {form}: one cycle on the card against the CPU: {share:.6f} of the "
+              f"draws equal, max |Δ| η {errs[0]:.3g}, a {errs[1]:.3g}, β {errs[2]:.3g}; "
+              f"count invariants exact on both")
+        rec["forms"][form] = dict(equal_draws=share, eta_err=errs[0], a_err=errs[1],
+                                  beta_err=errs[2])
+
+    # b. replay against eager, on the card, at the small problem for each
+    # form and at full width for opt 1
+    docs, labs, labelset = hslda_small_problem(seed)
+    for form, (opt, _) in HSLDA_FORMS.items():
+        if form == "opt2-blockwise":
+            continue  # the model's opt 2 is the compact form
+        r = hslda_replay_case(DEVICE, docs, labs, labelset, seed, opt, 3, HSLDA_SMALL_K)
+        _check(r["model"].z_sweep(opt)._graph is not None, f"12b {form}: the sweep replays")
+        _check(_bitwise(r["graphed"], r["eager"]),
+               f"12b {form}: 3 replayed cycles == 3 eager cycles, bitwise (z, counts, η, a, β)")
+    jel = jel_corpus(seed, n_l3=HSLDA_N_L3)
+    r = hslda_replay_case(DEVICE, jel.train_docs, jel.train_labs, jel.labelset, seed, 1, 3,
+                          HSLDA_K)
+    full = r["model"]
+    _check(_bitwise(r["graphed"], r["eager"]),
+           "12b full width: 3 replayed cycles == 3 eager cycles, bitwise")
+    launches = hslda_launch_check(full)
+    print(f"HSLDA 12b: 3 cycles replayed == 3 eager, bitwise (z, n_dk, n_vk, n_k, η, a, β), "
+          f"for opt 1, opt 2 (compact) and opt 3 at D = 64 and for opt 1 at full width "
+          f"(D = {full.D}, N = {full.tok_v.shape[1]}, L = {full.L}, K = {full.K}); the sweep's "
+          f"graph has {launches['graph_nodes']} nodes ({launches['per_position']:.1f} per "
+          f"position), the profiler recorded {launches['replay_records']} in one replay and "
+          f"{launches['eager_records']} in the eager sweep")
+    rec["launches"] = launches
+    del r
+
+    # d. timings at full width (a fresh model: the first sweep is eager)
+    timing = hslda_block_timing(HSLDA(jel.train_docs, jel.train_labs, jel.labelset,
+                                      k=HSLDA_K, seed=seed, device=DEVICE), 6)
+    print(f"HSLDA 12d ({card}), seconds per cycle by block at full width: z eager "
+          f"{timing['z_eager_s']:.4f}, capture+replay {timing['z_capture_s']:.4f}, replayed "
+          f"{timing['z_replayed_s']:.4f}, η {timing['eta_s']:.5f}, a {timing['a_s']:.5f}, "
+          f"m {timing['m_s']:.5f}, β {timing['beta_s']:.5f}; a replayed opt-1 sweep "
+          f"{timing['replayed_sweep_ms']:.4f} ms of device time (bound "
+          f"{timing['sweep_bound_ms']:.4f} ms by {timing['sweep_bound_by']} over the live "
+          f"instances, {timing['sweep_every_row_bound_ms']:.4f} ms over every row of every "
+          f"position)")
+    rec["timing"] = timing
+
+    # c. the CLI at full width
+    with tempfile.TemporaryDirectory() as tmp:
+        csv_path = os.path.join(tmp, "jel.csv")
+        write_corpus_csv(csv_path, jel)
+        base = ["-f", csv_path, "-d", "3", "-k", str(HSLDA_K), "--seed", str(seed)]
+        long = base + ["-i", str(HSLDA_IT), "-s", str(HSLDA_S)]
+        every = ["--save-every", str(HSLDA_S)]
+        ck_a, ck_b = os.path.join(tmp, "A"), os.path.join(tmp, "B")
+        res, text = _cli(evaluate_hslda.main, long + ["--opt", "1", "--checkpoint", ck_a]
+                         + every)
+        m = res["model"]
+        dims = (m.D, m.tok_v.shape[1], m.L, m.K, m.V)
+        _check(dims[:4] == (4171, 192, 512, HSLDA_K),
+               f"CLI HSLDA at full width: (D, N, L, K) == (4171, 192, 512, 15) ({dims[:4]})")
+        _hslda_counts_ok(*m.counts[1:], m.n_tokens, "CLI HSLDA --opt 1")
+        auc = res["metrics"]["auc_roc"]
+        _check(auc > MIN_AUC, f"CLI HSLDA --opt 1: AUC {auc} > {MIN_AUC}")
+        want = METRIC_LINES.findall(text)
+        writes = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            save_model(os.path.join(tmp, "W"), m, extra_meta={"iters_done": HSLDA_IT})
+            writes.append(1e3 * (time.perf_counter() - t0))
+        npz_mb = os.path.getsize(os.path.join(tmp, "W.npz")) / 1e6
+        steps = {k[:-2]: v for k, v in res["stats"].items() if k.endswith("_s")}
+        print(f"CLI HSLDA --opt 1 (-i {HSLDA_IT} -s {HSLDA_S}, test 250; 25): (D, N, L, K, V) = "
+              f"{dims}, {m.n_tokens} tokens; AUC {auc}; wall by step "
+              f"{json.dumps({k: round(v, 4) for k, v in steps.items()})} ({card})")
+        print(f"  checkpoint write: {[round(w, 3) for w in writes]} ms ({npz_mb:.1f} MB npz)")
+        rec["cli"] = dict(dims=dims, n_tokens=m.n_tokens, auc_roc=auc, wall_s=steps,
+                          metrics=res["metrics"], checkpoint_write_ms=float(np.median(writes)),
+                          checkpoint_npz_mb=npz_mb)
+        del res, m
+
+        done, rc = _kill_after_first_checkpoint(long + ["--opt", "1", "--checkpoint", ck_b]
+                                                + every, ck_b, os.path.join(tmp, "B.log"),
+                                                cli="evaluate_hslda")
+        _check(done == HSLDA_S and rc == -signal.SIGKILL,
+               f"the HSLDA CLI run was killed by SIGKILL at its first checkpoint (iteration "
+               f"{done}, rc {rc})")
+        t0 = time.perf_counter()
+        resumed = subprocess.run(_cli_module(long + ["--opt", "1", "--checkpoint", ck_b,
+                                                     "--resume"] + every, "evaluate_hslda"),
+                                 cwd=ROOT, capture_output=True, text=True, timeout=900)
+        resume_s = time.perf_counter() - t0
+        _check(resumed.returncode == 0,
+               f"the resumed HSLDA CLI run succeeded: {resumed.stdout[-2000:]}"
+               f"{resumed.stderr[-2000:]}")
+        _check(f"resumed from {ck_b} at iteration {HSLDA_S}" in resumed.stdout,
+               "the fresh process resumed from the checkpoint of iteration 5")
+        got = METRIC_LINES.findall(resumed.stdout)
+        _check(len(want) == 4 and got == want,
+               f"the resumed HSLDA run prints the uninterrupted run's metric lines: "
+               f"{got} != {want}")
+        (a, _), (b, meta_b) = load_checkpoint(ck_a), load_checkpoint(ck_b)
+        _check(meta_b["iters_done"] == HSLDA_IT and _same_arrays(a, b),
+               "HSLDA A.npz and B.npz are equal array for array, bitwise")
+        print(f"  kill and resume: killed by SIGKILL at its checkpoint of cycle {done}, resumed "
+              f"in a fresh process ({resume_s:.3f} s); all {len(a)} arrays bitwise equal "
+              f"({', '.join(sorted(a))}); the four metric lines equal")
+        rec["kill_resume"] = dict(killed_at=done, arrays=len(a), resumed_run_s=resume_s)
+
+        for opt in (2, 3):
+            res, _ = _cli(evaluate_hslda.main,
+                          base + ["-i", str(HSLDA_SHORT_IT), "-s", str(HSLDA_S), "--test-it",
+                                  str(HSLDA_SHORT_TEST_IT), "--opt", str(opt)])
+            m = res["model"]
+            _hslda_counts_ok(*m.counts[1:], m.n_tokens, f"CLI HSLDA --opt {opt}")
+            _check(m._sweeps[opt]._graph is not None, f"CLI HSLDA --opt {opt} replays its sweep")
+            steps = {k[:-2]: v for k, v in res["stats"].items() if k.endswith("_s")}
+            print(f"CLI HSLDA --opt {opt} (-i {HSLDA_SHORT_IT} -s {HSLDA_S}, test "
+                  f"{HSLDA_SHORT_TEST_IT}): AUC {res['metrics']['auc_roc']}; wall by step "
+                  f"{json.dumps({k: round(v, 4) for k, v in steps.items()})}")
+            rec[f"cli_opt{opt}"] = dict(auc_roc=res["metrics"]["auc_roc"], wall_s=steps)
+            del res, m
+    return rec
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1654,6 +2068,8 @@ def main(argv=None) -> int:
     print(f"card: {card} ({torch.cuda.get_device_name(0)}, "
           f"{torch.cuda.device_count()} visible)")
     _check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmul is off")
+    _check(torch.get_float32_matmul_precision() == "highest",
+           "float32 matmuls run in IEEE FP32 (precision 'highest')")
     phase_done("environment")
 
     # 2. kernel builds: one nvcc per source, started together
@@ -1721,7 +2137,11 @@ def main(argv=None) -> int:
     vi = vi_phase(args.seed)
     phase_done("VI engine")
 
-    # 12. records
+    # 12. HSLDA: card against CPU, replay against eager, the CLI at full width
+    hslda = hslda_phase(args.seed)
+    phase_done("HSLDA")
+
+    # 13. records
     kernels = [{
         "name": "fused_block",
         "route": "cuda",
@@ -1842,6 +2262,7 @@ def main(argv=None) -> int:
     }]
     print(json.dumps({"phase_seconds": seconds}))
     print(json.dumps({"vi": vi}))
+    print(json.dumps({"hslda": hslda}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

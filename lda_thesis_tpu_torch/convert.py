@@ -1,4 +1,4 @@
-"""Carry a trained Labeled-LDA or LocalLDA state from NumPy arrays into the port.
+"""Carry a trained Labeled-LDA, LocalLDA or HSLDA state from NumPy arrays into the port.
 
 The arrays are those that ``lda_thesis_tpu/utils/checkpoint.save_model``
 writes for a ``LabeledLDA`` or a ``LocalLDA``: per bucket ``z_{g}`` and
@@ -10,6 +10,10 @@ means.  The per-bucket layout depends on the sampler (the checkpoint meta's
 * ``dense``: ``z_{g} (D_g, U_g)`` topics, ``n_dk_{g} (D_g, Kp)``;
 * ``compact`` (Labeled LDA only): ``z_{g} (D_g, U_g)`` slot indices,
   ``n_dk_{g} (D_g, A)``.
+
+An ``HSLDA``'s arrays are ``z (D, N)``, ``n_dk (D, K)``, ``n_vk (V, K)``,
+``n_k (K,)`` (int32), ``eta (L, K)``, ``a (D, L)``, ``beta_vec (K,)`` and,
+where it has trained, ``ph (K, V)`` and ``th (D, K)``.
 
 A ``LabeledLDA``'s means are ``ph_hat (V, Kp)`` and ``th_hat (D, Kp)`` in
 original document order; a ``LocalLDA``'s, where it has trained, are
@@ -28,7 +32,8 @@ import torch
 from .ops.gibbs import BucketLDAState, CompactBucketState
 from .ops.gibbs_fused import FusedBucketState
 
-__all__ = ["labeled_lda_state_from_numpy", "local_lda_state_from_numpy"]
+__all__ = ["labeled_lda_state_from_numpy", "local_lda_state_from_numpy",
+           "hslda_state_from_numpy"]
 
 
 def _taker(arrays, device):
@@ -100,3 +105,27 @@ def local_lda_state_from_numpy(arrays: Mapping[str, np.ndarray], model,
     take = _taker(arrays, "cpu")
     model.ph_hat = take("ph_hat", (model.K, model.V), torch.float32).numpy()
     model.th_hat = take("th_hat", (model.D, model.K), torch.float32).numpy()
+
+
+def hslda_state_from_numpy(arrays: Mapping[str, np.ndarray], model) -> None:
+    """Load ``arrays`` into ``model`` (a port ``HSLDA``) on its device: the
+    counts (in place, so a captured sweep graph stays valid), η, a, β and,
+    where the arrays hold them, the thinned means ``ph``/``th`` (host
+    arrays).  Raises ``ValueError`` when an array is missing or a shape
+    differs from the model's."""
+    from .ops.hslda_gibbs import HSLDACounts
+
+    D, N = model.tok_v.shape
+    K, L, V = model.K, model.L, model.V
+    take = _taker(arrays, model.device)
+    model.counts = HSLDACounts(z=take("z", (D, N), torch.int32),
+                               n_dk=take("n_dk", (D, K), torch.int32),
+                               n_vk=take("n_vk", (V, K), torch.int32),
+                               n_k=take("n_k", (K,), torch.int32))
+    model.eta = take("eta", (L, K), torch.float32)
+    model.a = take("a", (D, L), torch.float32)
+    model.beta = take("beta_vec", (K,), torch.float32)
+    if "ph" in arrays:
+        host = _taker(arrays, "cpu")
+        model.ph = host("ph", (K, V), torch.float32).numpy()
+        model.th = host("th", (D, K), torch.float32).numpy()

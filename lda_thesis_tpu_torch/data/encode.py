@@ -1,9 +1,9 @@
 """Dense encoding of labelled corpora (NumPy, host side).
 
-Copy of the parts of ``lda_thesis_tpu/data/encode.py`` that the Labeled-LDA
-fused path uses.  Documents become padded ``(D, U)`` arrays of (token type,
-frequency) slots; padding slots carry ``f = 0`` and are no-ops in every
-sampler.
+Copy of the parts of ``lda_thesis_tpu/data/encode.py`` that the port uses.
+Documents become padded ``(D, U)`` arrays of (token type, frequency) slots,
+or for HSLDA ``(D, N)`` arrays of token instances with a mask; padding slots
+carry ``f = 0`` (mask 0) and are no-ops in every sampler.
 """
 
 from __future__ import annotations
@@ -12,7 +12,8 @@ from typing import Dict, Sequence, Tuple
 
 import numpy as np
 
-__all__ = ["build_labelmap", "binarize_labels", "compact_labels", "encode_bow_types"]
+__all__ = ["build_labelmap", "binarize_labels", "compact_labels", "encode_bow_types",
+           "encode_instances"]
 
 
 def _round_up(x: int, m: int) -> int:
@@ -80,3 +81,20 @@ def encode_bow_types(
             tok_v[d, n] = v
             tok_f[d, n] = f
     return tok_v, tok_f
+
+
+def encode_instances(
+    docs: Sequence[Sequence[int]],
+    pad_multiple: int = 8,
+    min_width: int = 1,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Pack per-doc token-id lists into ``tok_v (D,N), mask (D,N)``."""
+    D = len(docs)
+    N = max([min_width] + [len(d) for d in docs])
+    N = _round_up(N, pad_multiple)
+    tok_v = np.zeros((D, N), dtype=np.int32)
+    mask = np.zeros((D, N), dtype=np.int32)
+    for d, doc in enumerate(docs):
+        tok_v[d, : len(doc)] = doc
+        mask[d, : len(doc)] = 1
+    return tok_v, mask

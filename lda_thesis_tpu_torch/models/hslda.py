@@ -1,0 +1,448 @@
+"""HSLDA — Hierarchically Supervised LDA (Perotte '11), on PyTorch.
+
+Counterpart of ``lda_thesis_tpu/models/hslda.py`` (reference HSLDA.py:82-394).
+K latent topics plus a probit regression of every label on the empirical
+topic mixture z̄, hierarchy-aware through sign-constrained truncated-normal
+auxiliaries ``a``; blocked Gibbs over five variable groups z → η → a → m → β
+(HSLDA.py:312-317), one cycle per :func:`_train_cycle`:
+
+* z: the token-instance sweep with the probit coupling
+  (``ops/hslda_gibbs``), on a card one CUDA graph per sweep
+  (:class:`~..ops.hslda_gibbs.HSLDASweep`);
+* η: the Bayesian-regression posterior by a Cholesky factor of the (K, K)
+  precision and triangular solves (:func:`eta_block`);
+* a: truncated normals by inverse CDF (:func:`a_block`);
+* m: Antoniak table counts by Gumbel-max over a log Stirling table
+  (:func:`antoniak_draw`, averaged over documents);
+* β: a Gamma-normalised Dirichlet (:func:`beta_block`).
+
+The linear-model blocks run eagerly, in float32 as the JAX function does
+(``torch.linalg.cholesky_ex``: no host sync).  Each block takes its draws
+as an optional input of the JAX draw's shape, so a test can feed JAX's.
+
+The model runs on ``device`` (CUDA unless the caller passes ``"cpu"``) and
+draws from one ``torch.Generator`` on that device, seeded by ``seed``:
+construction draws η, β, θ₀, the init z and a in the JAX constructor's
+order, and each cycle draws the z-sweep's Gumbel noise, η's normals, a's
+uniforms, m's Gumbel noise and β's Gamma variates, in that order.  The
+generator's state is part of a checkpoint, so a chunked or resumed run
+equals the uninterrupted one draw for draw (the JAX package gets the same
+from a per-cycle ``fold_in`` of its master key).  JAX's ``dispatch_chunks``
+(a TPU dispatch workaround) has no counterpart: the cycles loop in Python.
+
+Deliberate deviations from the reference, as in the JAX package: ``sample_m``
+draws the table-count *index* (MIGRATION.md:57) and keeps the reference's
+mean-over-documents ``mdot`` scaling; root ``''`` is label 0 and real labels
+take 1..L-1; the test's thinned averaging runs once per sweep.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Union
+
+import numpy as np
+import torch
+
+from ..data.encode import binarize_labels, build_labelmap, compact_labels, encode_instances
+from ..ops.gibbs import foldin_sweep
+from ..ops.hslda_gibbs import HSLDACounts, HSLDASweep, hslda_init_counts, hslda_z_sweep
+from ..ops.sampling import gumbel, norm_cdf, stirling_table, truncated_normal
+from .state import running_average
+
+__all__ = ["HSLDA", "CycleNoise", "eta_block", "a_block", "antoniak_draw", "beta_block",
+           "D_BLOCK"]
+
+D_BLOCK = 512  # documents per block of the m draw (the JAX function's noise blocks)
+
+Draws = Optional[Union[torch.Tensor, Callable[[torch.Tensor], torch.Tensor]]]
+
+
+class CycleNoise(NamedTuple):
+    """The draws of one cycle, each optional: ``z (N, D, K)`` Gumbel noise,
+    ``eta (K, L)`` standard normals, ``a (D, L)`` uniforms in [1e-7, 1),
+    ``m (D, K, S)`` Gumbel noise and ``beta``, the Gamma variates (K,) or a
+    function of their concentration that gives them."""
+
+    z: Optional[torch.Tensor] = None
+    eta: Optional[torch.Tensor] = None
+    a: Optional[torch.Tensor] = None
+    m: Optional[torch.Tensor] = None
+    beta: Draws = None
+
+
+def _f32(x: float) -> float:
+    return float(np.float32(x))
+
+
+def eta_block(zbar: torch.Tensor, a: torch.Tensor, mu: float, sigma: float,
+              normals: Optional[torch.Tensor] = None,
+              generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """η ~ its Bayesian-regression posterior given z̄ (D, K) and a (D, L)
+    (HSLDA.py:274-287); returns η (L, K).
+
+    Σ̂⁻¹ = I/σ + z̄ᵀz̄ is factored by Cholesky; μ̂ = Σ̂ (μ/σ + z̄ᵀa) by two
+    triangular solves, and η_l = μ̂_l + Σ̂^{1/2} ε with Σ̂^{1/2} = chol⁻ᵀ.
+    ``normals`` is ε (K, L)."""
+    K, L = zbar.shape[1], a.shape[1]
+    sigma32 = _f32(sigma)
+    eye = torch.eye(K, dtype=torch.float32, device=zbar.device)
+    sig_inv = eye / sigma32 + zbar.T @ zbar  # (K, K) precision
+    chol, _ = torch.linalg.cholesky_ex(sig_inv)
+    raw_mean = float(np.float32(mu) / np.float32(sigma)) + zbar.T @ a  # (K, L)
+    tmp = torch.linalg.solve_triangular(chol, raw_mean, upper=False)
+    mu_hat = torch.linalg.solve_triangular(chol.T, tmp, upper=True)
+    if normals is None:
+        eps = torch.randn((K, L), generator=generator, device=zbar.device, dtype=torch.float32)
+    else:
+        eps = normals.to(device=zbar.device, dtype=torch.float32)
+    return (mu_hat + torch.linalg.solve_triangular(chol.T, eps, upper=True)).T
+
+
+def a_block(zbar: torch.Tensor, eta: torch.Tensor, labs: torch.Tensor,
+            uniforms: Optional[torch.Tensor] = None,
+            generator: Optional[torch.Generator] = None):
+    """a ~ N(z̄ηᵀ, 1) truncated to (0, ∞) on positive labels and (−∞, 0) on
+    negative ones (HSLDA.py:289-292); returns (a, z̄ηᵀ), both (D, L)."""
+    mean_a = zbar @ eta.T
+    lo = torch.where(labs > 0, 0.0, float("-inf"))
+    hi = torch.where(labs > 0, float("inf"), 0.0)
+    return truncated_normal(lo, hi, loc=mean_a, scale=1.0, uniforms=uniforms,
+                            generator=generator), mean_a
+
+
+def antoniak_draw(n_dk: torch.Tensor, alpha: float, beta: torch.Tensor,
+                  stirling_logs: torch.Tensor, gumbels: Optional[torch.Tensor] = None,
+                  generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Antoniak table counts m ∈ {0..n} with p(m) ∝ s(n, m)·(αβ_k)^m per
+    (document, topic), by Gumbel-max over the log Stirling table
+    (HSLDA.py:298-310 with the index-draw fix); returns m (D, K) int64.
+
+    Counts are clipped to the table (S rows).  ``gumbels`` is the noise
+    (D, K, S); documents go in blocks of ``D_BLOCK`` to bound the (·, K, S)
+    transient."""
+    D, K = n_dk.shape
+    S = stirling_logs.shape[0]
+    log_ab = torch.log(torch.clamp(alpha * beta, min=1e-38))  # (K,)
+    n_clip = torch.clamp(n_dk, max=S - 1).long()
+    step = torch.arange(S, dtype=torch.float32, device=n_dk.device)[None, None, :] \
+        * log_ab[None, :, None]  # (1, K, S)
+    if gumbels is None:
+        gumbels = gumbel((D, K, S), n_dk.device, generator)
+    elif tuple(gumbels.shape) != (D, K, S):
+        raise ValueError(f"gumbels must have shape {(D, K, S)}, got {tuple(gumbels.shape)}")
+    m = torch.empty((D, K), dtype=torch.int64, device=n_dk.device)
+    for s in range(0, D, D_BLOCK):
+        logits = stirling_logs[n_clip[s:s + D_BLOCK]] + step  # (·, K, S), -inf above n
+        m[s:s + D_BLOCK] = torch.argmax(logits + gumbels[s:s + D_BLOCK].to(logits.device),
+                                        dim=2)
+    return m
+
+
+def beta_block(mdot: torch.Tensor, aprime: float, gammas: Draws = None,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """β ~ Dir(mdot + α') by normalised Gamma variates (HSLDA.py:294-296).
+    ``gammas`` is the variates (K,) or a function of the concentration that
+    gives them."""
+    conc = mdot + _f32(aprime)
+    if gammas is None:
+        g = torch._standard_gamma(conc, generator=generator)
+    else:
+        g = gammas(conc) if callable(gammas) else gammas
+        g = g.to(device=conc.device, dtype=torch.float32)
+    return g / g.sum()
+
+
+def _train_cycle(counts: HSLDACounts, tok_v, mask, labs, eta, a, beta, stirling_logs,
+                 mu: float, sigma: float, aprime: float, alpha: float, gamma: float,
+                 xi: float, opt: int, lab_pos_ids=None, lab_pos_valid=None,
+                 noise: Optional[CycleNoise] = None,
+                 generator: Optional[torch.Generator] = None,
+                 sweep: Optional[HSLDASweep] = None):
+    """One blocked-Gibbs cycle z → η → a → m → β (HSLDA.py:312-317); returns
+    ``(counts, eta, a, beta, zbar, mean_a)`` as the JAX function does.
+
+    With ``sweep`` (the model's :class:`HSLDASweep` over ``counts``' tensors)
+    the z block runs there, in place; else :func:`hslda_z_sweep` runs on
+    copies.  Draws come from ``noise`` where it holds them, else from
+    ``generator``, in the order z, η, a, m, β."""
+    noise = noise or CycleNoise()
+    alpha_beta = alpha * beta
+    if sweep is None:
+        counts, _ = hslda_z_sweep(counts, tok_v, mask, labs, eta, a, alpha_beta, gamma, xi,
+                                  opt=opt, lab_pos_ids=lab_pos_ids,
+                                  lab_pos_valid=lab_pos_valid, gumbels=noise.z,
+                                  generator=generator)
+    else:
+        sweep(eta, a, alpha_beta, generator=generator, gumbels=noise.z)
+    n_d = torch.clamp(mask.sum(dim=1), min=1).to(torch.float32)
+    zbar = counts.n_dk.to(torch.float32) / n_d[:, None]  # (D, K)
+    eta_new = eta_block(zbar, a, mu, sigma, noise.eta, generator)
+    a_new, mean_a = a_block(zbar, eta_new, labs, noise.a, generator)
+    m = antoniak_draw(counts.n_dk, alpha, beta, stirling_logs, noise.m, generator)
+    # the mean over documents, the reference's scaling (HSLDA.py:310): an
+    # exact integer sum and one division, the same bits on every device
+    mdot = m.sum(dim=0).to(torch.float32) / m.shape[0]
+    beta_new = beta_block(mdot, aprime, noise.beta, generator)
+    return counts, eta_new, a_new, beta_new, zbar, mean_a
+
+
+def _test_loop(tok_v, mask, init_phi, sweep_phi, alpha_beta, it: int, thinning: int,
+               init_uniforms: Optional[torch.Tensor] = None,
+               sweep_uniforms: Optional[Sequence[torch.Tensor]] = None,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Batched fold-in of held-out documents (HSLDA.py:335-374): z drawn from
+    the thinned φ̂ (``init_phi (V, K)``) by inverse CDF, then ``it`` sweeps
+    with ``sweep_phi`` frozen (``ops/gibbs.foldin_sweep``, α·β as the prior)
+    and z̄ averaged at every ``thinning``-th sweep; returns z̄ (D, K).
+
+    ``init_uniforms (N, D)`` and ``sweep_uniforms`` (one (N, D) per sweep)
+    are the draws; without them they come from ``generator``."""
+    D, N = tok_v.shape
+    K = init_phi.shape[1]
+    device = tok_v.device
+    n_d = torch.clamp(mask.sum(dim=1), min=1).to(torch.float32)
+    if init_uniforms is None:
+        init_uniforms = torch.rand((N, D), generator=generator, device=device)
+    mF = mask.to(torch.float32)
+    tv = tok_v.long()
+    n_dk = torch.zeros((D, K), dtype=torch.float32, device=device)
+    z = torch.empty((D, N), dtype=torch.int32, device=device)
+    for p in range(N):
+        c = torch.cumsum(init_phi[tv[:, p]], dim=1)
+        z_p = (c < (init_uniforms[p] * c[:, -1])[:, None]).sum(dim=1)
+        n_dk.scatter_add_(1, z_p[:, None], mF[:, p, None])
+        z[:, p] = z_p
+    avg = torch.zeros((D, K), dtype=torch.float32, device=device)
+    s = 0
+    for i in range(int(it)):
+        u = None if sweep_uniforms is None else sweep_uniforms[i]
+        z, n_dk = foldin_sweep(z, n_dk, tok_v, mask, sweep_phi, alpha_beta, uniforms=u,
+                               generator=generator)
+        if (i + 1) % int(thinning) == 0:
+            s += 1
+            avg = running_average(avg, n_dk / n_d[:, None], s)
+    return avg
+
+
+class HSLDA:
+    """Hierarchically supervised LDA with a probit label cascade, on
+    ``device`` (CUDA unless the caller passes ``"cpu"``)."""
+
+    def __init__(
+        self,
+        docs: Sequence[Sequence[str]],
+        labs: Sequence[Sequence[str]],
+        labelset: Sequence[str],
+        k: int = 15,
+        alpha_prime: float = 1.0,
+        alpha: float = 1.0,
+        gamma: float = 1.0,
+        mu: float = 0.0,
+        sigma: float = 1.0,
+        xi: float = 0.0,
+        seed: int = 0,
+        device=None,
+    ):
+        self.device = torch.device("cuda" if device is None else device)
+        self.K = int(k)
+        self.aprime = float(alpha_prime)
+        self.alpha = float(alpha)
+        self.gamma = float(gamma)
+        self.mu = float(mu)
+        self.sigma = float(sigma)
+        self.xi = float(xi)
+
+        # root '' at id 0 (reference HSLDA.py:86-87; see module docstring)
+        self.labelmap: Dict[str, int] = build_labelmap(labelset, root="")
+        self.lablist = list(self.labelmap.keys())
+        self.L = len(self.labelmap)
+
+        # growing vocabulary over token instances (HSLDA.py:102,162-169)
+        self.w_to_v: Dict[str, int] = {}
+        docs_ids = [[self._term_to_id(t) for t in doc] for doc in docs]
+        self.v_to_w = {v: w for w, v in self.w_to_v.items()}
+        self.V = len(self.w_to_v)
+        self.D = len(docs)
+
+        tok_v, mask = encode_instances(docs_ids)
+        self.n_tokens = int(mask.sum())
+        self.tok_v = self._t(tok_v, torch.int32)
+        self.mask = self._t(mask, torch.int32)
+        lab_mask = binarize_labels(labs, self.labelmap)
+        self.labs = self._t(lab_mask, torch.float32)
+        # compact positive-label layout for the opt=2 Φ coupling
+        ids, valid = compact_labels(lab_mask)
+        self._lab_pos_ids = self._t(ids, torch.int64)
+        self._lab_pos_valid = self._t(valid, torch.float32)
+
+        # label-tree parent map (HSLDA.py:139-142)
+        self.child_to_parent = {
+            self.labelmap[x]: self.labelmap.get(x[:-1], 0)
+            for x in labelset if x in self.labelmap
+        }
+
+        self._gen = torch.Generator(device=self.device)
+        self._gen.manual_seed(int(seed))
+        gen = self._gen
+
+        # priors and initial state (HSLDA.py:109-137), in the JAX order
+        self.eta = self.mu + torch.randn((self.L, self.K), generator=gen, device=self.device)
+        g = torch._standard_gamma(torch.full((self.K,), self.aprime, device=self.device),
+                                  generator=gen)
+        self.beta = g / g.sum()
+        g = torch._standard_gamma((self.alpha * self.beta).expand(self.D, self.K).contiguous(),
+                                  generator=gen)
+        theta0 = g / torch.clamp(g.sum(dim=1, keepdim=True), min=1e-38)
+        c = hslda_init_counts(self.tok_v, self.mask, theta0, self.V, generator=gen)
+        # the sweep's state: z position-major, updated in place by every sweep
+        self._z_t = c.z.T.contiguous()
+        self._n_dk, self._n_vk, self._n_k = c.n_dk, c.n_vk, c.n_k
+        self._n_d = torch.clamp(self.mask.sum(dim=1), min=1).to(torch.float32)
+        zbar = self._n_dk.to(torch.float32) / self._n_d[:, None]
+        self.a, _ = a_block(zbar, self.eta, self.labs, generator=gen)
+
+        # Stirling table in log space, sized to the longest document
+        max_n = int(mask.sum(axis=1).max()) + 2
+        table = stirling_table(max(max_n, 8))
+        with np.errstate(divide="ignore"):
+            self._stirling_logs = self._t(np.log(table), torch.float32)
+
+        self.ph: Optional[np.ndarray] = None  # thinned (K, V) φ̂
+        self.th: Optional[np.ndarray] = None  # thinned (D, K) z̄
+        self._avg_s = 0
+        self._cycles_done = 0
+        self._sweeps: Dict[int, HSLDASweep] = {}
+
+    def __getstate__(self):
+        # a captured CUDA graph does not pickle; the sweeps are made again
+        # at first use
+        state = self.__dict__.copy()
+        state["_sweeps"] = {}
+        return state
+
+    def _t(self, x, dtype) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(x), device=self.device).to(dtype)
+
+    def _term_to_id(self, term: str) -> int:
+        tid = self.w_to_v.get(term)
+        if tid is None:
+            tid = len(self.w_to_v)
+            self.w_to_v[term] = tid
+        return tid
+
+    # ----------------------------------------------------------------- state
+
+    @property
+    def counts(self) -> HSLDACounts:
+        """The count state; ``z`` doc-major (D, N), a copy."""
+        return HSLDACounts(z=self._z_t.T.contiguous(), n_dk=self._n_dk, n_vk=self._n_vk,
+                           n_k=self._n_k)
+
+    @counts.setter
+    def counts(self, c: HSLDACounts) -> None:
+        # in place: a captured sweep graph reads these very tensors
+        self._z_t.copy_(c.z.T)
+        self._n_dk.copy_(c.n_dk)
+        self._n_vk.copy_(c.n_vk)
+        self._n_k.copy_(c.n_k)
+
+    def z_sweep(self, opt: int) -> HSLDASweep:
+        """The model's sweep for coupling ``opt``, made at first use."""
+        opt = int(opt)
+        if opt not in self._sweeps:
+            ids = valid = None
+            if opt == 2:
+                ids, valid = self._lab_pos_ids, self._lab_pos_valid
+            self._sweeps[opt] = HSLDASweep(self._z_t, self._n_dk, self._n_vk, self._n_k,
+                                           self.tok_v, self.mask, self.labs, self.gamma,
+                                           self.xi, opt, self.V, ids, valid)
+        return self._sweeps[opt]
+
+    def train_cycle(self, opt: int = 1, noise: Optional[CycleNoise] = None) -> None:
+        """One blocked-Gibbs cycle on the model's state."""
+        state = HSLDACounts(z=self._z_t, n_dk=self._n_dk, n_vk=self._n_vk, n_k=self._n_k)
+        _, self.eta, self.a, self.beta, _, _ = _train_cycle(
+            state, self.tok_v, self.mask, self.labs, self.eta, self.a, self.beta,
+            self._stirling_logs, self.mu, self.sigma, self.aprime, self.alpha, self.gamma,
+            self.xi, int(opt), noise=noise, generator=self._gen, sweep=self.z_sweep(opt))
+        self._cycles_done += 1
+
+    # ------------------------------------------------------------------ train
+
+    def get_zbar(self) -> np.ndarray:
+        n_d = np.maximum(self.mask.sum(dim=1).cpu().numpy(), 1)
+        return self._n_dk.cpu().numpy() / n_d[:, None]
+
+    def get_ph(self) -> np.ndarray:
+        n_kv = self._n_vk.cpu().numpy().T  # (K, V)
+        den = n_kv.sum(axis=1, keepdims=True)
+        return n_kv / np.maximum(den, 1)
+
+    def run_training(self, it: int = 25, thinning: int = 5, opt: int = 1,
+                     continue_avg: bool = False) -> None:
+        """Blocked-Gibbs cycles with thinned φ̂/z̄ averaging (HSLDA.py:312-333).
+
+        The means fold in at every ``thinning``-th cycle, in float32; the
+        trailing ``it % thinning`` cycles run unsaved.  ``continue_avg=True``
+        carries the means across calls (chunked or resumed training); the
+        default restarts them, as the reference's per-call counter does.
+        """
+        it, thinning = int(it), int(thinning)
+        if continue_avg and self.ph is not None:
+            s = int(self._avg_s)
+            ph = torch.as_tensor(self.ph, dtype=torch.float32, device=self.device)
+            th = torch.as_tensor(self.th, dtype=torch.float32, device=self.device)
+        else:
+            s = 0
+            ph = torch.zeros((self.K, self.V), dtype=torch.float32, device=self.device)
+            th = torch.zeros((self.D, self.K), dtype=torch.float32, device=self.device)
+        for i in range(it):
+            self.train_cycle(opt)
+            if (i + 1) % thinning == 0:
+                s += 1
+                n_kv = self._n_vk.to(torch.float32).T  # (K, V) unsmoothed
+                cur_ph = n_kv / torch.clamp(n_kv.sum(dim=1, keepdim=True), min=1.0)
+                ph = running_average(ph, cur_ph, s)
+                th = running_average(th, self._n_dk.to(torch.float32) / self._n_d[:, None], s)
+        self._avg_s = s
+        if s:
+            self.ph = ph.cpu().numpy()
+            self.th = th.cpu().numpy()
+
+    # ------------------------------------------------------------------- test
+
+    def _encode_test(self, newdocs: Sequence[Sequence[str]]):
+        ids = [[self.w_to_v[t] for t in doc if t in self.w_to_v] for doc in newdocs]
+        tok_v, mask = encode_instances(ids)
+        return self._t(tok_v, torch.int32), self._t(mask, torch.int32)
+
+    def run_tests(self, newdocs: Sequence[Sequence[str]], it: int = 250,
+                  s: int = 25) -> np.ndarray:
+        """Label probabilities Φ(η·z̄ − ξ) for a batch of held-out documents
+        (reference run_test/run_tests, HSLDA.py:346-394), all at once.  Φ is
+        :func:`~..ops.sampling.norm_cdf`, precise in the left tail as the
+        reference's float64 ``norm.cdf`` is; the JAX package's ½(1 + erf)
+        in float32 ties the scores of labels far below ξ."""
+        tok_v, mask = self._encode_test(newdocs)
+        ph = self.ph if self.ph is not None else self.get_ph()
+        init_phi = self._t(np.ascontiguousarray(ph.T), torch.float32)  # (V, K)
+        sweep = self._n_vk.cpu().numpy().astype(np.float64) + self.gamma  # (V, K)
+        sweep = sweep / sweep.sum(axis=0, keepdims=True)
+        sweep_phi = self._t(sweep, torch.float32)
+        zbar = _test_loop(tok_v, mask, init_phi, sweep_phi, self.alpha * self.beta,
+                          it=int(it), thinning=int(s), generator=self._gen)
+        mean_a = zbar.cpu().numpy() @ self.eta.cpu().numpy().T - np.float32(self.xi)
+        return norm_cdf(torch.from_numpy(mean_a)).numpy()
+
+    def run_test(self, newdoc, it: int = 250, s: int = 25) -> np.ndarray:
+        return self.run_tests([newdoc], it=it, s=s)[0]
+
+    # ------------------------------------------------------------ diagnostics
+
+    def display_topics(self, n: int = 10) -> List[List[str]]:
+        ph = self.ph if self.ph is not None else self.get_ph()
+        top_v = np.argsort(-ph)[:, :n]
+        return [[self.v_to_w[int(v)] for v in top] for top in top_v]
+
+    def label_predictions(self, probs: np.ndarray):
+        return sorted(zip(probs.tolist(), self.lablist))[::-1]

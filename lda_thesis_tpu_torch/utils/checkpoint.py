@@ -7,11 +7,14 @@ Counterpart of ``lda_thesis_tpu/utils/checkpoint.py``, with its layout:
   objects, so checkpoints survive refactors;
 * writes are atomic: both files are written in full to temporary names and
   then renamed, the ``.npz`` first, so an interrupted run never leaves a
-  corrupt file and the ``.json`` that marks a checkpoint appears last;
+  corrupt file and the ``.json`` that marks a checkpoint appears last; the
+  ``.npz`` carries its own copy of the metadata (``meta_json``), which
+  :func:`load_checkpoint` prefers, so a kill between the two renames cannot
+  pair new arrays with old metadata;
 * :func:`save_model` / :func:`restore_model` round-trip the training state of
-  ``LabeledLDA`` (fused, dense and compact), ``LocalLDA`` (fused and dense)
-  and ``CascadeLDA``; training resumes mid-chain with the same draws as the
-  uninterrupted run.
+  ``LabeledLDA`` (fused, dense and compact), ``LocalLDA`` (fused and dense),
+  ``CascadeLDA`` and ``HSLDA``; training resumes mid-chain with the same
+  draws as the uninterrupted run.
 
 The array names and meta keys are the JAX package's, except that the port
 has no ``rng_key``: it stores its ``torch.Generator`` state as ``rng_state``
@@ -37,12 +40,16 @@ import torch
 
 __all__ = ["save_checkpoint", "load_checkpoint", "save_model", "restore_model"]
 
-# model kinds of the JAX package whose port is still to come
+# model kinds of the JAX package whose port is still to come: the
+# multi-device trainers; every single-device kind (LabeledLDA, LocalLDA,
+# CascadeLDA, HSLDA) is ported
 _NOT_PORTED = {
-    "HSLDA": "ROADMAP.md Queue 1 item 7",
     "DistributedLabeledLDA": "ROADMAP.md Queue 1 item 9",
     "DistributedHSLDA": "ROADMAP.md Queue 1 item 9",
 }
+_KINDS = ("LabeledLDA", "LocalLDA", "CascadeLDA", "HSLDA")
+# the array of a port checkpoint's ``.npz`` that holds its metadata
+META_ARRAY = "meta_json"
 
 
 def _write_tmp(path: str, write_fn) -> str:
@@ -59,13 +66,21 @@ def _write_tmp(path: str, write_fn) -> str:
 
 
 def save_checkpoint(path: str, arrays: Dict[str, Any], meta: Dict[str, Any]) -> None:
-    """Atomically write ``{path}.npz`` (arrays) and ``{path}.json`` (metadata)."""
+    """Atomically write ``{path}.npz`` (arrays) and ``{path}.json`` (metadata).
+
+    The metadata also goes into the ``.npz`` as the uint8 array
+    ``meta_json``, so the arrays and their metadata land in one rename: a
+    kill between the two renames leaves a new ``.npz`` beside an old
+    ``.json``, and :func:`load_checkpoint` still pairs the arrays with their
+    own metadata.
+    """
+    text = json.dumps(meta, indent=1).encode()
     np_arrays = {k: np.asarray(v) for k, v in arrays.items()}
+    np_arrays[META_ARRAY] = np.frombuffer(text, dtype=np.uint8)
     tmps = []
     try:
         tmps.append(_write_tmp(path + ".npz", lambda f: np.savez(f, **np_arrays)))
-        tmps.append(_write_tmp(
-            path + ".json", lambda f: f.write(json.dumps(meta, indent=1).encode())))
+        tmps.append(_write_tmp(path + ".json", lambda f: f.write(text)))
         os.replace(tmps[0], path + ".npz")
         os.replace(tmps[1], path + ".json")
     finally:
@@ -75,8 +90,14 @@ def save_checkpoint(path: str, arrays: Dict[str, Any], meta: Dict[str, Any]) -> 
 
 
 def load_checkpoint(path: str) -> Tuple[Dict[str, np.ndarray], Dict[str, Any]]:
+    """The arrays and metadata of a checkpoint.  The metadata is the copy
+    inside the ``.npz`` where there is one; a checkpoint that the JAX package
+    wrote has none, and its metadata comes from the ``.json``."""
     with np.load(path + ".npz") as z:
         arrays = {k: z[k] for k in z.files}
+    text = arrays.pop(META_ARRAY, None)
+    if text is not None:
+        return arrays, json.loads(text.tobytes().decode())
     with open(path + ".json") as f:
         meta = json.load(f)
     return arrays, meta
@@ -91,15 +112,15 @@ def _model_kind(model) -> str:
     kind = type(model).__name__
     if kind in _NOT_PORTED:
         raise NotImplementedError(
-            f"{kind} is not ported yet ({_NOT_PORTED[kind]}); only LabeledLDA, "
-            f"LocalLDA and CascadeLDA checkpoints are")
-    if kind not in ("LabeledLDA", "LocalLDA", "CascadeLDA"):
+            f"{kind} is not ported yet ({_NOT_PORTED[kind]}); only "
+            f"{', '.join(_KINDS)} checkpoints are")
+    if kind not in _KINDS:
         raise TypeError(f"unknown model kind: {kind}")
     return kind
 
 
 def save_model(path: str, model, extra_meta: Dict[str, Any] = None) -> None:
-    """Snapshot a LabeledLDA / LocalLDA / CascadeLDA training state.
+    """Snapshot a LabeledLDA / LocalLDA / CascadeLDA / HSLDA training state.
 
     ``extra_meta`` lets callers record run-level progress (e.g. the CLI's
     ``iters_done``) alongside the model state.
@@ -138,10 +159,23 @@ def save_model(path: str, model, extra_meta: Dict[str, Any] = None) -> None:
             from ..ops.gibbs_fused import SAMPLER_FORMULA_VERSION
 
             meta["sampler_formula"] = SAMPLER_FORMULA_VERSION
-    else:
+    elif kind == "CascadeLDA":
         arrays.update(ph=model.ph)
         meta.update(alpha=model.alpha, beta=model.beta, K=model.K, V=model.V,
                     D=model.D, labelmap=model.labelmap)
+    else:
+        c = model.counts
+        arrays.update(z=c.z.cpu().numpy(), n_dk=c.n_dk.cpu().numpy(),
+                      n_vk=c.n_vk.cpu().numpy(), n_k=c.n_k.cpu().numpy(),
+                      eta=model.eta.cpu().numpy(), a=model.a.cpu().numpy(),
+                      beta_vec=model.beta.cpu().numpy())
+        if model.ph is not None:
+            arrays.update(ph=model.ph, th=model.th)
+        meta.update(K=model.K, L=model.L, V=model.V, D=model.D,
+                    alpha=model.alpha, aprime=model.aprime, gamma=model.gamma,
+                    mu=model.mu, sigma=model.sigma, xi=model.xi,
+                    avg_s=int(model._avg_s), cycles_done=int(model._cycles_done),
+                    labelmap=model.labelmap, token2id=model.w_to_v)
     save_checkpoint(path, arrays, meta)
 
 
@@ -160,7 +194,11 @@ def restore_model(path: str, model) -> Dict[str, Any]:
     checkpoint metadata (including any ``extra_meta`` recorded at save time,
     e.g. ``iters_done``).
     """
-    from ..convert import labeled_lda_state_from_numpy, local_lda_state_from_numpy
+    from ..convert import (
+        hslda_state_from_numpy,
+        labeled_lda_state_from_numpy,
+        local_lda_state_from_numpy,
+    )
 
     kind = _model_kind(model)
     arrays, meta = load_checkpoint(path)
@@ -211,8 +249,12 @@ def restore_model(path: str, model) -> Dict[str, Any]:
             if got is None or int(got) != SAMPLER_FORMULA_VERSION:
                 _stream_warning(f"with fused sampler formula v{got}, current is "
                                 f"v{SAMPLER_FORMULA_VERSION}")
-    else:
+    elif kind == "CascadeLDA":
         model.ph = np.array(arrays["ph"], dtype=np.float32)
+    else:
+        hslda_state_from_numpy(arrays, model)
+        model._avg_s = int(meta.get("avg_s", 0))
+        model._cycles_done = int(meta.get("cycles_done", 0))
 
     if from_jax:
         # a JAX key has no torch counterpart: the constructor's generator

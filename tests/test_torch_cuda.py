@@ -371,3 +371,34 @@ def test_local_lda_sweeps_on_card_equal_cpu(sweep, K):
     assert all(_same_bits(a, b) for a, b in zip(*ends))
     n_vk, n_k = ends[0][-2:]
     assert torch.equal(n_k, n_vk.sum(0)) and float(n_vk.sum()) == card.n_tokens
+
+
+HSLDA_FORMS = ["opt1", "opt2-sparse", "opt3"]  # the model's three couplings
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", HSLDA_FORMS)
+def test_hslda_replayed_cycles_equal_eager(form):
+    """Three HSLDA cycles through the model's graphed sweep (eager, capture,
+    replay) against three eager cycles from the same seed: z, the counts,
+    η, a and β bitwise equal."""
+    _needs_card()
+    opt, _ = chip_smoke.HSLDA_FORMS[form]
+    docs, labs, labelset = chip_smoke.hslda_small_problem(0)
+    r = chip_smoke.hslda_replay_case("cuda", docs, labs, labelset, 0, opt, 3,
+                                     chip_smoke.HSLDA_SMALL_K)
+    torch.cuda.synchronize()
+    assert r["model"].z_sweep(opt)._graph is not None
+    assert all(_same_bits(g, w) for g, w in zip(r["graphed"], r["eager"]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", list(chip_smoke.HSLDA_FORMS))
+def test_hslda_cycle_on_card_equals_cpu(form):
+    """One HSLDA cycle of every coupling form on the card against the CPU,
+    from one state and one set of draws."""
+    _needs_card()
+    out = chip_smoke.hslda_cycle_case("cuda", 0, form)
+    assert float((out["cuda"][0] == out["cpu"][0]).to(torch.float32).mean()) >= 0.99
+    for got, want in zip(out["cuda"][4:], out["cpu"][4:]):
+        assert float((got - want).abs().max()) <= chip_smoke.HSLDA_TOL

@@ -61,3 +61,10 @@ def test_source_imports_no_jax(path):
             continue
         bad = [n for n in names if _forbidden(n)]
         assert not bad, f"{path.name}:{node.lineno} imports {bad}"
+
+
+def test_hslda_modules_are_scanned():
+    """HSLDA's modules are among those imported and scanned above."""
+    names = _modules()
+    for mod in ("ops.hslda_gibbs", "models.hslda", "cli.evaluate_hslda"):
+        assert f"lda_thesis_tpu_torch.{mod}" in names
