@@ -79,7 +79,32 @@ made from ``--seed``.  Phases:
     --opt 1`` with the default test (AUC > 0.6), a run of it killed by
     SIGKILL after its first checkpoint and resumed in a fresh process (every
     array and metric line equal), and ``--opt 2`` / ``--opt 3`` at ``-i 5``;
-13. one JSON line of kernel records, the card's line, and the result line.
+13. multi-device (``parallel/``): (a) four chains in one kernel-1 launch
+    at full width against four single-chain launches with the same
+    uniforms, bitwise, the counters reading 1 against 4, and the launch's
+    own inputs through the plain version on the card, bitwise; (b)
+    ``DistributedLabeledLDA`` over an explicit NCCL group of one rank, eight
+    chains batched, ``run_training(50, 25, total_iters=2000)``: each chain's
+    count invariants, kernel-1 launches equal to merge blocks × buckets (not
+    × chains), the pooled fold-in's AUC and ``mc_error() > 0``; then
+    chain-sweeps/s, tokens/s and the device's busy share at 1, 2, 4, 8 and
+    16 chains, and at 8 chains with 4 buckets, each timed model's count
+    invariants after its calls, and the 16-chain launch (66,736 documents)
+    against single-chain launches and the plain version as in (a); (c)
+    dense AD-LDA, two chains, (10; 5): replayed sweeps equal eager ones
+    bitwise, kernel-2 draws and commits as planned, and one step on the
+    card equals the same step on the CPU (kernel 2's plain version),
+    bitwise; (d) spawned ranks on the one card over gloo with
+    CUDA tensors on the full corpus at (10; 5): (1, 2) fused and dense,
+    (2, 2) replicated against (2, 2) vocab-sharded (z and tables bitwise
+    equal), every merge leaving the data row's replicas identical, the
+    global count invariants; (e) the CLI: ``--n-chains 8`` at (200; 25)
+    with an AUC gate, ``--n-data 2 --table-shard vocab`` under ``python -m
+    torch.distributed.run --nproc-per-node 2`` with gloo, and a run at
+    ``--n-chains 4 --save-every 25`` killed by SIGKILL after its first
+    checkpoint and resumed in a fresh process (its shard's arrays and the
+    metric lines equal the uninterrupted run's); one ``multi_device`` line;
+14. one JSON line of kernel records, the card's line, and the result line.
 
 Every check raises; the script exits non-zero without a CUDA device.
 """
@@ -2036,6 +2061,427 @@ def hslda_phase(seed: int) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------- multi-device
+
+MD_CHAINS = (1, 2, 4, 8, 16)  # chains batched on the card, timed
+MD_SHORT = (10, 5)  # (iters, thinning) of the dense and spawned-rank runs
+MD_CLI = (200, 25)
+MD_CLI_SHORT = (50, 25)  # the torchrun and kill-and-resume CLI runs
+MD_TIMED_CALLS = 3
+
+
+def _recorded(fn):
+    """``fn()`` with every merge-block kernel call of ``ops.gibbs_fused``
+    recorded: returns ``fn``'s result and the ``(inputs, outputs)`` of each
+    call."""
+    from lda_thesis_tpu_torch.ops import gibbs_fused
+
+    calls, real = [], gibbs_fused.fused_block
+
+    def record(*args):
+        out = real(*args)
+        calls.append((args, out))
+        return out
+
+    gibbs_fused.fused_block = record
+    try:
+        return fn(), calls
+    finally:
+        gibbs_fused.fused_block = real
+
+
+def chains_batch_case(model, M: int) -> dict:
+    """The distributed trainer's merge block for ``model``'s C local chains
+    (``fused_train_block`` over the chain axis: one kernel-1 launch, the
+    chains side by side on the document axis) against C single-chain calls
+    with the same uniforms: z, n_dk, the tables and their totals bitwise
+    equal; the counters read 1 and C.  The batched launch's own inputs
+    (C·D documents) go through the plain version on the card, which must
+    give the kernel's z and n_dk bitwise.  Also the device time of each
+    (CUDA events)."""
+    import torch
+
+    from lda_thesis_tpu_torch.ops import fused_block_cuda as fbc
+    from lda_thesis_tpu_torch.ops.gibbs_fused import (
+        FusedLDAState,
+        block_uniforms,
+        fused_train_block,
+    )
+
+    st, c = model.state, model.corpus
+    U, D_s = c.tok_v_t.shape
+    C = st.z.shape[0]
+    vbeta = float(model.V * model.beta)
+    u = block_uniforms((C, M, U, D_s), c.tok_v_t, generator=model._gens)
+    args = (c.tok_v_t, c.tok_f_t, c.lab_ids, c.lab_valid_t, model.alpha, model.beta, M)
+
+    def batched():
+        return fused_train_block(FusedLDAState(st.z, st.n_dk, st.n_vk, st.n_k), *args,
+                                 uniforms=u, vbeta=vbeta)
+
+    def singles():
+        return [fused_train_block(FusedLDAState(st.z[j], st.n_dk[j], st.n_vk[j], st.n_k[j]),
+                                  *args, uniforms=u[j], vbeta=vbeta)
+                for j in range(C)]
+
+    before = fbc.launches
+    out, calls = _recorded(batched)
+    torch.cuda.synchronize()
+    n_batched = fbc.launches - before
+    one = singles()
+    n_single = fbc.launches - before - n_batched
+    fbc.launches = before  # comparison launches do not count
+    for j, s1 in enumerate(one):
+        _check(_bitwise([out.z[j], out.n_dk[j], out.n_vk[j], out.n_k[j]],
+                        [s1.z, s1.n_dk, s1.n_vk, s1.n_k]),
+               f"chain {j} of the batched launch equals its single-chain launch bitwise")
+    _check(n_batched == 1 and n_single == C and len(calls) == 1,
+           f"kernel-1 launches: {n_batched} batched against {n_single} single-chain")
+    (inputs, got), = calls
+    _check(inputs[0].shape[0] == C * D_s, f"the batched launch holds {C} x {D_s} documents")
+    t0 = time.perf_counter()
+    want = fbc.fused_block_torch(*inputs)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    _check(_bitwise(list(got), list(want)),
+           f"the batched launch ({C * D_s} documents, M = {M}) equals the plain version on "
+           f"its inputs, bitwise")
+    del calls, inputs, got, want
+    before = fbc.launches
+    batched_ms = _median_ms(batched, 3)
+    single_ms = _median_ms(singles, 3)
+    fbc.launches = before
+    return dict(chains=C, docs_per_launch=C * D_s, U=U, A=c.lab_ids.shape[1], M=M,
+                launches_batched=n_batched, launches_single=n_single,
+                batched_ms=batched_ms, single_ms=single_ms, plain_s=plain_s)
+
+
+def _md_model(corpus, dicti, seed: int, mesh, n_chains: int, **kw):
+    from lda_thesis_tpu_torch.parallel import DistributedLabeledLDA
+
+    return DistributedLabeledLDA(corpus.train_docs, corpus.train_labs, corpus.labelset,
+                                 dicti, alpha=0.1, beta=0.01, mesh=mesh, n_chains=n_chains,
+                                 seed=seed, **kw)
+
+
+def md_timing(model, card: str) -> dict:
+    """(50; 25) calls of a distributed model: ``MD_TIMED_CALLS`` on the host
+    clock (each ending in a synchronize; median), one under torch.profiler
+    for the device's busy time and idle share."""
+    import torch
+
+    def train():
+        model.run_training(TRAIN_ITERS, THINNING, total_iters=TOTAL_ITERS)
+        torch.cuda.synchronize()
+
+    train()  # warm
+    walls = []
+    for _ in range(MD_TIMED_CALLS):
+        t0 = time.perf_counter()
+        train()
+        walls.append(time.perf_counter() - t0)
+    wall = float(np.median(walls))
+    prof = _profile(train)
+    C = model.n_chains
+    return dict(card=card, chains=C, n_buckets=model.n_buckets, wall_s=wall, walls_s=walls,
+                chain_sweeps_per_s=C * TRAIN_ITERS / wall,
+                tokens_per_s=C * model.n_tokens * TRAIN_ITERS / wall,
+                profiled_wall_ms=prof["wall_ms"], device_busy_ms=prof["busy_ms"],
+                device_busy_share=prof["busy_ms"] / prof["wall_ms"],
+                device_idle_share=prof["idle_share"],
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+
+def md_dense_case(corpus, dicti, seed: int, mesh) -> dict:
+    """Dense AD-LDA, two chains, (10; 5): a run whose sweeps replay CUDA
+    graphs against one whose sweeps all run eagerly, bitwise; kernel-2
+    draws and commits as planned."""
+    import torch
+
+    from lda_thesis_tpu_torch.ops import draw_update_cuda as duc
+
+    iters, thinning = MD_SHORT
+    graphed = _md_model(corpus, dicti, seed, mesh, 2, sweep="dense")
+    eager = _md_model(corpus, dicti, seed, mesh, 2, sweep="dense")
+    eager._loop = eager._make_loop()
+    eager._loop._bind(eager.state, eager.corpus)
+    for run in eager._loop._runners:
+        run._graphed = False
+    duc.launches = duc.commit_launches = 0
+    t0 = time.perf_counter()
+    graphed.run_training(iters, thinning)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = (duc.launches, duc.commit_launches)
+    eager.run_training(iters, thinning)
+    duc.launches, duc.commit_launches = launches
+    _check(all(r._graph is not None for r in graphed._loop._runners),
+           "dense: each chain's sweep was captured as a CUDA graph")
+    _check(_bitwise([getattr(graphed.state, f) for f in ("z", "n_dk", "n_vk", "n_k",
+                                                          "ph_hat", "th_hat")],
+                    [getattr(eager.state, f) for f in ("z", "n_dk", "n_vk", "n_k",
+                                                        "ph_hat", "th_hat")]),
+           "dense AD-LDA: replayed sweeps equal eager ones bitwise")
+    draws, commits = planned_sweep_launches(graphed.corpus.tok_f.T.to(torch.float32))
+    planned = (iters * 2 * draws, iters * 2 * commits)
+    _check(launches == planned, f"dense AD-LDA launches {launches} == planned {planned}")
+
+    # one step of both chains on the card (kernel 2) against the same step on
+    # the CPU (its plain version), from the trained state with the same uniforms
+    from lda_thesis_tpu_torch.parallel import make_mesh
+    from lda_thesis_tpu_torch.parallel.sharded import make_sharded_train_step
+
+    st, c = graphed.state, graphed.corpus
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed + 13)
+    u = torch.rand((2,) + tuple(c.tok_v.T.shape), generator=gen, device=DEVICE)
+    on_card = make_sharded_train_step(mesh, 2, graphed.alpha, graphed.beta)(
+        st, c, False, uniforms=list(u))
+    t0 = time.perf_counter()
+    on_cpu = make_sharded_train_step(make_mesh(device="cpu"), 2, graphed.alpha, graphed.beta)(
+        st._replace(**{f: getattr(st, f).cpu() for f in ("z", "n_dk", "n_vk", "n_k",
+                                                         "ph_hat", "th_hat")}),
+        type(c)(*(t.cpu() for t in c)), False, uniforms=list(u.cpu()))
+    cpu_s = time.perf_counter() - t0
+    duc.launches, duc.commit_launches = launches  # comparison launches do not count
+    fields = ("z", "n_dk", "n_vk", "n_k")
+    _check(_bitwise([getattr(on_card, f).cpu() for f in fields],
+                    [getattr(on_cpu, f) for f in fields]),
+           "dense AD-LDA: a step on the card equals the same step on the CPU, bitwise")
+    return dict(launches=launches[0], commit_launches=launches[1], planned=list(planned),
+                wall_s=wall, tokens_per_s=2 * graphed.n_tokens * iters / wall,
+                cpu_step_s=cpu_s)
+
+
+def md_ranks(corpus, dicti, seed: int) -> dict:
+    """Spawned ranks on the one card over gloo with CUDA tensors, the full
+    corpus at (10; 5): (1, 2) fused and dense; (2, 2) replicated against
+    (2, 2) vocab-sharded, four chains."""
+    from lda_thesis_tpu_torch.parallel.launch import spawn
+
+    base = dict(docs=corpus.train_docs, labs=corpus.train_labs, labelset=corpus.labelset,
+                device=DEVICE, steps=[MD_SHORT + (None,)], estimators=False)
+    kw = dict(alpha=0.1, beta=0.01, seed=seed)
+    jobs = "lda_thesis_tpu_torch.parallel.jobs:multi_job"
+    t0 = time.perf_counter()
+    two = spawn(jobs, 2, {"jobs": [
+        ("train_job", dict(base, mesh=(1, 2), kw=dict(kw, n_chains=1))),
+        ("train_job", dict(base, mesh=(1, 2), kw=dict(kw, n_chains=1, sweep="dense")))]},
+        backend="gloo", device=DEVICE, timeout=400)
+    two_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    four = spawn(jobs, 4, {"jobs": [
+        ("train_job", dict(base, mesh=(2, 2), kw=dict(kw, n_chains=4))),
+        ("train_job", dict(base, mesh=(2, 2), kw=dict(kw, n_chains=4, table_shard="vocab")))]},
+        backend="gloo", device=DEVICE, timeout=400)
+    four_s = time.perf_counter() - t0
+    runs = {"fused_1x2": [r[0] for r in two], "dense_1x2": [r[1] for r in two],
+            "replicated_2x2": [r[0] for r in four], "vocab_2x2": [r[1] for r in four]}
+    for name, res in runs.items():
+        for r in res:
+            _check(r["backend"] == "gloo" and r["device"].startswith(DEVICE),
+                   f"{name}: rank {r['rank']} ran gloo with CUDA tensors ({r['backend']}, "
+                   f"{r['device']})")
+            _check(r["merges_checked"] == MD_SHORT[0] and r["invariants"]["ok"],
+                   f"{name}: rank {r['rank']}: every merge left identical replicas "
+                   f"({r['merges_checked']}) and the global counts hold {r['invariants']}")
+    rep, voc = runs["replicated_2x2"], runs["vocab_2x2"]
+    for a, b in zip(rep, voc):
+        for f in ("z", "n_dk", "n_k"):
+            _check(np.array_equal(a["state"][f], b["state"][f]),
+                   f"vocab-sharded {f} equals replicated, rank {a['rank']}")
+    V = rep[0]["state"]["n_vk"].shape[1]
+    for ci in range(2):
+        table = np.concatenate([voc[ci * 2 + di]["state"]["n_vk"] for di in range(2)], axis=1)
+        _check(np.array_equal(table[:, :V], rep[ci * 2]["state"]["n_vk"]),
+               f"chain row {ci}: the vocab-sharded tables equal the replicated ones")
+    out = {name: dict(seconds=[r["seconds"] for r in res], launches=res[0]["launches"],
+                      draw_launches=res[0]["draw_launches"],
+                      merges_checked=res[0]["merges_checked"])
+           for name, res in runs.items()}
+    out.update(spawn_2_ranks_s=two_s, spawn_4_ranks_s=four_s)
+    return out
+
+
+def md_cli(corpus, tmp: str) -> dict:
+    """The CLI's multi-device flags: ``--n-chains 8`` in this process,
+    ``--n-data 2 --table-shard vocab`` under ``torch.distributed.run`` with
+    gloo, and a ``--n-chains 4`` run killed after its first checkpoint and
+    resumed in a fresh process."""
+    from lda_thesis_tpu_torch.cli import evaluate_labeled_lda
+    from lda_thesis_tpu_torch.ops import fused_block_cuda as fbc
+    from lda_thesis_tpu_torch.parallel.launch import free_port
+    from lda_thesis_tpu_torch.utils.checkpoint import load_checkpoint
+
+    csv_path = os.path.join(tmp, "planted.csv")
+    write_corpus_csv(csv_path, corpus)
+    flags = ["-f", csv_path, "-d", "3", "--seed", "0", "--device", DEVICE]
+    it, s = MD_CLI
+    fbc.launches = 0
+    res, text = _cli(evaluate_labeled_lda.main,
+                     flags + ["-i", str(it), "-s", str(s), "--n-chains", "8"])
+    launches = fbc.launches
+    m = res["model"]
+    _check(m.n_chains == 8 and tuple(m.state.z.shape[:1]) == (8,),
+           "CLI --n-chains 8: eight chains batched on the card")
+    _check(launches == it // 25, f"CLI --n-chains 8: {it // 25} kernel-1 launches ({launches})")
+    _check(res["metrics"]["auc_roc"] > MIN_AUC,
+           f"CLI --n-chains 8 AUC {res['metrics']['auc_roc']} > {MIN_AUC}")
+    out = dict(n_chains_launches=launches, n_chains_auc=res["metrics"]["auc_roc"],
+               n_chains_wall_s=_steps(res), n_chains_tokens_per_s=res["tokens_per_s"])
+    del res, m
+
+    it, s = MD_CLI_SHORT
+    short = flags + ["-i", str(it), "-s", str(s)]
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", "2",
+         "--master-port", str(free_port()), "-m", "lda_thesis_tpu_torch.cli.evaluate_labeled_lda",
+         *short, "--n-data", "2", "--table-shard", "vocab", "--dist-backend", "gloo"],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    out["torchrun_s"] = time.perf_counter() - t0
+    _check(run.returncode == 0, f"torchrun --n-data 2 --table-shard vocab succeeded: "
+           f"{run.stdout[-2000:]}{run.stderr[-2000:]}")
+    both = run.stdout + run.stderr
+    _check(both.count("torch.distributed: gloo backend") == 2,
+           "torchrun: both ranks printed the gloo backend they ran")
+    aucs = [float(x) for x in re.findall(r"AUC ROC:\s+([0-9.]+)", run.stdout)]
+    _check(len(aucs) == 1 and aucs[0] > MIN_AUC,
+           f"torchrun: rank 0 alone printed metrics, AUC {aucs} > {MIN_AUC}")
+    out["torchrun_auc"] = aucs[0]
+
+    ck_a, ck_b = os.path.join(tmp, "MA"), os.path.join(tmp, "MB")
+    every = ["--n-chains", "4", "--save-every", str(s)]
+    _, text = _cli(evaluate_labeled_lda.main, short + ["--checkpoint", ck_a] + every)
+    want = METRIC_LINES.findall(text)
+    done, rc = _kill_after_first_checkpoint(short + ["--checkpoint", ck_b] + every, ck_b,
+                                            os.path.join(tmp, "MB.log"))
+    _check(done == s and rc == -signal.SIGKILL,
+           f"the --n-chains 4 run was killed by SIGKILL at its first checkpoint ({done}, rc {rc})")
+    resumed = subprocess.run(_cli_module(short + ["--checkpoint", ck_b, "--resume"] + every),
+                             cwd=ROOT, capture_output=True, text=True, timeout=600)
+    _check(resumed.returncode == 0 and f"resumed from {ck_b} at iteration {s}" in resumed.stdout,
+           f"the --n-chains 4 run resumed: {resumed.stdout[-2000:]}{resumed.stderr[-2000:]}")
+    got = METRIC_LINES.findall(resumed.stdout)
+    _check(len(want) == 4 and got == want,
+           f"the resumed --n-chains 4 run prints the uninterrupted run's metrics: {got} != {want}")
+    (a, _), (b, _) = (load_checkpoint(f"{ck}.it{it}.rank0") for ck in (ck_a, ck_b))
+    (ma, _), (mb, meta_b) = load_checkpoint(ck_a), load_checkpoint(ck_b)
+    _check(meta_b["iters_done"] == it and _same_arrays(a, b) and _same_arrays(ma, mb),
+           "the killed-and-resumed run's shard and marker equal the uninterrupted run's")
+    out.update(kill_resume_arrays=len(a) + len(ma), killed_at=done)
+    print(f"  CLI: --n-chains 8 (200; 25) {launches} launches, AUC {out['n_chains_auc']:.4f}; "
+          f"torchrun --n-data 2 --table-shard vocab AUC {aucs[0]:.4f} "
+          f"({out['torchrun_s']:.1f} s); --n-chains 4 killed at {done} and resumed: "
+          f"{len(a)} shard arrays, {len(ma)} marker arrays and 4 metric lines equal")
+    return out
+
+
+def multi_device_phase(seed: int, card: str) -> dict:
+    """Phase 13; the kernel counters are set to 0 just before the trainer's
+    main run (13b) and read just after."""
+    import torch
+
+    from lda_thesis_tpu_torch.data.synthetic import planted_corpus
+    from lda_thesis_tpu_torch.data.vocab import prune_dict
+    from lda_thesis_tpu_torch.ops import draw_update_cuda as duc
+    from lda_thesis_tpu_torch.ops import fused_block_cuda as fbc
+    from lda_thesis_tpu_torch.parallel import initialize_distributed, make_mesh
+    from lda_thesis_tpu_torch.parallel.bootstrap import shutdown
+    from lda_thesis_tpu_torch.parallel.jobs import count_invariants
+    from lda_thesis_tpu_torch.parallel.launch import free_port
+
+    corpus = planted_corpus(seed)
+    dicti = prune_dict(corpus.train_docs, lower=0, upper=1)
+    rec = {"card": card}
+
+    # (a) chains in kernel 1
+    mesh1 = make_mesh(device=DEVICE)
+    probe = _md_model(corpus, dicti, seed, mesh1, 4)
+    rec["batch"] = chains_batch_case(probe, 25)
+    del probe
+    b = rec["batch"]
+    print(f"13a: {b['chains']} chains x {b['docs_per_launch'] // b['chains']} documents in "
+          f"one launch (U={b['U']}, A={b['A']}, M={b['M']}) bitwise equal to "
+          f"{b['launches_single']} single-chain launches and to the plain version; block {b['batched_ms']:.3f} ms "
+          f"batched against {b['single_ms']:.3f} ms single-chain ({card})")
+
+    # (b) the trainer over an explicit NCCL group of one rank
+    initialize_distributed(init_method=f"tcp://localhost:{free_port()}", world_size=1,
+                           rank=0, backend="nccl", device=DEVICE)
+    _check(torch.distributed.get_backend() == "nccl", "13b runs over an NCCL group")
+    mesh = make_mesh(n_data=1, n_chains=1, device=DEVICE)
+    model = _md_model(corpus, dicti, seed, mesh, 8)
+    fbc.launches = duc.launches = duc.commit_launches = 0
+    t0 = time.perf_counter()
+    model.run_training(TRAIN_ITERS, THINNING, total_iters=TOTAL_ITERS)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = fbc.launches
+    _check(duc.launches == duc.commit_launches == 0, "the fused trainer launches no kernel 2")
+    blocks = TRAIN_ITERS // model._merge_M
+    _check(launches == blocks * model.n_buckets,
+           f"kernel-1 launches {launches} == merge blocks {blocks} x buckets "
+           f"{model.n_buckets}, not x {model.n_chains} chains")
+    inv = count_invariants(model)
+    _check(inv["ok"], f"every chain's count invariants hold: {inv}")
+    th = model.run_test(corpus.test_docs, 25, 25)
+    metrics = _auc(th, corpus.test_labs, model.labelmap)
+    _check(metrics["auc_roc"] > MIN_AUC, f"pooled AUC {metrics['auc_roc']} > {MIN_AUC}")
+    mc = model.mc_error()
+    _check(mc > 0, f"mc_error() {mc} > 0")
+    rec["trainer"] = dict(chains=8, launches=launches, merge_M=model._merge_M,
+                          train_s=train_s, auc_roc=metrics["auc_roc"], mc_error=mc)
+    print(f"13b: 8 chains over NCCL, (50; 25): {launches} kernel-1 launches, {train_s:.3f} s, "
+          f"pooled AUC {metrics['auc_roc']:.4f}, mc_error {mc:.3e}")
+    timing = []
+    for C in MD_CHAINS:
+        m = model if C == 8 else _md_model(corpus, dicti, seed, mesh, C)
+        torch.cuda.reset_peak_memory_stats()
+        timing.append(md_timing(m, card))
+        inv = count_invariants(m)
+        _check(inv["ok"], f"C = {C}: every chain's count invariants hold after the timed "
+                          f"calls: {inv}")
+        if C == MD_CHAINS[-1]:
+            # the widest launch of the path, from its trained state
+            rec["batch_widest"] = chains_batch_case(m, 25)
+        del m
+        torch.cuda.empty_cache()
+    del model
+    buckets = _md_model(corpus, dicti, seed, mesh, 8, n_buckets=4)
+    timing.append(md_timing(buckets, card))
+    inv = count_invariants(buckets)
+    _check(inv["ok"], f"C = 8, 4 buckets: the count invariants hold after the timed calls: "
+                      f"{inv}")
+    del buckets
+    torch.cuda.empty_cache()
+    for t in timing:
+        print(f"  C={t['chains']:2d} buckets={t['n_buckets']}: {t['chain_sweeps_per_s']:9.1f} "
+              f"chain-sweeps/s, {t['tokens_per_s']:.4g} tokens/s, busy "
+              f"{t['device_busy_share']:.4f} of {t['profiled_wall_ms']:.2f} ms, peak "
+              f"{t['peak_mem_gb']:.2f} GB")
+    rec["timing"] = timing
+    w = rec["batch_widest"]
+    print(f"13b: {w['chains']} chains x {w['docs_per_launch'] // w['chains']} documents in one "
+          f"launch (M={w['M']}) bitwise equal to {w['launches_single']} single-chain launches "
+          f"and to the plain version ({w['plain_s']:.2f} s); every timed model's count "
+          f"invariants hold")
+
+    # (c) dense AD-LDA, replayed against eager
+    rec["dense"] = md_dense_case(corpus, dicti, seed, mesh)
+    shutdown()
+    print(f"13c: dense AD-LDA, 2 chains, (10; 5): replay == eager bitwise; "
+          f"{rec['dense']['launches']} draws, {rec['dense']['commit_launches']} commits; "
+          f"one step on the card == on the CPU bitwise")
+
+    # (d) several ranks on the one card over gloo; (e) the CLI
+    rec["ranks"] = md_ranks(corpus, dicti, seed)
+    print(f"13d: ranks over gloo on the card: {json.dumps(rec['ranks'])}")
+    with tempfile.TemporaryDirectory() as tmp:
+        rec["cli"] = md_cli(corpus, tmp)
+    return rec
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2141,7 +2587,12 @@ def main(argv=None) -> int:
     hslda = hslda_phase(args.seed)
     phase_done("HSLDA")
 
-    # 13. records
+    # 13. multi-device: chains batched in kernel 1, the distributed trainer,
+    # ranks over gloo on the one card, the CLI's multi-device flags
+    md = multi_device_phase(args.seed, card)
+    phase_done("multi-device")
+
+    # 14. records
     kernels = [{
         "name": "fused_block",
         "route": "cuda",
@@ -2193,6 +2644,10 @@ def main(argv=None) -> int:
                              "(streamed); device time from CUDA events around 10 "
                              "back-to-back launches",
         "local_lda": local,
+        "launches_multi_device": md["trainer"]["launches"],
+        "launches_multi_device_cli_n_chains_8": md["cli"]["n_chains_launches"],
+        "multi_device_batched_ms": md["batch"]["batched_ms"],
+        "multi_device_single_chain_ms": md["batch"]["single_ms"],
     }, {
         "name": "draw_update",
         "route": "cuda",
@@ -2241,6 +2696,7 @@ def main(argv=None) -> int:
         "cli_dense_auc_roc": product["dense"]["auc_roc"],
         "cli_cascade_auc_by_depth": product["cascade"]["aucs"],
         "cli_cascade_s": product["cascade"]["seconds"],
+        "launches_multi_device_dense": md["dense"]["launches"],
     }, {
         "name": "count_commit",
         "route": "cuda",
@@ -2259,10 +2715,12 @@ def main(argv=None) -> int:
                "bucket 0 position 1",
         "launches_cascade": cascade["commit_launches"],
         "cli_dense_launches": product["dense"]["commit_launches"],
+        "launches_multi_device_dense": md["dense"]["commit_launches"],
     }]
     print(json.dumps({"phase_seconds": seconds}))
     print(json.dumps({"vi": vi}))
     print(json.dumps({"hslda": hslda}))
+    print(json.dumps({"multi_device": md}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

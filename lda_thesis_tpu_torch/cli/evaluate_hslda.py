@@ -12,7 +12,8 @@ chunked training through utils/elastic (``--checkpoint PATH --save-every N
 --resume [--max-restarts R]``), the batch fold-in test and the ranking
 metrics with the root column dropped; a line of wall times by step follows.
 ``--n-chains`` or ``--n-data`` above 1 (the JAX package's sharded
-``DistributedHSLDA``) are refused with an error (ROADMAP.md Queue 1 item 9).
+``DistributedHSLDA``) are refused with an error (ROADMAP.md Queue 1 item 9b,
+the next slice).
 """
 
 from __future__ import annotations

@@ -14,9 +14,19 @@ utils/elastic (or, with ``--engine vi``, batch CAVI for ``-i`` iterations
 and a CAVI fold-in of as many), fold-in test, the reference's filtering and
 the metric block; a line of wall times by step follows it.
 
-Not ported yet, and refused with an error instead of running something
-else: multi-device training, ``--n-chains`` or ``--n-data`` above 1 and
-``--table-shard vocab`` (ROADMAP.md Queue 1 item 9).
+``--n-chains C`` trains C chains with the distributed trainer
+(``parallel/trainer.DistributedLabeledLDA``), batched on this process's
+device; ``--n-data S`` shards the documents over S ranks and
+``--table-shard vocab`` the topic-word table's vocabulary, under
+
+    python -m torch.distributed.run --nproc-per-node N -m \
+        lda_thesis_tpu_torch.cli.evaluate_labeled_lda ... --n-data S
+
+The mesh's chains axis is ``N // S``, lowered until it divides C, and must
+then fill the N ranks; the other chains run batched on each rank.
+``--dist-backend`` picks the process group's backend (``nccl`` on a card,
+``gloo`` on the CPU by default; several ranks on one card need ``gloo``).
+Only rank 0 prints the metrics and returns ``stats``.
 The JAX CLI's persistent XLA compile cache has no counterpart: the port's
 CUDA kernels are built once into ``lda_thesis_tpu_torch/_build/`` and
 reused by later runs.
@@ -85,12 +95,15 @@ def build_parser() -> argparse.ArgumentParser:
                    help="write a torch.profiler trace of training and the "
                         "fold-in test into DIR (utils/tracing.trace)")
     p.add_argument("--n-chains", type=int, default=1,
-                   help="independent Gibbs chains (not ported yet)")
+                   help="independent Gibbs chains (distributed trainer)")
     p.add_argument("--n-data", type=int, default=1,
-                   help="document shards over devices (not ported yet)")
+                   help="document shards over the ranks' data mesh axis")
     p.add_argument("--table-shard", choices=("replicated", "vocab"),
                    default="replicated",
-                   help="vocab: shard the topic-word table (not ported yet)")
+                   help="vocab: shard the topic-word table's V axis over the data "
+                        "mesh (per-rank state ~V*K/S). Requires --n-data > 1")
+    p.add_argument("--dist-backend", choices=("nccl", "gloo"), default=None,
+                   help="process-group backend (default: nccl on cuda, gloo on cpu)")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="device to train and test on")
     return p
@@ -113,17 +126,57 @@ def make_config(opt) -> RunConfig:
     )
 
 
-def check_supported(opt) -> None:
-    """Refuse, with ``SystemExit``, the options whose code is not ported yet,
-    and ``--device cuda`` where no card is visible (every CLI)."""
-    if (getattr(opt, "n_chains", 1) > 1 or getattr(opt, "n_data", 1) > 1
-            or getattr(opt, "table_shard", "replicated") == "vocab"):
-        raise SystemExit("--n-chains, --n-data and --table-shard vocab: multi-device "
-                         "training is not ported to PyTorch yet (ROADMAP.md Queue 1 "
-                         "item 9)")
+def check_device(opt) -> None:
+    """Refuse, with ``SystemExit``, ``--device cuda`` where no card is visible."""
     if getattr(opt, "device", "cuda") == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is visible; pass --device cpu "
                          "to run on the CPU")
+
+
+def check_supported(opt) -> None:
+    """Refuse, with ``SystemExit``, multi-device training of the models whose
+    distributed trainer is not ported yet (HSLDA: ROADMAP.md Queue 1 item
+    9b), and ``--device cuda`` where no card is visible."""
+    if getattr(opt, "n_chains", 1) > 1 or getattr(opt, "n_data", 1) > 1:
+        raise SystemExit("--n-chains and --n-data: this model's multi-device trainer is "
+                         "not ported to PyTorch yet (ROADMAP.md Queue 1 item 9b)")
+    check_device(opt)
+
+
+def _distributed_model(opt, train, dicti, g, rank_info):
+    """The mesh and a builder of the distributed trainer (``--n-chains``,
+    ``--n-data``, ``--table-shard``); ``rank_info`` receives the rank."""
+    from ..parallel import DistributedLabeledLDA, initialize_distributed, make_mesh
+    from ..parallel.bootstrap import world
+
+    if opt.sweep == "compact":
+        raise SystemExit("--sweep compact is single-device only")
+    if opt.pickle:
+        raise SystemExit("-p pickles a single-device model; the distributed trainer "
+                         "saves through --checkpoint")
+    initialize_distributed(backend=getattr(opt, "dist_backend", None), device=opt.device)
+    rank, size = world()
+    if size % opt.n_data:
+        raise SystemExit(f"--n-data {opt.n_data} does not divide {size} ranks (run "
+                         f"under python -m torch.distributed.run --nproc-per-node N)")
+    mesh_chains = size // opt.n_data
+    while opt.n_chains % mesh_chains:
+        mesh_chains -= 1
+    if mesh_chains * opt.n_data != size:
+        raise SystemExit(f"--n-chains {opt.n_chains} x --n-data {opt.n_data} cannot fill "
+                         f"{size} ranks: the chains axis of {size // opt.n_data} must "
+                         "divide --n-chains")
+    mesh = make_mesh(n_data=opt.n_data, n_chains=mesh_chains, device=opt.device)
+    rank_info["rank"] = rank
+
+    def make_model():
+        return DistributedLabeledLDA(
+            train.docs, train.labs, list(train.labelset), dicti, alpha=g.alpha,
+            beta=g.beta, mesh=mesh, n_chains=opt.n_chains, seed=g.seed, sweep=opt.sweep,
+            table_shard=getattr(opt, "table_shard", "replicated"),
+            n_buckets=getattr(opt, "n_buckets", None) or 1)
+
+    return make_model
 
 
 def _resumed_at(opt) -> int:
@@ -134,40 +187,54 @@ def _resumed_at(opt) -> int:
         return int(json.load(f).get("iters_done", 0))
 
 
-def _train_gibbs(cfg: RunConfig, opt, train, stats: dict = None):
+def _train_gibbs(cfg: RunConfig, opt, train, stats: dict = None, rank_info: dict = None):
     """Construct + train the model through the one chunked-training loop,
     utils/elastic.ElasticGibbs (kill the process mid-run, rerun with
     --resume, and the final state is bit-identical to the uninterrupted run;
     --max-restarts additionally absorbs in-process faults via
     elastic_train).  ``stats`` receives the seconds of pruning, of building
-    the model and of training, and the sweeps this call trained."""
+    the model and of training, and the sweeps this call trained;
+    ``rank_info`` the rank of a distributed run."""
     from ..data.vocab import prune_dict
     from ..models.labeled_lda import LabeledLDA
     from ..utils.elastic import ElasticGibbs, elastic_train
 
-    check_supported(opt)
+    check_device(opt)
     stats = {} if stats is None else stats
+    rank_info = {} if rank_info is None else rank_info
     g = cfg.gibbs
     t0 = time.perf_counter()
     dicti = prune_dict(train.docs, lower=cfg.lower, upper=cfg.upper)
     stats["prune_s"] = time.perf_counter() - t0
     stats["model_s"] = 0.0
 
-    bucket_kw = {}
-    if getattr(opt, "n_buckets", None):
-        bucket_kw["n_buckets"] = int(opt.n_buckets)
+    n_chains, n_data = getattr(opt, "n_chains", 1), getattr(opt, "n_data", 1)
+    if getattr(opt, "table_shard", "replicated") == "vocab" and n_data < 2:
+        raise SystemExit("--table-shard vocab requires --n-data > 1")
+    if n_chains > 1 or n_data > 1:
+        build = _distributed_model(opt, train, dicti, g, rank_info)
+        train_kw = {}
+    else:
+        bucket_kw = {}
+        if getattr(opt, "n_buckets", None):
+            bucket_kw["n_buckets"] = int(opt.n_buckets)
+
+        def build():
+            return LabeledLDA(
+                train.docs, train.labs, list(train.labelset), dicti,
+                alpha=g.alpha, beta=g.beta, seed=g.seed, sweep=opt.sweep,
+                device=getattr(opt, "device", "cuda"), **bucket_kw,
+            )
+
+        train_kw = {"perplexity": not opt.no_perplexity}
+    verbose = rank_info.get("rank", 0) == 0
 
     def make_model():
         t = time.perf_counter()
-        model = LabeledLDA(
-            train.docs, train.labs, list(train.labelset), dicti,
-            alpha=g.alpha, beta=g.beta, seed=g.seed, sweep=opt.sweep,
-            device=getattr(opt, "device", "cuda"), **bucket_kw,
-        )
+        model = build()
         stats["model_s"] += time.perf_counter() - t
         return model
 
-    train_kw = {"perplexity": not opt.no_perplexity}
     save_every = opt.save_every or g.iters
     if opt.checkpoint and opt.save_every and save_every % g.thinning:
         raise SystemExit("--save-every must be a multiple of -s (thinning)")
@@ -180,13 +247,14 @@ def _train_gibbs(cfg: RunConfig, opt, train, stats: dict = None):
             raise SystemExit("--max-restarts requires --checkpoint")
         model = elastic_train(
             make_model, g.iters, g.thinning, opt.checkpoint, save_every,
-            max_restarts=max_restarts, verbose=True,
+            max_restarts=max_restarts, verbose=verbose,
             resume_first=opt.resume, progress=progress, **train_kw,
         )
     else:
         eg = ElasticGibbs(make_model(), opt.checkpoint, resume=opt.resume,
-                          verbose=True)
-        eg.run(g.iters, g.thinning, save_every, progress=progress, **train_kw)
+                          verbose=verbose)
+        eg.run(g.iters, g.thinning, save_every, progress=progress if verbose else None,
+               **train_kw)
         model = eg.model
     stats["train_s"] = time.perf_counter() - t0 - stats["model_s"]
     return model
@@ -217,11 +285,25 @@ def _train_vi(cfg: RunConfig, opt, train, stats: dict):
 def main(argv=None) -> dict:
     """Run the CLI; returns the model, the metrics, ``stats`` (the wall
     seconds by step and the sweeps trained), the training rate and the
-    preprocessing pipeline that ran."""
-    from ..utils.tracing import annotate, trace
+    preprocessing pipeline that ran.  On a distributed run's ranks other
+    than 0 it prints nothing after training and returns the model alone."""
+    import torch.distributed as dist
 
     opt = build_parser().parse_args(argv)
-    check_supported(opt)
+    check_device(opt)
+    had_group = dist.is_available() and dist.is_initialized()
+    try:
+        return _main(opt)
+    finally:
+        if not had_group:
+            from ..parallel.bootstrap import shutdown
+
+            shutdown()
+
+
+def _main(opt) -> dict:
+    from ..utils.tracing import annotate, trace
+
     cfg = make_config(opt)  # applies the thinning == 0 -> iters rule
     g = cfg.gibbs
 
@@ -231,12 +313,17 @@ def main(argv=None) -> dict:
     stats = {"load_s": time.perf_counter() - t0}
 
     tracer = trace(opt.trace) if opt.trace else contextlib.nullcontext()
+    rank_info = {}
     print("Starting training...")
     with tracer:
         vi = opt.engine == "vi"
         with annotate("train"):
-            model = (_train_vi if vi else _train_gibbs)(cfg, opt, train, stats)
-        print("Testing test data...")
+            if vi:
+                model = _train_vi(cfg, opt, train, stats)
+            else:
+                model = _train_gibbs(cfg, opt, train, stats, rank_info)
+        if rank_info.get("rank", 0) == 0:
+            print("Testing test data...")
         t0 = time.perf_counter()
         with annotate("test"):
             if vi:
@@ -244,6 +331,8 @@ def main(argv=None) -> dict:
             else:
                 th = model.run_test(test.docs, cfg.test_iters, cfg.test_thinning)
         stats["test_s"] = time.perf_counter() - t0
+    if rank_info.get("rank", 0) != 0:
+        return dict(model=model)
     if opt.trace:
         print(f"device profile written to {opt.trace} "
               f"(view: tensorboard --logdir {opt.trace})")
@@ -256,7 +345,10 @@ def main(argv=None) -> dict:
 
     t0 = time.perf_counter()
     engine = "CAVI" if opt.engine == "vi" else "Gibbs"
-    print(f"Model:               Labeled LDA ({engine}, PyTorch, {model.device.type})")
+    mesh = getattr(model, "mesh", None)
+    where = model.device.type if mesh is None else (
+        f"{model.device.type}, {model.n_chains} chains, mesh {mesh.shape}")
+    print(f"Model:               Labeled LDA ({engine}, PyTorch, {where})")
     print("Corpus:             ", cfg.file)
     print("Label depth         ", cfg.depth)
     print("# of Gibbs samples: ", int(g.iters))

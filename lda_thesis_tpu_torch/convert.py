@@ -1,4 +1,4 @@
-"""Carry a trained Labeled-LDA, LocalLDA or HSLDA state from NumPy arrays into the port.
+"""Carry a trained Labeled-LDA, LocalLDA, HSLDA or distributed state from NumPy arrays into the port.
 
 The arrays are those that ``lda_thesis_tpu/utils/checkpoint.save_model``
 writes for a ``LabeledLDA`` or a ``LocalLDA``: per bucket ``z_{g}`` and
@@ -33,7 +33,7 @@ from .ops.gibbs import BucketLDAState, CompactBucketState
 from .ops.gibbs_fused import FusedBucketState
 
 __all__ = ["labeled_lda_state_from_numpy", "local_lda_state_from_numpy",
-           "hslda_state_from_numpy"]
+           "hslda_state_from_numpy", "sharded_state_from_numpy", "local_state_from_global"]
 
 
 def _taker(arrays, device):
@@ -129,3 +129,76 @@ def hslda_state_from_numpy(arrays: Mapping[str, np.ndarray], model) -> None:
         host = _taker(arrays, "cpu")
         model.ph = host("ph", (K, V), torch.float32).numpy()
         model.th = host("th", (D, K), torch.float32).numpy()
+
+
+# the axis of each distributed state array (counting the chain axis) that is
+# sharded over the data mesh: the documents', or the vocabulary rows' of a
+# vocab-sharded table
+DENSE_AXES = {"z": 1, "n_dk": 1, "th_hat": 1}
+FUSED_AXES = {"z": 2, "n_dk": 2, "th_hat": 1}
+VOCAB_AXES = dict(FUSED_AXES, n_vk=1, ph_hat=1)
+
+
+def sharded_state_from_numpy(arrays: Mapping[str, np.ndarray], model,
+                             meta: Optional[Mapping[str, Any]] = None) -> None:
+    """Load a JAX ``DistributedLabeledLDA``'s global arrays into this rank's
+    part of ``model`` (a port ``DistributedLabeledLDA``), on its device.
+
+    The arrays are those of JAX's ``ShardedLDAState`` (dense: ``z (C, D_p,
+    U)``, ``n_dk (C, D_p, K)``), ``FusedShardedState`` (``z (C, U, D_p)``,
+    ``n_dk (C, A, D_p)``), ``BucketedShardedState`` (``z_{g}``,
+    ``n_dk_{g}``, ``th_hat_{g}`` per bucket) or the vocab-sharded states
+    (``n_vk``/``ph_hat (C, V_p, K)``; the single-chain state has no chain
+    axis), with ``n_vk``, ``n_k``, ``ph_hat``, ``th_hat (C, D_p, K)`` and
+    ``s``.  This rank keeps its chains, its documents and, vocab-sharded,
+    its table rows.  Raises ``ValueError`` where the layout (``meta``'s
+    ``sweep``/``table_shard``) or a shape differs from the model's.
+    """
+    meta = meta or {}
+    for key, want in (("sweep", model.sweep), ("table_shard", model.table_shard)):
+        if key in meta and meta[key] != want:
+            raise ValueError(f"{key} mismatch: arrays are {meta[key]!r}, model {want!r}")
+    axes = (DENSE_AXES if model.sweep == "dense"
+            else VOCAB_AXES if model.table_shard == "vocab" else FUSED_AXES)
+    model.state = local_state_from_global(arrays, model.state, model.mesh,
+                                          model.n_chains, axes)
+
+
+def local_state_from_global(arrays: Mapping[str, np.ndarray], state, mesh, n_chains: int,
+                            axes: Mapping[str, Any]):
+    """A state of ``state``'s type and shapes holding this rank's part of the
+    global ``(C, …)`` arrays: its chains and, along the axis that ``axes``
+    names for a field, its slice of the data-sharded axis."""
+    from .parallel.sharded import local_chains
+
+    L, g0 = local_chains(mesh, n_chains)
+    di = mesh.coords[1]
+    fields = {"s": int(np.asarray(arrays.get("s", 0)))}
+    for name, value in state._asdict().items():
+        if name == "s":
+            continue
+        tuple_field = isinstance(value, tuple)
+        parts = []
+        for g, local in enumerate(value if tuple_field else (value,)):
+            key = f"{name}_{g}" if tuple_field else name
+            if key not in arrays:
+                raise ValueError(f"missing array {key!r}")
+            a = np.asarray(arrays[key])
+            if a.ndim == local.dim() - 1:  # JAX's single-chain vocab state
+                a = a[None]
+            if a.shape[0] != n_chains:
+                raise ValueError(f"{key} holds {a.shape[0]} chains, model {n_chains}")
+            a = a[g0:g0 + L]
+            if name in axes:
+                axis = axes[name]
+                n = local.shape[axis]
+                if a.shape[axis] != n * mesh.shape["data"]:
+                    raise ValueError(f"{key} has {a.shape[axis]} rows on axis {axis}, "
+                                     f"model {n} per shard x {mesh.shape['data']}")
+                a = np.take(a, np.arange(di * n, (di + 1) * n), axis=axis)
+            if a.shape != tuple(local.shape):
+                raise ValueError(f"{key} has shape {a.shape}, model needs "
+                                 f"{tuple(local.shape)}")
+            parts.append(torch.tensor(a, dtype=local.dtype, device=local.device))
+        fields[name] = tuple(parts) if tuple_field else parts[0]
+    return type(state)(**fields)

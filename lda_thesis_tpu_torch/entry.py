@@ -5,10 +5,12 @@ Counterpart of ``__graft_entry__.entry()``.  :func:`entry` returns
 M = 2 sweeps (``ops/gibbs_fused.fused_train_block``, the main path's
 training step) on a copy of ``_toy_problem`` (D = 32, U = 8, V = 128,
 K = 16, numpy seed 0): on a card it launches the merge-block CUDA kernel
-once.  The multi-device dry run waits for the port of ``parallel/``
-(ROADMAP.md Queue 1 item 9).
+once.  :func:`dryrun_multichip` (the counterpart of
+``__graft_entry__.dryrun_multichip``) spawns ``n`` ranks and runs one full
+sharded training step on the same problem: a dense AD-LDA sweep of every
+chain, the merge over the data row and the thinned update.
 
-    python -m lda_thesis_tpu_torch.entry [--device cpu]
+    python -m lda_thesis_tpu_torch.entry [--device cpu] [--dryrun N [--backend gloo]]
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ import torch
 from .data.encode import compact_labels
 from .ops.gibbs_fused import fused_train_block, init_fused
 
-__all__ = ["entry"]
+__all__ = ["entry", "dryrun_multichip"]
 
 
 def _toy_problem(D=32, U=8, V=128, K=16, seed=0):
@@ -60,10 +62,59 @@ def entry(device=None):
     return fn, (state, tvt, tft, li, lvt, gen)
 
 
+def dryrun_multichip(n_devices: int, device=None, backend=None, timeout: float = 300.0) -> dict:
+    """One full sharded training step on ``n_devices`` spawned ranks over a
+    ``(chains, data)`` mesh (2 chain rows where ``n_devices`` is even, two
+    chains per row), on ``_toy_problem(D = 4·n)``; checks the merged table's
+    total and the pooled φ̂'s shape and returns rank 0's summary.  ``device``
+    is CUDA unless the caller passes ``"cpu"``; ``backend`` defaults to
+    ``nccl`` on CUDA and ``gloo`` on the CPU (several ranks on one card need
+    ``gloo``)."""
+    from .parallel.launch import spawn
+
+    dev = "cuda" if device is None else str(device)
+    if backend is None:
+        backend = "nccl" if dev.startswith("cuda") else "gloo"
+    return spawn("lda_thesis_tpu_torch.entry:_dryrun_rank", int(n_devices),
+                 {"n": int(n_devices), "device": dev}, backend=backend, device=dev, timeout=timeout)[0]
+
+
+def _dryrun_rank(payload) -> dict:
+    from .parallel import make_mesh, make_sharded_train_step, shard_corpus
+    from .parallel.sharded import init_sharded_state, make_generators, pooled_phi
+
+    n = payload["n"]
+    mesh_chains = 2 if n % 2 == 0 and n >= 2 else 1
+    mesh = make_mesh(n_data=n // mesh_chains, n_chains=mesh_chains,
+                     device=payload["device"])
+    n_chains = 2 * mesh_chains
+    V, K = 128, 16
+    tok_v, tok_f, labs = _toy_problem(D=4 * n, V=V, K=K)
+    corpus = shard_corpus(mesh, tok_v, tok_f, labs)
+    gens = make_generators(mesh, n_chains, seed=0)
+    state = init_sharded_state(mesh, corpus, V, n_chains, gens)
+    step = make_sharded_train_step(mesh, n_chains, alpha=0.1, beta=0.01)
+    state = step(state, corpus, True, generators=gens)
+    total = float(state.n_vk[0].sum())
+    if total != float(tok_f.sum()):
+        raise AssertionError(f"merged table holds {total} tokens, corpus {tok_f.sum()}")
+    ph = pooled_phi(state, mesh, n_chains)
+    if tuple(ph.shape) != (V, K):
+        raise AssertionError(f"pooled phi has shape {tuple(ph.shape)}")
+    return {"mesh": mesh.shape, "coords": mesh.coords, "backend": mesh.backend,
+            "device": str(mesh.device), "tokens": total, "s": state.s}
+
+
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    p.add_argument("--dryrun", type=int, default=0, metavar="N",
+                   help="spawn N ranks and run one sharded training step")
+    p.add_argument("--backend", choices=("nccl", "gloo"), default=None)
     opt = p.parse_args(argv)
+    if opt.dryrun:
+        print("dryrun_multichip ok", dryrun_multichip(opt.dryrun, opt.device, opt.backend))
+        return
     fn, args = entry(opt.device)
     out = fn(*args)
     if float(out.n_vk.sum()) != float(args[2].sum()):

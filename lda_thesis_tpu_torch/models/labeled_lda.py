@@ -53,7 +53,7 @@ from ..ops.gibbs_fused import (
 )
 from .state import phi_from_counts, running_average, theta_from_counts
 
-__all__ = ["LabeledLDA"]
+__all__ = ["LabeledLDA", "fold_in_test", "check_merge_block"]
 
 
 def check_merge_block(model, merge: int) -> None:
@@ -68,6 +68,44 @@ def check_merge_block(model, merge: int) -> None:
             f"sweep count of the original run) so the resumed chain is "
             f"bit-identical")
     model._merge_M = int(merge)
+
+
+def fold_in_test(phi: torch.Tensor, tok_v: torch.Tensor, tok_f: torch.Tensor,
+                 topic_mask: torch.Tensor, alpha: float, it: int, thinning: int,
+                 generator: torch.Generator) -> torch.Tensor:
+    """Fold-in θ̂ ``(D, Kp)`` of held-out documents ``tok_v/tok_f (D, U)``
+    against a frozen ``phi (V, Kp)`` (LabeledLDA.py:155-212).
+
+    z is initialised from φ̂'s column for each type (uniform over the real
+    topics of ``topic_mask`` where that column is all zero); then ``it``
+    frozen-φ̂ sweeps, averaging the normalised doc-topic counts at
+    multiples of ``thinning``; trailing sweeps run unsaved, as in the
+    reference.
+    """
+    device = phi.device
+    D, U = tok_v.shape
+    Kp = phi.shape[1]
+    ff = tok_f.to(torch.float32)
+    u = torch.rand((U, D), generator=generator, device=device)
+    n_dk = torch.zeros((D, Kp), dtype=torch.float32, device=device)
+    z = torch.empty((D, U), dtype=torch.int32, device=device)
+    for p in range(U):
+        w = phi[tok_v[:, p]]
+        dead = w.sum(dim=1, keepdim=True) <= 0.0
+        c = torch.cumsum(torch.where(dead, topic_mask[None, :], w), dim=1)
+        zp = (c < (u[p] * c[:, -1])[:, None]).sum(dim=1, dtype=torch.int32)
+        n_dk.scatter_add_(1, zp.long()[:, None], ff[:, p, None])
+        z[:, p] = zp
+
+    avg = torch.zeros_like(n_dk)
+    s = 0
+    for i in range(int(it)):
+        z, n_dk = foldin_sweep(z, n_dk, tok_v, tok_f, phi, alpha, generator=generator)
+        if (i + 1) % int(thinning) == 0:
+            s += 1
+            cur = n_dk / torch.clamp(n_dk.sum(dim=1, keepdim=True), min=1.0)
+            avg = running_average(avg, cur, s)
+    return avg
 
 
 class LabeledLDA:
@@ -309,32 +347,9 @@ class LabeledLDA:
         """
         bows = [self.dicti.doc2bow(doc) for doc in newdocs]
         tv_np, tf_np = encode_bow_types(bows)
-        tok_v = self._t(tv_np, torch.int64)
-        tok_f = self._t(tf_np, torch.int64)
-        phi = self.ph_hat
-        D, U = tok_v.shape
-        ff = tok_f.to(torch.float32)
-
-        u = torch.rand((U, D), generator=self._gen, device=self.device)
-        n_dk = torch.zeros((D, self.Kp), dtype=torch.float32, device=self.device)
-        z = torch.empty((D, U), dtype=torch.int32, device=self.device)
-        for p in range(U):
-            w = phi[tok_v[:, p]]
-            dead = w.sum(dim=1, keepdim=True) <= 0.0
-            c = torch.cumsum(torch.where(dead, self.topic_mask[None, :], w), dim=1)
-            zp = (c < (u[p] * c[:, -1])[:, None]).sum(dim=1, dtype=torch.int32)
-            n_dk.scatter_add_(1, zp.long()[:, None], ff[:, p, None])
-            z[:, p] = zp
-
-        avg = torch.zeros_like(n_dk)
-        s = 0
-        for i in range(int(it)):
-            z, n_dk = foldin_sweep(z, n_dk, tok_v, tok_f, phi, self.alpha,
-                                   generator=self._gen)
-            if (i + 1) % int(thinning) == 0:
-                s += 1
-                cur = n_dk / torch.clamp(n_dk.sum(dim=1, keepdim=True), min=1.0)
-                avg = running_average(avg, cur, s)
+        avg = fold_in_test(self.ph_hat, self._t(tv_np, torch.int64),
+                           self._t(tf_np, torch.int64), self.topic_mask, self.alpha,
+                           it, thinning, self._gen)
         return avg[:, : self.K].cpu().numpy()
 
     # ------------------------------------------------------------ estimators

@@ -15,6 +15,16 @@ throughout; then one scatter commits the block's count deltas.  Per block:
 
 All per-document state lives on the compact A-slot label axis; ``z`` is
 position-major ``(U, D)`` and ``n_dk`` is ``(A, D)``, as in the JAX package.
+
+**Chains.**  The merge block (steps 1–5 and :func:`fused_train_block`,
+:func:`fused_train_block_buckets`) also takes a leading chain axis: ``z (L,
+U, D)``, ``n_dk (L, A, D)``, ``n_vk (L, V, K)``, ``n_k (L, K)``, one table
+per chain over the same documents.  The ``L`` chains' documents are laid
+side by side on the kernel's document axis (``L·D`` documents, chain-major),
+so one launch runs every chain; the kernel computes each document alone
+and every count update is an exact integer sum, so the result is bitwise
+that of ``L`` single-chain calls with the same uniforms.  The distributed
+trainer (parallel/) runs its local chains this way.
 """
 
 from __future__ import annotations
@@ -34,8 +44,13 @@ from .gibbs import _uniforms, densify_ndk, init_counts_compact, theta_from_compa
 # package keeps its own numbering.
 SAMPLER_FORMULA_VERSION = 1
 
+# The merge-block kernel takes its document count as a C int (its offsets
+# are size_t), so one launch holds fewer than 2^31 documents.
+MAX_KERNEL_DOCS = 2**31 - 1
+
 __all__ = [
     "SAMPLER_FORMULA_VERSION",
+    "MAX_KERNEL_DOCS",
     "FusedLDAState",
     "FusedBucketState",
     "select_merge_block",
@@ -45,6 +60,7 @@ __all__ = [
     "fused_train_block_buckets",
     "gather_cv",
     "slot_totals",
+    "block_uniforms",
     "theta_from_fused",
     "densify_ndk_fused",
 ]
@@ -97,14 +113,46 @@ def gather_cv(n_vk: torch.Tensor, tok_v_t: torch.Tensor,
 
     Doc-major, so the kernel reads one document's A slots at one position as
     one contiguous row (the JAX function returns the (U, A, D) transpose).
-    An element gather is exact, so no one-hot contraction is needed.
+    An element gather is exact, so no one-hot contraction is needed.  With
+    ``n_vk (L, V, K)``: ``(L·D, U, A)``, the chains' documents side by side.
     """
-    return n_vk[tok_v_t.T.long()[:, :, None], lab_ids.long()[:, None, :]]
+    v = tok_v_t.T.long()[:, :, None]
+    a = lab_ids.long()[:, None, :]
+    if n_vk.dim() == 2:
+        return n_vk[v, a]
+    chain = torch.arange(n_vk.shape[0], device=n_vk.device)[:, None, None, None]
+    return n_vk[chain, v, a].flatten(0, 1)
 
 
 def slot_totals(n_k: torch.Tensor, lab_ids: torch.Tensor, vbeta: float) -> torch.Tensor:
-    """(A, D) frozen topic totals per slot, ``n_k[lab_ids[d, a]] + V·β``."""
-    return (n_k[lab_ids.long()].T + vbeta).contiguous()
+    """(A, D) frozen topic totals per slot, ``n_k[lab_ids[d, a]] + V·β``;
+    with ``n_k (L, K)``: (A, L·D)."""
+    t = n_k[..., lab_ids.long()]  # (..., D, A)
+    return (t.movedim(-1, 0).reshape(t.shape[-1], -1) + vbeta).contiguous()
+
+
+def _side_by_side(x: torch.Tensor) -> torch.Tensor:
+    """``(L, ..., D)`` -> ``(..., L·D)``: the chains' documents side by side."""
+    return x.movedim(0, -2).flatten(-2)
+
+
+def _split_chains(x: torch.Tensor, L: int) -> torch.Tensor:
+    """``(..., L·D)`` -> ``(L, ..., D)``."""
+    return x.unflatten(-1, (L, -1)).movedim(-2, 0).contiguous()
+
+
+def block_uniforms(shape, like: torch.Tensor, uniforms=None, generator=None) -> torch.Tensor:
+    """A merge block's uniforms of ``shape``: ``uniforms`` if given, else
+    drawn from ``generator``; a sequence of generators, one per chain, draws
+    ``shape[1:]`` from each in chain order."""
+    if uniforms is not None or not isinstance(generator, (list, tuple)):
+        return _uniforms(shape, like, uniforms, generator)
+    if len(generator) != shape[0]:
+        raise ValueError(f"{len(generator)} generators for {shape[0]} chains")
+    u = torch.empty(shape, dtype=torch.float32, device=like.device)
+    for j, gen in enumerate(generator):
+        torch.rand(shape[1:], generator=gen, out=u[j])
+    return u
 
 
 def _scatter_deltas(n_vk, tok_v_t, tok_f_t, lab_ids, z0, z1):
@@ -113,17 +161,22 @@ def _scatter_deltas(n_vk, tok_v_t, tok_f_t, lab_ids, z0, z1):
     One accumulating scatter of −f at the block-start topic and +f at the
     block-end topic into a copy of the table; exact in any order (integer
     counts below 2^24), so ``index_add_``'s atomics on a card give the same
-    table as a sequential sum.
+    table as a sequential sum.  With ``n_vk (L, V, K)``, ``z0``/``z1`` are
+    ``(U, L·D)``, the chains side by side.
     """
-    K = n_vk.shape[1]
-    lab_t = lab_ids.long().T  # (A, D)
-    row = tok_v_t.long() * K
-    flat = torch.cat([(row + torch.gather(lab_t, 0, z0.long())).reshape(-1),
-                      (row + torch.gather(lab_t, 0, z1.long())).reshape(-1)])
-    f = tok_f_t.reshape(-1)
+    V, K = n_vk.shape[-2:]
+    U, D = tok_v_t.shape
+    L = n_vk.shape[0] if n_vk.dim() == 3 else 1
+    lab_t = lab_ids.long().T[:, None, :].expand(-1, L, -1)  # (A, L, D)
+    row = tok_v_t.long()[:, None, :] * K  # (U, 1, D)
+    if n_vk.dim() == 3:
+        row = row + torch.arange(L, device=row.device)[:, None] * (V * K)  # (U, L, D)
+    flat = torch.cat([(row + torch.gather(lab_t, 0, z.long().view(U, L, D))).reshape(-1)
+                      for z in (z0, z1)])
+    f = tok_f_t.reshape(U, 1, D).expand(U, L, D).reshape(-1)
     n_vk = n_vk.clone()
     n_vk.view(-1).index_add_(0, flat, torch.cat([-f, f]))
-    return n_vk, n_vk.sum(dim=0)
+    return n_vk, n_vk.sum(dim=-2)
 
 
 def fused_train_block(
@@ -135,28 +188,38 @@ def fused_train_block(
     alpha: float,
     beta: float,
     M: int,
-    uniforms: Optional[torch.Tensor] = None,  # (M, U, D)
-    generator: Optional[torch.Generator] = None,
+    uniforms: Optional[torch.Tensor] = None,  # (M, U, D); chains: (L, M, U, D)
+    generator=None,  # chains: one per chain
     vbeta: Optional[float] = None,
 ) -> FusedLDAState:
     """``M`` Gibbs sweeps against the block-start table + one delta commit.
 
     ``vbeta`` — the posterior denominator's smoothing constant ``V*beta``
     (LabeledLDA.py:116); defaults to the table's own row count times β,
-    which is exact for unpadded tables.
+    which is exact for unpadded tables.  A state with a leading chain axis
+    runs every chain in one kernel launch (module docstring).
     """
     U, D = tok_v_t.shape
-    V = state.n_vk.shape[0]
+    V = state.n_vk.shape[-2]
     if vbeta is None:
         vbeta = float(V * beta)
+    L = state.n_vk.shape[0] if state.n_vk.dim() == 3 else 0
+    if max(L, 1) * D > MAX_KERNEL_DOCS:
+        raise ValueError(f"{max(L, 1)} chains x {D} documents exceed the merge-block "
+                         f"kernel's {MAX_KERNEL_DOCS} documents per launch")
     cv = gather_cv(state.n_vk, tok_v_t, lab_ids)
     nkg = slot_totals(state.n_k, lab_ids, vbeta)
-    u = _uniforms((M, U, D), tok_v_t, uniforms, generator)
-    z1, ndk = fused_block(cv, tok_f_t.contiguous(), u.contiguous(),
-                          state.z.contiguous(), nkg, lab_valid_t.contiguous(),
-                          state.n_dk.contiguous(), alpha, beta)
-    n_vk, n_k = _scatter_deltas(state.n_vk, tok_v_t, tok_f_t, lab_ids,
-                                state.z, z1)
+    lead = (L,) if L else ()
+    u = block_uniforms(lead + (M, U, D), tok_v_t, uniforms, generator)
+    z0, ndk0, f, valid = state.z, state.n_dk, tok_f_t, lab_valid_t
+    if L:
+        u, z0, ndk0 = _side_by_side(u), _side_by_side(z0), _side_by_side(ndk0)
+        f, valid = f.repeat(1, L), valid.repeat(1, L)
+    z1, ndk = fused_block(cv, f.contiguous(), u.contiguous(), z0.contiguous(), nkg,
+                          valid.contiguous(), ndk0.contiguous(), alpha, beta)
+    n_vk, n_k = _scatter_deltas(state.n_vk, tok_v_t, tok_f_t, lab_ids, z0, z1)
+    if L:
+        z1, ndk = _split_chains(z1, L), _split_chains(ndk, L)
     return FusedLDAState(z=z1, n_dk=ndk, n_vk=n_vk, n_k=n_k)
 
 
@@ -212,10 +275,12 @@ def fused_train_block_buckets(
     beta: float,
     M: int,
     uniforms: Optional[Sequence[torch.Tensor]] = None,  # per bucket (M, U_g, D_g)
-    generator: Optional[torch.Generator] = None,
+    generator=None,
+    vbeta: Optional[float] = None,
 ) -> FusedBucketState:
     """One ``M``-sweep merge block over all buckets, one after another; each
-    bucket's delta commit lands before the next bucket gathers."""
+    bucket's delta commit lands before the next bucket gathers.  With a
+    leading chain axis, one kernel launch per bucket runs every chain."""
     n_vk, n_k = state.n_vk, state.n_k
     zs, ndks = [], []
     for g, (tv, tf, li, lv) in enumerate(
@@ -225,7 +290,7 @@ def fused_train_block_buckets(
         st = fused_train_block(
             st, tv, tf, li, lv, alpha, beta, M,
             uniforms=None if uniforms is None else uniforms[g],
-            generator=generator,
+            generator=generator, vbeta=vbeta,
         )
         n_vk, n_k = st.n_vk, st.n_k
         zs.append(st.z)

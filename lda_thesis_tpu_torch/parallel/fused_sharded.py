@@ -1,0 +1,194 @@
+"""Merge-block sampler over the ``(chains, data)`` mesh, chains batched
+into one kernel launch.
+
+Counterpart of ``lda_thesis_tpu/parallel/fused_sharded.py``.  A merge block
+freezes the topic-word table for ``M`` sweeps in time (the fused sampler,
+ops/gibbs_fused.py) and across data shards (AD-LDA) at once:
+
+* per bucket, ``ops/gibbs_fused.fused_train_block`` runs every local chain
+  at once over its leading chain axis: each chain's per-slot counts are
+  gathered from that chain's table, each chain's uniforms ``(M, U, D_s)``
+  are drawn from its generator, and the ``L`` chains' documents lie side
+  by side in **one** launch of the merge-block kernel (it keeps all its
+  state per document, one CTA each); each slot's first-to-last topic move
+  is committed to its chain's working table before the next bucket
+  gathers;
+* block end: the block's table deltas are summed over the data row
+  (``all_reduce``) and the thinned φ̂/θ̂ means are updated on save
+  boundaries, as in the dense step.
+
+The state holds ``z (L, U, D_s)`` / ``n_dk (L, A, D_s)`` and each chain's
+table replica ``n_vk (L, V, K)``.  The bucketed layout
+(parallel/fused_sharded_buckets.py) and the vocab-sharded one
+(parallel/vocab_sharded.py) run the same block.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple, Sequence
+
+import numpy as np
+import torch
+
+from ..models.state import running_average
+from ..ops.gibbs import init_counts_compact
+from ..ops.gibbs_fused import FusedLDAState, fused_train_block, theta_from_fused
+from .bootstrap import Mesh
+from .sharded import phi_chains, shard_rows
+
+__all__ = ["FusedShardedState", "FusedShardCorpus", "shard_fused_corpus",
+           "init_fused_sharded", "train_blocks", "make_fused_train_loop"]
+
+
+class FusedShardedState(NamedTuple):
+    z: torch.Tensor  # (L, U, D_s) int32
+    n_dk: torch.Tensor  # (L, A, D_s) float32
+    n_vk: torch.Tensor  # (L, V, K) float32
+    n_k: torch.Tensor  # (L, K) float32
+    ph_hat: torch.Tensor  # (L, V, K) thinned running mean
+    th_hat: torch.Tensor  # (L, D_s, K)
+    s: int  # saves folded into the means
+
+
+class FusedShardCorpus(NamedTuple):
+    """This rank's shard of one bucket in the fused layout."""
+
+    tok_v: torch.Tensor  # (D_s, U) int64, doc-major
+    tok_f: torch.Tensor  # (D_s, U) int64
+    tok_v_t: torch.Tensor  # (U, D_s) int64, position-major
+    tok_f_t: torch.Tensor  # (U, D_s) float32
+    lab_ids: torch.Tensor  # (D_s, A) int64
+    lab_valid: torch.Tensor  # (D_s, A) float32
+    lab_valid_t: torch.Tensor  # (A, D_s) float32
+
+
+def shard_fused_corpus(mesh: Mesh, tok_v, tok_f, lab_ids, lab_valid) -> FusedShardCorpus:
+    """Pad the document axis to the data-mesh size and keep this rank's
+    shard in the fused layout, on its device."""
+    dev = mesh.device
+    tv = torch.as_tensor(shard_rows(tok_v, mesh), dtype=torch.int64, device=dev)
+    tf = torch.as_tensor(shard_rows(tok_f, mesh), dtype=torch.int64, device=dev)
+    li = torch.as_tensor(shard_rows(lab_ids, mesh), dtype=torch.int64, device=dev)
+    lv = torch.as_tensor(shard_rows(np.asarray(lab_valid, np.float32), mesh),
+                         dtype=torch.float32, device=dev)
+    return FusedShardCorpus(tok_v=tv, tok_f=tf, tok_v_t=tv.T.contiguous(),
+                            tok_f_t=tf.T.to(torch.float32).contiguous(),
+                            lab_ids=li, lab_valid=lv, lab_valid_t=lv.T.contiguous())
+
+
+def init_chains(corpora: Sequence[FusedShardCorpus], V_rows: int, K: int,
+                generators: Sequence[torch.Generator],
+                uniforms: Optional[Sequence[Sequence[torch.Tensor]]] = None):
+    """Per local chain, per bucket: z ~ uniform over each document's labels
+    (LabeledLDA.py:85-92), drawn from the chain's generator bucket by bucket
+    (or ``uniforms[j][g] (U_g, D_s)``).  Returns per-bucket ``z (L, U, D_s)``
+    and ``n_dk (L, A, D_s)`` and this shard's unmerged ``n_vk (L, V_rows,
+    K)``, ``n_k (L, K)``."""
+    L, dev = len(generators), corpora[0].tok_v.device
+    n_vk = torch.zeros((L, V_rows, K), dtype=torch.float32, device=dev)
+    zs = [[] for _ in corpora]
+    ndks = [[] for _ in corpora]
+    for j, gen in enumerate(generators):
+        for g, c in enumerate(corpora):
+            st = init_counts_compact(c.tok_v, c.tok_f, c.lab_ids, c.lab_valid, V_rows, K,
+                                     uniforms=None if uniforms is None else uniforms[j][g],
+                                     generator=gen)
+            zs[g].append(st.z.T)
+            ndks[g].append(st.n_dk.T)
+            n_vk[j] += st.n_vk
+    return ([torch.stack(z) for z in zs], [torch.stack(n) for n in ndks],
+            n_vk, n_vk.sum(dim=1))
+
+
+def init_fused_sharded(mesh: Mesh, corpus: FusedShardCorpus, V: int, K: int,
+                       n_chains: int, generators: Sequence[torch.Generator],
+                       uniforms=None) -> FusedShardedState:
+    """Per-(chain, shard) init with each chain's table summed over the data
+    row.  ``uniforms[j]`` is chain ``j``'s ``(U, D_s)``."""
+    z, n_dk, n_vk, n_k = init_chains(
+        [corpus], V, K, generators,
+        None if uniforms is None else [[u] for u in uniforms])
+    mesh.data_sum_(n_vk)
+    mesh.data_sum_(n_k)
+    L, D_s = len(generators), corpus.tok_v.shape[0]
+    return FusedShardedState(
+        z=z[0], n_dk=n_dk[0], n_vk=n_vk, n_k=n_k,
+        ph_hat=torch.zeros_like(n_vk),
+        th_hat=torch.zeros((L, D_s, K), dtype=torch.float32, device=mesh.device),
+        s=0)
+
+
+def merge_replicated(mesh: Mesh, table: torch.Tensor, n_k: torch.Tensor,
+                     work: torch.Tensor, nk_work: torch.Tensor):
+    """AD-LDA merge of replicated tables: ``table + Σ_data (work − table)``."""
+    if mesh.shape["data"] == 1:
+        return work, nk_work
+    d_vk = mesh.data_sum_(work - table)
+    d_k = mesh.data_sum_(nk_work - n_k)
+    return table + d_vk, n_k + d_k
+
+
+def theta_chains(n_dk: torch.Tensor, corpus: FusedShardCorpus, alpha: float,
+                 K: int) -> torch.Tensor:
+    """(L, D_s, K) label-masked θ of every local chain, the chains' rows
+    computed together (a per-chain loop of small ops was most of a
+    bucketed call's host time)."""
+    L, A, D_s = n_dk.shape
+    th = theta_from_fused(n_dk.permute(1, 0, 2).reshape(A, L * D_s),
+                          corpus.lab_ids.repeat(L, 1), corpus.lab_valid.repeat(L, 1), alpha, K)
+    return th.view(L, D_s, K)
+
+
+def train_blocks(block: Callable[[int], None], save: Callable[[], None],
+                 iters: int, thinning: int, M: int) -> None:
+    """The loop of ``make_fused_train_loop``: save blocks of ``thinning //
+    M`` merge blocks with a save after each, then the trailing
+    ``iters % thinning`` sweeps, unsaved, in blocks of at most ``M``."""
+    if thinning % M:
+        raise ValueError(f"M={M} must divide thinning={thinning} "
+                         "(use select_merge_block)")
+    n_save = iters // thinning
+    for _ in range(n_save):
+        for _ in range(thinning // M):
+            block(M)
+        save()
+    left = iters - n_save * thinning
+    while left > 0:
+        m = min(M, left)
+        block(m)
+        left -= m
+
+
+def make_fused_train_loop(mesh: Mesh, alpha: float, beta: float, topic_mask,
+                          corpus: FusedShardCorpus, on_merge=()):
+    """Training loop of the unbucketed layout: returns ``loop(state, iters,
+    thinning, M, generators) -> state``, one kernel launch per merge block
+    for all local chains."""
+    def loop(state: FusedShardedState, iters: int, thinning: int, M: int,
+             generators) -> FusedShardedState:
+        st = [state]
+        V, K = state.n_vk.shape[1:]
+        vbeta = float(V) * float(beta)
+
+        def block(m):
+            s = st[0]
+            out = fused_train_block(FusedLDAState(s.z, s.n_dk, s.n_vk, s.n_k), corpus.tok_v_t,
+                                    corpus.tok_f_t, corpus.lab_ids, corpus.lab_valid_t, alpha,
+                                    beta, m, generator=generators, vbeta=vbeta)
+            n_vk, n_k = merge_replicated(mesh, s.n_vk, s.n_k, out.n_vk, out.n_k)
+            st[0] = s._replace(z=out.z, n_dk=out.n_dk, n_vk=n_vk, n_k=n_k)
+            for fn in on_merge:
+                fn(st[0])
+
+        def save():
+            s = st[0]
+            cur_ph = phi_chains(s.n_vk, s.n_k, beta, vbeta, topic_mask)
+            cur_th = theta_chains(s.n_dk, corpus, alpha, K)
+            n = s.s + 1
+            st[0] = s._replace(ph_hat=running_average(s.ph_hat, cur_ph, n),
+                               th_hat=running_average(s.th_hat, cur_th, n), s=n)
+
+        train_blocks(block, save, int(iters), int(thinning), int(M))
+        return st[0]
+
+    return loop

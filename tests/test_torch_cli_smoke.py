@@ -3,8 +3,8 @@
 The port of ``tests/test_cli_smoke.py``, on the CPU (``--device cpu``):
 drives the product ``main()`` functions, load → preprocess → prune → train →
 fold-in test → metrics, with the Gibbs and the CAVI engine, and the
-LocalLDA CLI.  Also: the options that are not ported yet exit with an
-error, a run killed after its first checkpoint and resumed prints
+LocalLDA CLI.  Also: the multi-device options that the JAX CLI refuses
+exit with an error, a run killed after its first checkpoint and resumed prints
 the uninterrupted run's metrics, the corpus split and vocabulary equal the
 JAX CLI's, and ``entry()`` builds ``__graft_entry__``'s toy problem.
 """
@@ -135,9 +135,11 @@ def test_cascade_cli_with_test_budget(corpus_csv, capsys):
     assert [s["sweeps"] for s in res["model"].level_stats] == [3, 2, 2]
 
 
-@pytest.mark.parametrize("flags,item", [(["--n-chains", "2"], "item 9"),
-                                        (["--n-data", "2"], "item 9"),
-                                        (["--table-shard", "vocab"], "item 9")])
+# the multi-device flags are ported; what the JAX CLI refuses still exits
+@pytest.mark.parametrize("flags,item", [(["--n-chains", "2", "--sweep", "compact"],
+                                         "single-device only"),
+                                        (["--n-data", "2"], "does not divide 1 ranks"),
+                                        (["--table-shard", "vocab"], "requires --n-data")])
 def test_options_not_ported_exit(corpus_csv, flags, item):
     with pytest.raises(SystemExit, match=item):
         _run(corpus_csv, *flags)

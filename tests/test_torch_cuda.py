@@ -402,3 +402,22 @@ def test_hslda_cycle_on_card_equals_cpu(form):
     assert float((out["cuda"][0] == out["cpu"][0]).to(torch.float32).mean()) >= 0.99
     for got, want in zip(out["cuda"][4:], out["cpu"][4:]):
         assert float((got - want).abs().max()) <= chip_smoke.HSLDA_TOL
+
+
+@pytest.mark.cuda
+def test_batched_chains_equal_single_chain_launches():
+    """Three chains in one merge-block launch (their documents side by
+    side) against three single-chain launches with the same uniforms: z,
+    n_dk and the tables bitwise equal, one launch against three (the check
+    of chip_smoke.py's phase 13a, here at a small size)."""
+    _needs_card()
+    from lda_thesis_tpu_torch.data.synthetic import planted_corpus
+    from lda_thesis_tpu_torch.data.vocab import Dictionary
+    from lda_thesis_tpu_torch.parallel import DistributedLabeledLDA, make_mesh
+
+    c = planted_corpus(0, n_train=200, n_test=10, V=300, n_labels=30)
+    model = DistributedLabeledLDA(c.train_docs, c.train_labs, c.labelset,
+                                  Dictionary(c.train_docs), alpha=ALPHA, beta=BETA,
+                                  mesh=make_mesh(device="cuda"), n_chains=3, seed=0)
+    rec = chip_smoke.chains_batch_case(model, 4)
+    assert rec["launches_batched"] == 1 and rec["launches_single"] == 3

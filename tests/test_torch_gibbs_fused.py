@@ -261,6 +261,82 @@ def test_block_invariants(problem, M):
     assert torch.equal(st.n_k, st.n_vk.sum(0))
 
 
+# ---- the chain axis
+
+
+def _stack_states(states):
+    return tfused.FusedLDAState(*(torch.stack(list(x)) for x in zip(*states)))
+
+
+@pytest.mark.parametrize("shape", [pytest.param({}, id="A8"), pytest.param(WIDE_24, id="A24")])
+def test_chain_axis_matches_jax_per_chain(shape):
+    """Three chains through one call over the leading chain axis (their
+    documents side by side in one kernel call): each chain's z and counts
+    equal JAX's single-chain merge block from that chain's state with its
+    uniforms, bitwise."""
+    problem = _make_problem(**shape)
+    tok_v, tok_f, lab_ids, lab_valid = problem
+    n_pos, n_docs = tok_v.T.shape
+    M, L = 2, 3
+    states = [_jax_state(problem, seed=j) for j in range(L)]
+    keys = [jax.random.PRNGKey(20 + j) for j in range(L)]
+    j_args = (jnp.asarray(tok_v.T), jnp.asarray(tok_f.T.astype(np.float32)),
+              jnp.asarray(lab_ids), jnp.asarray(lab_valid.T), ALPHA, BETA, M)
+    wants = [jfused.fused_train_block(k, st, *j_args) for k, st in zip(keys, states)]
+    u = np.stack([np.array(jax.random.uniform(k, (M, n_pos, n_docs), dtype=jnp.float32))
+                  for k in keys])
+    calls = fbc.launches
+    got = tfused.fused_train_block(_stack_states([_to_torch_state(st) for st in states]),
+                                   *_t(tok_v.T, tok_f.T.astype(np.float32), lab_ids,
+                                       lab_valid.T), ALPHA, BETA, M,
+                                   uniforms=torch.from_numpy(u))
+    assert fbc.launches == calls  # CPU tensors: the plain version, no launch
+    assert got.z.shape == (L, n_pos, n_docs) and got.n_vk.shape[0] == L
+    for j, want in enumerate(wants):
+        _assert_state_equal([x[j] for x in got], want)
+
+
+def test_chain_axis_buckets_and_generators_equal_single_chains(problem):
+    """Two buckets, three chains, each drawing from its own generator: one
+    call over the chain axis equals three single-chain calls drawing from
+    generators seeded alike, bitwise, and keeps the count invariants."""
+    tok_v, tok_f, lab_ids, lab_valid = problem
+    L, M = 3, 2
+    halves = (slice(0, 9), slice(9, D))
+    ins = [[x[h] for h in halves] for x in _t(tok_v, tok_f, lab_ids, lab_valid)]
+    singles = [tfused.init_fused_buckets(*ins, V, K, generator=torch.Generator().manual_seed(j))
+               for j in range(L)]
+    chained = tfused.FusedBucketState(
+        tuple(torch.stack([s.z[g] for s in singles]) for g in range(2)),
+        tuple(torch.stack([s.n_dk[g] for s in singles]) for g in range(2)),
+        torch.stack([s.n_vk for s in singles]), torch.stack([s.n_k for s in singles]))
+    args = ([t.T.contiguous() for t in ins[0]], [t.T.float().contiguous() for t in ins[1]],
+            ins[2], [t.T.contiguous() for t in ins[3]], ALPHA, BETA, M)
+    gens = [torch.Generator().manual_seed(100 + j) for j in range(L)]
+    got = tfused.fused_train_block_buckets(chained, *args, generator=gens)
+    for j, s in enumerate(singles):
+        want = tfused.fused_train_block_buckets(
+            s, *args, generator=torch.Generator().manual_seed(100 + j))
+        for g in range(2):
+            assert torch.equal(got.z[g][j], want.z[g]) and torch.equal(got.n_dk[g][j],
+                                                                        want.n_dk[g])
+        assert torch.equal(got.n_vk[j], want.n_vk) and torch.equal(got.n_k[j], want.n_k)
+    assert torch.equal(got.n_k, got.n_vk.sum(dim=1))
+    assert (got.n_vk.sum(dim=(1, 2)) == float(tok_f.sum())).all()
+
+
+def test_chain_axis_refuses_past_the_kernel_document_limit(problem):
+    """More chains x documents than the kernel's int document count is
+    refused before anything is gathered or drawn."""
+    tok_v, tok_f, lab_ids, lab_valid = problem
+    L = tfused.MAX_KERNEL_DOCS // D + 1
+    st = _port_state(problem)
+    huge = tfused.FusedLDAState(*(x.expand(L, *x.shape) for x in st))  # stride-0 views
+    with pytest.raises(ValueError, match="documents per launch"):
+        tfused.fused_train_block(huge, *_t(tok_v.T, tok_f.T.astype(np.float32), lab_ids,
+                                           lab_valid.T), ALPHA, BETA, 1)
+
+
 # ---- the wrapper
 
 

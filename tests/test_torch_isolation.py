@@ -68,3 +68,23 @@ def test_hslda_modules_are_scanned():
     names = _modules()
     for mod in ("ops.hslda_gibbs", "models.hslda", "cli.evaluate_hslda"):
         assert f"lda_thesis_tpu_torch.{mod}" in names
+
+
+def test_parallel_modules_are_scanned():
+    """The parallel layer's modules are among those imported and scanned."""
+    names = _modules()
+    for mod in ("_util", "bootstrap", "sharded", "fused_sharded", "fused_sharded_buckets",
+                "vocab_sharded", "trainer", "sharded_io", "launch", "jobs"):
+        assert f"lda_thesis_tpu_torch.parallel.{mod}" in names
+
+
+def test_spawned_worker_loads_no_jax():
+    """A spawned rank runs without jax (this test process has it loaded),
+    and the launcher refuses a worker that loads it."""
+    from lda_thesis_tpu_torch.parallel.launch import spawn
+
+    out = spawn("lda_thesis_tpu_torch.parallel.jobs:mesh_job", 2, {"shapes": [(1, 2)]},
+                timeout=120)
+    assert [r["meshes"][0]["row_sum"] for r in out] == [1.0, 1.0]
+    with pytest.raises(RuntimeError, match="loaded .*jax"):
+        spawn("jax.numpy:dtype", 1, "float32", timeout=120)  # imports jax
