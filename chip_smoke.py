@@ -8,16 +8,20 @@ the full width of the depth-3 abstracts split, on synthetic labelled corpora
 made from ``--seed``.  Phases:
 
 1. environment: torch, CUDA, the card's name and power limit;
-2. kernel builds, one ``nvcc`` per source, all started together;
+2. kernel builds, one ``nvcc`` per source, all started together; the
+   registers and spills ptxas reports for each of the warp route's
+   instantiations, none of which may spill;
 3. the merge-block kernel against ``fused_block_torch`` at every bucket of
    the fused path's first merge block (A = 24, M = 25) and at the edge
-   cases (``edge_cases``, the general route's slot and position counts
-   among them), and one whole merge block on the card against the same
-   block on the CPU; the kernel's device time, its chain steps (M × the
-   most live positions of a document) and time per step, and the times of
-   its call, its plain version and the block's gather and scatter; the
-   general route's device time per launch at LocalLDA's K = 50 shape and at
-   U = 1,024, A = 32, beside their bounds;
+   cases (``edge_cases``: the staged, warp and general routes' slot and
+   position counts, each launched on the route ``route()`` names, by the
+   counters), and one whole merge block on the card against the same block
+   on the CPU; the kernel's device time, its chain steps (M × the most live
+   positions of a document) and time per step, and the times of its call,
+   its plain version and the block's gather and scatter; then the warp
+   route and the general (CTA) route side by side at LocalLDA's K = 50 and
+   K = 100 shapes and at U = 1,024, A = 32: device time per launch, ns per
+   step, bound and plain version;
 4. the fused Labeled-LDA path (``LabeledLDA`` → ``run_training`` →
    ``run_test`` → ranking metrics): 50 sweeps at (50; 25) within a
    2000-sweep budget, so the merge block is M = 25; count invariants, kernel
@@ -61,7 +65,7 @@ made from ``--seed``.  Phases:
     the abstracts' vocabulary (V = 11,889), at its defaults (K = 20, fused,
     100 sweeps at thinning 10, one merge per sweep: 100 kernel-1 launches),
     with ``--sweep dense`` (its draw and commit launches as planned) and with
-    ``-k 50`` (A = 56: kernel 1's general route), each with the count
+    ``-k 50`` (A = 56: every kernel-1 launch on the warp route), each with the count
     invariants and a perplexity below V; and a save/restore round trip of
     the LocalLDA checkpoint whose next call equals the uninterrupted one's;
 11. the VI engine: the Labeled-LDA CLI with ``--engine vi -i 20`` on phase
@@ -258,6 +262,27 @@ def _card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def warp_route_ptxas(log: str) -> dict:
+    """ptxas -v's report (``_nvcc.NVCC_FLAGS`` asks for it) on each
+    instantiation of the warp route's kernel: {S: {"registers": n,
+    "spill_stores": bytes}}."""
+    out, rows = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '\S*fused_block_warp_kernelILi(\d+)E", line)
+        if "Compiling entry function" in line:
+            rows = int(m.group(1)) if m else None
+            if rows is not None:
+                out[rows] = dict(registers=None, spill_stores=None)
+        elif rows is not None:
+            spill = re.search(r"(\d+) bytes spill stores", line)
+            regs = re.search(r"Used (\d+) registers", line)
+            if spill:
+                out[rows]["spill_stores"] = int(spill.group(1))
+            if regs:
+                out[rows]["registers"] = int(regs.group(1))
+    return out
+
+
 def _check(cond: bool, what: str) -> None:
     if not cond:
         raise RuntimeError(f"check failed: {what}")
@@ -370,12 +395,18 @@ def edge_cases() -> dict:
     """name -> (D, U, A, M, gaps, zero_doc): ragged shapes, one more
     document than an H100 holds at once (32 one-warp CTAs on each of 132
     SMs), one and 32 slots, a document with no live position, interior
-    gaps, U = 512, and documents of one or two positions; then the general
-    route: 33, 56 (LocalLDA at K = 50), 136 and 1,032 slots, one position
-    past the staged route's limit at A = 32 (563 on an H100), 1,024
-    positions, 600 positions at 13 slots, 1,032 slots at 40 positions, and
-    16,000 slots, whose state overflows shared memory into a global scratch
-    buffer."""
+    gaps, U = 512, and documents of one or two positions; then the warp
+    route: 33, 56 (LocalLDA at K = 50), 64, 104 (K = 100), 136 and 32 ·
+    S_MAX slots, one position past the staged route's limit at A = 32 (563
+    on an H100), 1,024 positions at 32 and 104 slots, 600 positions at 13
+    slots, one-position documents at 56 and 104 slots, and four sweeps at 56
+    slots with interior gaps; then the general (CTA) route: the first
+    multiple of 8 past 32 · S_MAX, 1,032 slots, 1,032 slots at 40
+    positions, and 16,000 slots, whose state overflows shared memory into a
+    global scratch buffer."""
+    from lda_thesis_tpu_torch.ops.fused_block_cuda import WARP_ROWS_MAX
+
+    widest = 32 * WARP_ROWS_MAX
     return {
         "ragged D=37 U=20 A=13": (37, 20, 13, 3, 0.3, False),
         "two waves D=4225": (32 * 132 + 1, 8, 8, 2, 0.3, True),
@@ -389,15 +420,35 @@ def edge_cases() -> dict:
         "U=2": (101, 2, 10, 4, 0.0, False),
         "A=33": (301, 40, 33, 4, 0.2, True),
         "A=56": (301, 40, 56, 3, 0.2, False),
+        "A=64": (301, 40, 64, 3, 0.2, False),
+        "A=104": (301, 40, 104, 3, 0.2, True),
         "A=136": (150, 40, 136, 3, 0.3, True),
+        f"A={widest}": (150, 40, widest, 2, 0.3, False),
+        f"A={widest + 8}": (60, 16, widest + 8, 2, 0.2, True),
         "A=1032": (60, 16, 1032, 2, 0.2, False),
         "U=564 A=32": (40, STAGED_LIMIT_H100 + 1, 32, 2, 0.3, True),
         "U=1024 A=32": (40, 1024, 32, 2, 0.3, False),
+        "U=1024 A=104": (40, 1024, 104, 2, 0.3, False),
         "U=600 A=13": (40, 600, 13, 2, 0.3, True),
         "U=40 A=1032": (30, 40, 1032, 2, 0.3, True),
         "U=1 A=56": (67, 1, 56, 3, 0.0, False),
+        "U=1 A=104": (67, 1, 104, 3, 0.0, False),
+        "M=4 A=56 gaps": (200, 64, 56, 4, 0.5, False),
         "A=16000": (3, 4, 16000, 2, 0.0, False),
     }
+
+
+def _route_counts(fbc) -> tuple:
+    """(launches, warp-route launches, general-route launches) so far."""
+    return fbc.launches, fbc.warp_launches, fbc.general_launches
+
+
+def _launched_on(fbc, before: tuple) -> str:
+    """The route of the one launch made since ``_route_counts`` gave
+    ``before``, checked against the counters: exactly one launch."""
+    n, w, g = (x - y for x, y in zip(_route_counts(fbc), before))
+    _check(n == 1 and w + g <= 1, f"one kernel-1 launch (counters moved {n}, {w}, {g})")
+    return "warp" if w else "general" if g else "staged"
 
 
 def bucket_inputs(model, g: int, M: int, gen):
@@ -448,7 +499,8 @@ def kernel_phase(model, seed: int) -> dict:
     M = 25
     rec = dict(ms=0.0, call_ms=0.0, plain_ms=0.0, gather_ms=0.0, scatter_ms=0.0,
                bytes_s=0.0, ops_s=0.0, bound_ms=0.0, chain_steps=0, max_abs_err=0.0,
-               buckets=[])
+               warp_ms=0.0,
+               buckets=[], route_max_abs_err=dict.fromkeys(fbc.ROUTES, 0.0))
     for g in range(model.buckets.n_buckets):
         args = bucket_inputs(model, g, M, gen)
         got = fbc.fused_block(*args, a, b)
@@ -458,6 +510,14 @@ def kernel_phase(model, seed: int) -> dict:
         rec["max_abs_err"] = max(rec["max_abs_err"], _max_abs_err(got, want))
         k_ms = _batch_ms(lambda: fbc.fused_block(*args, a, b), 20)
         c_ms = _median_ms(lambda: fbc.fused_block(*args, a, b), 20)
+        # the warp route on the same inputs, which it also takes: is the
+        # staged route still the faster at the main path's shapes?
+        w_got = fbc._launch("warp", *args, a, b)
+        torch.cuda.synchronize()
+        _check(_bitwise(w_got, want), f"warp route == plain version, bucket {g}")
+        rec["route_max_abs_err"]["warp"] = max(rec["route_max_abs_err"]["warp"],
+                                               _max_abs_err(w_got, want))
+        w_ms = _batch_ms(lambda: fbc._launch("warp", *args, a, b), 20)
         p_ms = _median_ms(lambda: fbc.fused_block_torch(*args, a, b), 3)
         st = model.counts
         tv, tf, li = model._toks_v_t[g], model._toks_f_t[g], model.lab_ids_t[g]
@@ -470,10 +530,11 @@ def kernel_phase(model, seed: int) -> dict:
         steps = M * int((args[1] > 0).sum(dim=0).max())
         print(f"bucket {g}: D={D} U={U} A={A} M={M}  kernel {k_ms:.4f} ms on the "
               f"card ({c_ms:.4f} ms per call), {steps} chain steps, "
-              f"{1e6 * k_ms / steps:.1f} ns per step  plain {p_ms:.2f} ms  bound "
-              f"{1e3 * max(by_bytes, by_ops):.5f} ms  gather {g_ms:.4f} ms  scatter "
-              f"{s_ms:.4f} ms  bitwise equal")
+              f"{1e6 * k_ms / steps:.1f} ns per step  warp route {w_ms:.4f} ms  plain "
+              f"{p_ms:.2f} ms  bound {1e3 * max(by_bytes, by_ops):.5f} ms  gather "
+              f"{g_ms:.4f} ms  scatter {s_ms:.4f} ms  bitwise equal")
         rec["ms"] += k_ms
+        rec["warp_ms"] += w_ms
         rec["call_ms"] += c_ms
         rec["plain_ms"] += p_ms
         rec["gather_ms"] += g_ms
@@ -482,7 +543,8 @@ def kernel_phase(model, seed: int) -> dict:
         rec["ops_s"] += by_ops
         rec["bound_ms"] += 1e3 * max(by_bytes, by_ops)
         rec["chain_steps"] += steps
-        rec["buckets"].append(dict(D=D, U=U, A=A, steps=steps, ms=k_ms, call_ms=c_ms,
+        rec["buckets"].append(dict(D=D, U=U, A=A, steps=steps, ms=k_ms, warp_ms=w_ms,
+                                   call_ms=c_ms,
                                    ns_per_step=1e6 * k_ms / steps,
                                    bound_ms=1e3 * max(by_bytes, by_ops)))
     rec["ns_per_step"] = 1e6 * rec["ms"] / rec["chain_steps"]
@@ -493,20 +555,26 @@ def kernel_phase(model, seed: int) -> dict:
     for i, (name, shape) in enumerate(edge_cases().items()):
         args = block_case(DEVICE, seed + i, *shape)
         D, U, A, M_e = shape[:4]
-        general = fbc.general_launches
+        before = _route_counts(fbc)
         got = fbc.fused_block(*args, a, b)
+        ran = _launched_on(fbc, before)
         want = fbc.fused_block_torch(*args, a, b)
         torch.cuda.synchronize()
         _check(_bitwise(got, want), f"kernel == plain version, {name}")
         route = fbc.route(U, A)
-        _check((fbc.general_launches - general == 1) == (route == "general"),
-               f"{name}: launched on the {route} route")
+        _check(ran == route, f"{name}: launched on the {ran} route, route() names {route}")
+        rec["route_max_abs_err"][ran] = max(rec["route_max_abs_err"][ran],
+                                            _max_abs_err(got, want))
         if shape[-1]:
             _check(torch.equal(got[0][:, 0], args[3][:, 0]) and _bitwise([got[1][:, 0]],
                    [args[6][:, 0]]), f"{name}: the all-zero document is unchanged")
         rec["max_abs_err"] = max(rec["max_abs_err"], _max_abs_err(got, want))
         print(f"{name} (D={D} U={U} A={A} M={M_e}, {route} route): bitwise equal")
-    rec.update(general_route_timing(seed, a, b))
+    timed = route_timing(seed, a, b)
+    for kernel in TIMED_ROUTES:
+        rec["route_max_abs_err"][kernel] = max(rec["route_max_abs_err"][kernel],
+                                               timed.pop(f"{kernel}_max_abs_err"))
+    rec["timed"] = timed
 
     # one whole merge block of the first bucket: card (kernel, gather and
     # scatter on CUDA) against CPU (plain version), the same uniforms
@@ -528,7 +596,8 @@ def kernel_phase(model, seed: int) -> dict:
     print(f"per merge block ({model.buckets.n_buckets} buckets): kernel "
           f"{rec['ms']:.4f} ms on the card ({rec['call_ms']:.4f} ms per call), "
           f"{rec['chain_steps']} chain steps, {rec['ns_per_step']:.1f} ns per step, "
-          f"plain {rec['plain_ms']:.2f} ms, bound "
+          f"the warp route on the same inputs {rec['warp_ms']:.4f} ms "
+          f"({rec['warp_ms'] / rec['ms']:.2f}x), plain {rec['plain_ms']:.2f} ms, bound "
           f"{rec['bound_ms']:.5f} ms ({rec['bound_by']}; "
           f"{rec['bytes_s'] * HBM_BYTES_PER_S / 1e6:.1f} MB, "
           f"{rec['ops_s'] * FP32_FLOP_PER_S / 1e9:.3f} GFLOP), gather "
@@ -536,44 +605,66 @@ def kernel_phase(model, seed: int) -> dict:
     return rec
 
 
-# (D, U, A, M) of the general route's timed shapes: LocalLDA at K = 50 on
-# the abstracts (one bucket, merge every sweep), and a 1,024-position bucket
-# at 32 slots, past the staged route's limit
+# (D, U, A, M) of the warp route's timed shapes: LocalLDA at K = 50 and at
+# K = 100 on the abstracts (one bucket, merge every sweep), and a
+# 1,024-position bucket at 32 slots, past the staged route's limit
 WIDE_SLOT_SHAPE = (4635, 128, 56, 1)
 STREAMED_SHAPE = (4635, 1024, 32, 1)
+K100_SHAPE = (4635, 128, 104, 1)
+TIMED_SHAPES = {"wide_slot": WIDE_SLOT_SHAPE, "streamed": STREAMED_SHAPE, "k100": K100_SHAPE}
+TIMED_ROUTES = ("warp", "general")
 
 
-def general_route_timing(seed: int, alpha: float, beta: float) -> dict:
-    """Device ms per launch of the general route at ``WIDE_SLOT_SHAPE`` and
-    ``STREAMED_SHAPE`` (CUDA events around 10 back-to-back launches), beside
-    ``bound`` and the plain version's time; each bitwise against the plain
-    version first."""
+def route_timing(seed: int, alpha: float, beta: float) -> dict:
+    """Device ms per launch of the warp route and of the general (CTA)
+    route, side by side, at each of ``TIMED_SHAPES`` (the warp route's by
+    ``route()``): each route bitwise against the plain version first, then
+    CUDA events around 10 back-to-back launches, in the order warp, general,
+    general, warp (each route's time the mean of its two); beside them the
+    chain steps, ns per step, ``bound`` and the plain version's time."""
     import torch
 
     from lda_thesis_tpu_torch.ops import fused_block_cuda as fbc
 
-    out = {}
-    for key, (D, U, A, M) in (("wide_slot", WIDE_SLOT_SHAPE), ("streamed", STREAMED_SHAPE)):
+    out = {f"{kernel}_max_abs_err": 0.0 for kernel in TIMED_ROUTES}
+    for key, (D, U, A, M) in TIMED_SHAPES.items():
         args = block_case(DEVICE, seed + A, D, U, A, M, gaps=0.0)
-        _check(fbc.route(U, A) == "general", f"{key}: the general route's shape")
-        got = fbc.fused_block(*args, alpha, beta)
+        _check(fbc.route(U, A) == "warp", f"{key}: the warp route's shape")
         t0 = time.perf_counter()
         want = fbc.fused_block_torch(*args, alpha, beta)
         torch.cuda.synchronize()
         plain_ms = 1e3 * (time.perf_counter() - t0)
-        _check(_bitwise(got, want), f"kernel == plain version, {key} (D={D} U={U} A={A})")
-        ms = _batch_ms(lambda: fbc.fused_block(*args, alpha, beta), 10)
+        for kernel in TIMED_ROUTES:
+            got = fbc._launch(kernel, *args, alpha, beta)
+            torch.cuda.synchronize()
+            _check(_bitwise(got, want), f"{kernel} route == plain version, {key} "
+                                        f"(D={D} U={U} A={A})")
+            out[f"{kernel}_max_abs_err"] = max(out[f"{kernel}_max_abs_err"],
+                                               _max_abs_err(got, want))
+        times = {kernel: [] for kernel in TIMED_ROUTES}
+        for kernel in TIMED_ROUTES + TIMED_ROUTES[::-1]:
+            times[kernel].append(
+                _batch_ms(lambda: fbc._launch(kernel, *args, alpha, beta), 10))
         by_bytes, by_ops = bound(args)
+        bound_ms = 1e3 * max(by_bytes, by_ops)
         steps = M * int((args[1] > 0).sum(dim=0).max())
-        out[f"{key}_ms"] = ms
-        out[f"{key}_bound_ms"] = 1e3 * max(by_bytes, by_ops)
+        out[f"{key}_shape"] = [D, U, A, M]
+        out[f"{key}_steps"] = steps
+        out[f"{key}_bound_ms"] = bound_ms
         out[f"{key}_bound_by"] = "operations" if by_ops >= by_bytes else "bytes"
         out[f"{key}_plain_ms"] = plain_ms
-        out[f"{key}_ns_per_step"] = 1e6 * ms / steps
-        print(f"general route, {key} (D={D} U={U} A={A} M={M}): {ms:.4f} ms per launch on "
-              f"the card, {steps} chain steps, {1e6 * ms / steps:.1f} ns per step, bound "
-              f"{out[f'{key}_bound_ms']:.5f} ms ({out[f'{key}_bound_by']}), plain "
-              f"{plain_ms:.2f} ms, bitwise equal")
+        for kernel in TIMED_ROUTES:
+            ms = float(np.mean(times[kernel]))
+            out[f"{key}_{kernel}_ms"] = ms
+            out[f"{key}_{kernel}_runs_ms"] = times[kernel]
+            out[f"{key}_{kernel}_ns_per_step"] = 1e6 * ms / steps
+            print(f"{kernel} route, {key} (D={D} U={U} A={A} M={M}): {ms:.4f} ms per launch "
+                  f"on the card ({' / '.join(f'{t:.4f}' for t in times[kernel])}), {steps} "
+                  f"chain steps, {1e6 * ms / steps:.1f} ns per step, bound {bound_ms:.5f} ms "
+                  f"({out[f'{key}_bound_by']}), {ms / bound_ms:.1f}x the bound; plain "
+                  f"{plain_ms:.2f} ms; bitwise equal")
+        print(f"{key}: the warp route takes {out[f'{key}_warp_ms'] / out[f'{key}_general_ms']:.3f}"
+              f" of the general route's time")
         del args, got, want
     return out
 
@@ -1522,7 +1613,7 @@ def local_lda_phase(seed: int) -> dict:
     """LocalLDA as a user runs it: its CLI on a CSV of the planted corpus at
     the abstracts' vocabulary (each abstract one sentence document, one
     bucket of U = 128), at its defaults (K = 20, fused, M = 1), with
-    ``--sweep dense`` and with ``-k 50`` (the general route); the kernel
+    ``--sweep dense`` and with ``-k 50`` (the warp route); the kernel
     counters are set to 0 just before each run and read just after.  After
     each run, one block of its trained state on the card against the CPU;
     and a save/restore round trip of the LocalLDA checkpoint."""
@@ -1536,7 +1627,8 @@ def local_lda_phase(seed: int) -> dict:
     from lda_thesis_tpu_torch.utils.checkpoint import restore_model, save_model
 
     def counters_zero():
-        fbc.launches = fbc.general_launches = duc.launches = duc.commit_launches = 0
+        fbc.launches = fbc.warp_launches = fbc.general_launches = 0
+        duc.launches = duc.commit_launches = 0
 
     def check_model(m, what):
         _check_counts(m.counts, float(m.n_tokens), what)
@@ -1556,14 +1648,15 @@ def local_lda_phase(seed: int) -> dict:
                       flags + ["-i", str(LOCAL_ITERS), "-s", str(LOCAL_THINNING)])
         m = res["model"]
         n_buckets = m.buckets.n_buckets
-        launches = (fbc.launches, fbc.general_launches, duc.launches, duc.commit_launches)
+        launches = (fbc.launches, fbc.warp_launches, fbc.general_launches, duc.launches,
+                    duc.commit_launches)
         _check(m.K == 20 and m.A == 24 and m._merge_M == 1 and n_buckets == 1,
                f"LocalLDA CLI defaults: K 20, A 24, M 1, one bucket ({m.K}, {m.A}, "
                f"{m._merge_M}, {n_buckets})")
-        _check(launches == (LOCAL_ITERS, 0, 0, 0)
+        _check(launches == (LOCAL_ITERS, 0, 0, 0, 0)
                and res["launches"]["fused_block"] == LOCAL_ITERS,
                f"LocalLDA CLI: {LOCAL_ITERS} kernel-1 launches on the staged route, no "
-               f"other (kernel 1, general, draw, commit: {launches})")
+               f"other (kernel 1, warp, general, draw, commit: {launches})")
         perp = check_model(m, "LocalLDA CLI fused")
         _check(perp == res["perplexity"], "LocalLDA CLI: its perplexity")
         shape = (m.D, m.V, tuple(m.counts.z[0].shape))
@@ -1624,17 +1717,17 @@ def local_lda_phase(seed: int) -> dict:
         counters_zero()
         res, _ = _cli(evaluate_local_lda.main, flags + short + ["-k", "50"])
         m = res["model"]
-        launches = (fbc.launches, fbc.general_launches)
-        _check(m.A == 56 and launches == (LOCAL_SHORT, LOCAL_SHORT),
-               f"LocalLDA CLI -k 50: A 56, every kernel-1 launch on the general route "
-               f"(A {m.A}, launches {launches})")
+        launches = (fbc.launches, fbc.warp_launches, fbc.general_launches)
+        _check(m.A == 56 and launches == (LOCAL_SHORT, LOCAL_SHORT, 0),
+               f"LocalLDA CLI -k 50: A 56, every kernel-1 launch on the warp route "
+               f"(A {m.A}; launches, warp, general {launches})")
         perp50 = check_model(m, "LocalLDA CLI -k 50")
         print(f"LocalLDA CLI -k 50 ({LOCAL_SHORT}; {LOCAL_THINNING}): A = {m.A}, "
-              f"{launches[1]} kernel-1 launches on the general route; perplexity "
+              f"{launches[1]} kernel-1 launches on the warp route; perplexity "
               f"{perp50:.2f}; wall by step "
               f"{json.dumps({k: round(v, 4) for k, v in _local_steps(res).items()})}")
         rec["k50"] = dict(launches=launches[1], perplexity=perp50, wall_s=_local_steps(res))
-        _local_card_equals_cpu(m, seed + 4, "LocalLDA K = 50 (general route)")
+        _local_card_equals_cpu(m, seed + 4, "LocalLDA K = 50 (warp route)")
     return rec
 
 
@@ -2260,7 +2353,7 @@ def md_ranks(corpus, dicti, seed: int) -> dict:
     from lda_thesis_tpu_torch.parallel.launch import spawn
 
     base = dict(docs=corpus.train_docs, labs=corpus.train_labs, labelset=corpus.labelset,
-                device=DEVICE, steps=[MD_SHORT + (None,)], estimators=False)
+                steps=[MD_SHORT + (None,)], estimators=False)
     kw = dict(alpha=0.1, beta=0.01, seed=seed)
     jobs = "lda_thesis_tpu_torch.parallel.jobs:multi_job"
     t0 = time.perf_counter()
@@ -2482,6 +2575,37 @@ def multi_device_phase(seed: int, card: str) -> dict:
     return rec
 
 
+def warp_record(rec: dict, local: dict, ptxas: dict) -> dict:
+    """The warp route's line of the kernel records: its launches on its
+    main path (LocalLDA ``-k 50``, phase 10), its time, bound and plain
+    version at ``WIDE_SLOT_SHAPE``, and both routes' at every timed shape."""
+    from lda_thesis_tpu_torch.ops.fused_block_cuda import WARP_ROWS_MAX
+
+    t = rec["timed"]
+    return {
+        "name": "fused_block_warp",
+        "route": "cuda",
+        "source": SOURCE,
+        "replaces": REPLACES,
+        "launches": local["k50"]["launches"],
+        "bitwise_equal": True,
+        "max_abs_err": rec["route_max_abs_err"]["warp"],
+        "ms": t["wide_slot_warp_ms"],
+        "plain_ms": t["wide_slot_plain_ms"],
+        "bound_ms": t["wide_slot_bound_ms"],
+        "bound_by": t["wide_slot_bound_by"],
+        "library_ms": None,
+        "per": f"launch of the warp route at (D, U, A, M) = {WIDE_SLOT_SHAPE} (LocalLDA "
+               "K = 50); device time from CUDA events around 10 back-to-back launches, "
+               "the mean of two runs; *_general_ms the general (CTA) route's at the same "
+               "inputs in the same run; launches are LocalLDA -k 50's (20; 10)",
+        "rows_max": WARP_ROWS_MAX,
+        "ptxas": ptxas,
+        "timed": t,
+        "local_lda_k50_wall_s": local["k50"]["wall_s"],
+    }
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2498,6 +2622,7 @@ def main(argv=None) -> int:
     from lda_thesis_tpu_torch.ops import draw_update_cuda as duc
     from lda_thesis_tpu_torch.ops import fused_block_cuda as fbc
 
+    warp_ptxas = {}  # filled by a build in this run
     seconds = {}
     clock = [time.perf_counter()]
 
@@ -2528,6 +2653,13 @@ def main(argv=None) -> int:
             for line in log.splitlines():
                 if "registers" in line or "spill" in line:
                     print("  " + line.strip())
+            if name == "fused_block" and log:  # a build in this run: ptxas spoke
+                warp_ptxas = warp_route_ptxas(log)
+                _check(sorted(warp_ptxas) == list(range(1, fbc.WARP_ROWS_MAX + 1))
+                       and all(v["spill_stores"] == 0 for v in warp_ptxas.values()),
+                       f"the warp route's S = 1..{fbc.WARP_ROWS_MAX} build with no spill "
+                       f"stores ({warp_ptxas})")
+                print(f"warp route, ptxas by rows S: {json.dumps(warp_ptxas)}")
     phase_done("build")
 
     # 3. merge-block kernel against its plain version
@@ -2607,8 +2739,10 @@ def main(argv=None) -> int:
         "bound_by": rec["bound_by"],
         "library_ms": None,
         "per": "merge block (4 bucket launches, M=25); ms is device time "
-               "(CUDA events around 20 back-to-back calls), call_ms the calls'",
+               "(CUDA events around 20 back-to-back calls), call_ms the calls', "
+               "warp_ms the warp route's on the same inputs",
         "call_ms": rec["call_ms"],
+        "warp_ms": rec["warp_ms"],
         "chain_steps": rec["chain_steps"],
         "ns_per_step": rec["ns_per_step"],
         "buckets": rec["buckets"],
@@ -2630,19 +2764,8 @@ def main(argv=None) -> int:
         "kill_resume_bitwise_arrays": product["checkpoint"]["arrays"],
         "trace_records": product["trace"]["kernel1_records"],
         "launches_local_lda": local["fused"]["launches"],
-        "launches_local_lda_k50_general": local["k50"]["launches"],
-        "wide_slot_ms": rec["wide_slot_ms"],
-        "wide_slot_bound_ms": rec["wide_slot_bound_ms"],
-        "wide_slot_plain_ms": rec["wide_slot_plain_ms"],
-        "wide_slot_ns_per_step": rec["wide_slot_ns_per_step"],
-        "streamed_ms": rec["streamed_ms"],
-        "streamed_bound_ms": rec["streamed_bound_ms"],
-        "streamed_plain_ms": rec["streamed_plain_ms"],
-        "streamed_ns_per_step": rec["streamed_ns_per_step"],
-        "general_route_per": "launch of the general route at (D, U, A, M) = "
-                             f"{WIDE_SLOT_SHAPE} (wide_slot) and {STREAMED_SHAPE} "
-                             "(streamed); device time from CUDA events around 10 "
-                             "back-to-back launches",
+        "staged_max_abs_err": rec["route_max_abs_err"]["staged"],
+        "general_max_abs_err": rec["route_max_abs_err"]["general"],
         "local_lda": local,
         "launches_multi_device": md["trainer"]["launches"],
         "launches_multi_device_cli_n_chains_8": md["cli"]["n_chains_launches"],
@@ -2697,7 +2820,7 @@ def main(argv=None) -> int:
         "cli_cascade_auc_by_depth": product["cascade"]["aucs"],
         "cli_cascade_s": product["cascade"]["seconds"],
         "launches_multi_device_dense": md["dense"]["launches"],
-    }, {
+    }, warp_record(rec, local, warp_ptxas), {
         "name": "count_commit",
         "route": "cuda",
         "source": DRAW_SOURCE,

@@ -10,7 +10,7 @@ with every topic admissible:
   to 8, ``lab_ids[d, a] = a`` on valid slots and 0 on pad slots.  The
   port's ``gather_cv`` is an exact element gather, so these identity slots
   need no gather of their own.  One kernel-1 launch per bucket per block on
-  a card; A > 32 (K > 32) takes the kernel's general route.
+  a card; A > 32 (K > 32) takes the kernel's warp route up to A = 256.
 * ``sweep="dense"``: the exact per-position sweep (ops/gibbs.ExactSweep:
   the commit and draw kernels under a CUDA graph on a card) with an
   all-ones mask over K and zeros up to Kp.

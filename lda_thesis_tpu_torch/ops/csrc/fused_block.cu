@@ -78,43 +78,83 @@
 // fused_block_max_positions(A) gives the largest U whose shared memory fits
 // one CTA on the current device (563 at A = 32 on an H100).
 //
-// The general route (fused_block_general_kernel) takes every other shape:
-// any A, any U, with the same arithmetic and the same scan order, so the two
-// routes give the same bits where both apply.  The wrapper sends a launch
-// there when A > 32 or U > fused_block_max_positions(A).
-//   * A CTA still owns one document; thread t owns slot t (and, past 1,024
-//     slots, slots t + T, t + 2T, ...), T = 32 * ceil(A / 32) threads, at
-//     most 1,024.  Each warp scans its slots in groups of eight lanes with
-//     the staged kernel's shuffles.
-//   * The group totals go to shared memory and, after a barrier, every
-//     thread forms the sequential prefix P[h] = P[h-1] + T[h-1] itself over
-//     the ceil(A/8) groups (the staged kernel's P[3] = (T0+T1)+T2 is this
-//     chain's fourth term); the draw is a count across the CTA (a warp
-//     reduction, then the warps' counts through shared memory after a
-//     second barrier).  Only the owners of the two slots a draw touches
-//     update n_dk.  One step path serves every A, one warp included.
-//   * Nothing of the document is staged: each step reads its scalars (f,
-//     block-start and current slot, uniform) and cv row from global memory
-//     (L2), the next position's loaded a step ahead and the cv rows
-//     prefetched into L2 four positions ahead.  (Staging chunks of 32
-//     positions' scalars in shared memory, a chunk ahead, was no faster on
-//     the H100: at the timed shapes an SM holds 32-64 of these warps, and
-//     the step's instruction count rather than these loads appears to set
-//     the time.)  The walk covers the positions
-//     up to the document's last one with f > 0, skipping those with
-//     f == 0, so U has no limit.  The reciprocal of a slot's total is
-//     formed once per launch; only the slot of the position's own token
-//     forms rcp_rn(nk - f) in the step, as the staged kernel does for it.
-//   * Slot t's n_dk and constants stay in registers.  The other slots'
-//     state, the scan values and the group totals live in shared memory,
-//     about 20.5 bytes per slot; past the card's limit (about 11,000 slots
-//     on an H100) the wrapper hands the kernel a scratch buffer in global
-//     memory instead, so A has no limit either.
-// Its bound is the function's, as above: the work and the bytes do not
-// change with the route.  Its chain step is longer than the staged route's
-// by the two barriers, the prefix over the groups and the shared-memory
-// round trips of the totals; and a step waits for its operands where the
-// loads ahead have not landed.
+// The warp route (fused_block_warp_kernel<S>) replaces the same TPU kernel
+// for 32 < A <= 32 * S_MAX slots at any U, and for A <= 32 where U >
+// fused_block_max_positions(A): every LocalLDA run at K > 32 (A = 56, 104
+// and 200 at K = 50, 100 and 200), and label sets or documents the staged
+// route cannot hold.  S_MAX = kWarpRowsMax = 8 (A <= 256): ptxas reports no
+// spill stores for any of S = 1..8 (nvcc -Xptxas -v; chip_smoke.py's build
+// phase checks it).  Its bound is the function's, as above: the work and
+// the bytes do not change with the route (chip_smoke.bound counts them for
+// a launch).  Its chain step, for S = ceil(A/32) rows: the owner's update
+// and the weight (five dependent float operations), three shuffle-and-add
+// scan levels, the group totals' round of shuffles, 4·S - 1 sequential
+// prefix adds, a select and an add, one shuffle of c[A-1] and a multiply,
+// a compare, ballot and popc per row and their sum, and the update's
+// compare, select and add: some 300 cycles at S = 2, so its chain floor is
+// about 0.15 us per draw of the longest document at 1.98 GHz (19 us at
+// U = 128, 0.15 ms at U = 1,024).  With tens of documents per SM the
+// instruction throughput, not that chain, sets the time: about 40 warp instructions per row
+// of slots and 20 more per step.  What the design does about both:
+//   * One warp per document and no block barrier.  Lane l owns slots
+//     l + 32·j, j < S (S a template parameter, 1..S_MAX); its n_dk, valid
+//     and rcp_rn(n_k) are register arrays with compile-time indices.  Each
+//     row of 32 slots runs the staged kernel's three shuffle levels in
+//     groups of eight lanes; the 4·S group totals come by shuffles from
+//     lanes 7, 15, 23 and 31 of each row, all in one round, and every
+//     lane forms the sequential prefix P[h] = P[h-1] + T[h-1] in registers
+//     and takes its group's P by selects: the plain version's order, bit
+//     for bit.  u·c[A-1] takes slot A-1's prefixed sum by one shuffle, and
+//     the new slot is the sum over rows of popc(ballot(c < r)), the last
+//     row masked to the lanes below A.
+//   * The cv rows stream ahead of the chain.  A chunk of C consecutive
+//     positions is C·A·4 contiguous bytes of the (D, U, A) layout; C is a
+//     power of two up to 32 sized by A (warp_chunk_positions: buffers of
+//     2 KB, or 8 rows up to 4 KB), so the two-buffer ring holds 4-8 KB per
+//     warp.  Lane 0 brings each chunk in with one cp.async.bulk on its
+//     buffer's mbarrier, a chunk ahead (a 4-byte cp.async per element where
+//     A·4 is not a multiple of 16).  A walk of at most two chunks stays
+//     resident across the M sweeps.
+//   * The per-position scalars (f, block-start slot, live slot, uniform)
+//     are D floats apart, too narrow a stride for TMA: lane i loads those of
+//     position base + i for the next 32 positions a chunk of 32 ahead, and
+//     forms rcp_rn(n_k[zb] - f) for it from the totals in shared memory.  A
+//     step takes them by shuffles from lane p - base.  The live slot stays
+//     in that lane's register and goes to z_out once per 32 positions and
+//     sweep.
+//   * The step loop has no branch, no barrier and no wait: it runs over one
+//     ring chunk (a segment, inside one chunk of 32 positions), and the next
+//     position's cv row and scalars are loaded while the count is in
+//     flight.  Between segments: the wait for the next chunk, the refill
+//     of the one just read, the write-back and the next 32 scalars.  (A
+//     branch on f, a wait or a division inside the loop made ptxas guard
+//     every shuffle with a divergence check and split the loop there, so
+//     that the loads of a step waited on one another.)  A position with
+//     f == 0 is computed and its draw discarded, as in the plain version:
+//     the same bits.
+//   * The walk ends at the document's last position with f > 0; when it is
+//     one position long, the next segment is the same position and reads
+//     the slot this step drew.
+//   * One warp (one document) per CTA: two and four independent warps per
+//     CTA were no faster across the timed shapes on the H100 (PERF.md).
+//
+// The CTA route (fused_block_general_kernel) keeps only A > 32 * S_MAX
+// slots, at any U, with the same arithmetic and scan order.
+//   * A CTA owns one document; thread t owns slot t (and, past 1,024 slots,
+//     slots t + T, t + 2T, ...), T = 32 * ceil(A / 32) threads, at most
+//     1,024.  Each warp scans its slots in groups of eight lanes; the group
+//     totals go to shared memory and, after a barrier, every thread forms
+//     the sequential prefix over the ceil(A/8) groups; the draw is a count
+//     across the CTA (a warp reduction, then the warps' counts through
+//     shared memory after a second barrier).
+//   * Each step reads its scalars and cv row from global memory (L2), the
+//     next position's a step ahead, the cv rows prefetched into L2 four
+//     positions ahead.  Slot t's n_dk and constants stay in registers, the
+//     other slots' state in shared memory, about 20.5 bytes per slot; past
+//     the card's limit (about 11,000 slots on an H100) the wrapper hands
+//     the kernel a scratch buffer in global memory instead, so A has no
+//     limit.  Two barriers and a serial prefix per step make it about 13x
+//     its bound (PERF.md).
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -540,6 +580,332 @@ fused_block_general_kernel(const float* __restrict__ cv,     // (D, U, A)
   for (int a = t + T; a < A; a += T) ndk_out[(size_t)a * D + d] = ndk[a];
 }
 
+// --------------------------------------------------------------- warp route
+
+constexpr int kWarpRowsMax = 8;        // S_MAX: rows of 32 slots, A <= 256
+constexpr int kRingBufs = 2;           // cv chunks in flight per warp
+constexpr size_t kChunkBytes = 2048;   // cv bytes per ring buffer, as a rule
+
+// Positions per cv chunk: a power of two up to 32 (so that chunks tile the
+// 32-position scalar chunks), the most whose rows fit kChunkBytes, but 8
+// where 8 rows fit twice that (A <= 128): a chunk's first step waits and
+// loads its operands unpipelined, and at C = 4 that cost shows.
+__host__ __device__ inline int warp_chunk_positions(int A) {
+  int C = 32;
+  while (C > 1 && (size_t)C * A * 4 > kChunkBytes) C >>= 1;
+  return C < 8 && (size_t)8 * A * 4 <= 2 * kChunkBytes ? 8 : C;
+}
+
+__host__ __device__ inline size_t warp_buf_bytes(int A) {
+  return round16((size_t)warp_chunk_positions(A) * A * 4);
+}
+
+// Per warp: the ring, the block-start totals (A floats), one mbarrier per
+// buffer; a multiple of 16 bytes.
+__host__ __device__ inline size_t warp_smem_bytes(int A) {
+  return kRingBufs * warp_buf_bytes(A) + round16((size_t)A * 4) + kRingBufs * 8;
+}
+
+__device__ inline void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+__device__ inline void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+  }
+}
+
+// The first half of a warp-route draw at a position of frequency fp, live
+// slot zo and block-start slot zb, with rz = rcp_rn(n_k[zb] - fp) and the
+// position's cv values cvv: leaves n_dk minus the own count in ndk, every
+// slot's prefixed sum in c and u * c[A-1] in r.  g0..g2: the lane's group
+// of eight within its row.
+template <int S>
+__device__ __forceinline__ void warp_weigh(float (&ndk)[S], const float (&vl)[S],
+                                           const float (&r0)[S], const float (&cvv)[S],
+                                           float fp, int zo, int zb, float u, float rz,
+                                           int lane, int last_lane, bool g0, bool g1, bool g2,
+                                           float alpha, float beta, float (&c)[S], float& r) {
+  float l[S];
+#pragma unroll
+  for (int j = 0; j < S; ++j) {
+    const int a = lane + 32 * j;
+    const bool own_slot = a == zb;
+    const float own = own_slot ? fp : 0.0f;
+    ndk[j] = ndk[j] - ((a == zo) ? fp : 0.0f);  // ndk_m
+    float w = vl[j] * (ndk[j] + alpha);
+    w = w * ((cvv[j] - own) + beta);
+    w = w * (own_slot ? rz : r0[j]);
+    l[j] = group_scan(w, lane);
+  }
+  // the group totals of every row, gathered together, then the sequential
+  // prefix P[h] = P[h-1] + T[h-1]
+  float P[4 * S];
+#pragma unroll
+  for (int j = 0; j < S; ++j)
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      P[4 * j + k] = __shfl_sync(kFullMask, l[j], kGroup * k + kGroup - 1);
+#pragma unroll
+  for (int h = 4 * S - 1; h > 0; --h) P[h] = P[h - 1];  // P[h] holds T[h-1]
+  P[0] = 0.0f;
+#pragma unroll
+  for (int h = 1; h < 4 * S; ++h) P[h] = P[h - 1] + P[h];
+#pragma unroll
+  for (int j = 0; j < S; ++j) {
+    const float before = g0 ? P[4 * j] : g1 ? P[4 * j + 1] : g2 ? P[4 * j + 2] : P[4 * j + 3];
+    c[j] = before + l[j];
+  }
+  r = u * __shfl_sync(kFullMask, c[S - 1], last_lane);  // u * c[A-1]
+}
+
+// The draw's second half: the number of slots below A with c < r.
+template <int S>
+__device__ __forceinline__ int warp_count(const float (&c)[S], float r, unsigned last_bits) {
+  int zn = 0;
+#pragma unroll
+  for (int j = 0; j < S; ++j) {
+    unsigned bits = __ballot_sync(kFullMask, c[j] < r);
+    if (j + 1 == S) bits &= last_bits;
+    zn += __popc(bits);
+  }
+  return zn;
+}
+
+// A ring buffer's row: the lane's S cv values (none past slot A-1).
+template <int S>
+__device__ __forceinline__ void load_row(float (&cvv)[S], const float* row, int A, int lane) {
+#pragma unroll
+  for (int j = 0; j < S; ++j) {
+    const int a = lane + 32 * j;
+    cvv[j] = (j + 1 < S || a < A) ? row[a] : 0.0f;
+  }
+}
+
+// Chunk k of the walk into ring buffer b: one bulk copy by lane 0 on the
+// buffer's mbarrier, or a 4-byte cp.async per element and one commit group
+// per lane.
+__device__ __forceinline__ void ring_fill(int k, int b, int C, int walk, int A,
+                                           const float* cv_doc, float* ring,
+                                           size_t buf_floats, uint64_t* bar, bool bulk,
+                                           int lane) {
+  const int p0 = k * C, np = min(C, walk - p0);
+  const float* src = cv_doc + (size_t)p0 * A;
+  float* dst = ring + b * buf_floats;
+  if (bulk) {
+    if (lane == 0) {
+      const uint32_t bytes = (uint32_t)(np * A * 4);
+      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                   :: "r"(smem_addr(bar + b)), "r"(bytes) : "memory");
+      asm volatile(
+          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+          "[%0], [%1], %2, [%3];\n"
+          :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar + b))
+          : "memory");
+    }
+  } else {
+    for (int e = lane; e < np * A; e += 32) cp_async4(dst + e, src + e);
+    cp_async_commit();
+  }
+}
+
+// Waits for ring chunk g; `later` says whether chunk g + 1 was requested.
+__device__ __forceinline__ void ring_wait(int g, bool later, uint64_t* bar, bool bulk) {
+  if (bulk) {
+    mbar_wait(bar + g % kRingBufs, (uint32_t)((g / kRingBufs) & 1));
+  } else {
+    if (later) cp_async_wait_one();
+    else cp_async_wait_all();
+    __syncwarp();
+  }
+}
+
+// The scalars of position sc*32 + lane in sweep m (none past the walk): f,
+// block-start slot, live slot (z0's in sweep 0; z_out's after, unless the
+// walk is one chunk of 32, whose live slots stay in registers) and uniform.
+__device__ __forceinline__ void fetch_scalars(int m, int sc, int nsc, int walk, int U,
+                                              int D, int d, int lane,
+                                              const float* __restrict__ f,
+                                              const int* __restrict__ z0,
+                                              const float* __restrict__ uni,
+                                              const int* z_out, float& fv, int& zb,
+                                              int& zl, float& uv) {
+  const int q = sc * 32 + lane;
+  fv = 0.0f, zb = 0, zl = 0, uv = 0.0f;
+  if (q < walk) {
+    const size_t o = (size_t)q * D + d;
+    fv = f[o];
+    zb = z0[o];
+    zl = m == 0 ? zb : nsc > 1 ? z_out[o] : 0;
+    uv = uni[((size_t)m * U + q) * D + d];
+  }
+}
+
+// One warp per CTA, one document per warp.  The explicit minimum of one CTA
+// per SM lets ptxas give each S the registers it needs: with the thread
+// bound alone it held S = 2 to 60 registers, which ran slower on the H100,
+// and spilled at some S.
+template <int S>
+__global__ void __launch_bounds__(32, 1)
+fused_block_warp_kernel(const float* __restrict__ cv,     // (D, U, A)
+                        const float* __restrict__ f,      // (U, D)
+                        const float* __restrict__ uni,    // (M, U, D)
+                        const int* __restrict__ z0,       // (U, D)
+                        const float* __restrict__ nkg,    // (A, D), pre-biased
+                        const float* __restrict__ valid,  // (A, D)
+                        const float* __restrict__ ndk0,   // (A, D)
+                        int* z_out,                       // (U, D), the live z
+                        float* __restrict__ ndk_out,      // (A, D)
+                        int M, int U, int A, int D, float alpha, float beta) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lane = threadIdx.x, d = blockIdx.x;
+  const size_t buf_floats = warp_buf_bytes(A) / 4;
+  float* ring = reinterpret_cast<float*>(smem);
+  float* nk_s = ring + kRingBufs * buf_floats;  // (A,) block-start totals
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + kRingBufs * warp_buf_bytes(A) +
+                                              round16((size_t)A * 4));
+
+  // 1. per-slot registers (slot lane + 32 j); the totals to shared memory
+  float ndk[S], vl[S], r0[S];
+#pragma unroll
+  for (int j = 0; j < S; ++j) {
+    const int a = lane + 32 * j;
+    const bool in = a < A;
+    const float nka = in ? nkg[(size_t)a * D + d] : 1.0f;
+    ndk[j] = in ? ndk0[(size_t)a * D + d] : 0.0f;
+    vl[j] = in ? valid[(size_t)a * D + d] : 0.0f;
+    r0[j] = in ? __frcp_rn(nka) : 0.0f;
+    if (in) nk_s[a] = nka;
+  }
+
+  // 2. the walk: positions up to the last with f > 0; z_out of the rest
+  int last = -1;
+  for (int p = lane; p < U; p += 32)
+    if (f[(size_t)p * D + d] > 0.0f) last = p;
+  const int walk = __reduce_max_sync(kFullMask, last) + 1;
+  const bool walking = walk > 0 && M > 0;
+  for (int p = (walking ? walk : 0) + lane; p < U; p += 32)
+    z_out[(size_t)p * D + d] = z0[(size_t)p * D + d];
+
+  if (walking) {
+    const int C = warp_chunk_positions(A);
+    const int nck = (walk + C - 1) / C, nsc = (walk + 31) / 32;
+    const bool resident = nck <= kRingBufs;  // loaded once for all M sweeps
+    const int total = resident ? nck : M * nck;
+    const bool bulk = A % 4 == 0 && (reinterpret_cast<uintptr_t>(cv) & 15) == 0;
+    const float* cv_doc = cv + (size_t)d * U * A;
+    if (bulk && lane == 0) {
+      for (int b = 0; b < kRingBufs; ++b)
+        asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
+                     :: "r"(smem_addr(bar + b)) : "memory");
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncwarp();  // the barriers and nk_s are ready
+    for (int g = 0; g < min(kRingBufs, total); ++g)
+      ring_fill(g, g, C, walk, A, cv_doc, ring, buf_floats, bar, bulk, lane);
+
+    const int last_lane = (A - 1) & 31;
+    const unsigned last_bits = kFullMask >> (31 - last_lane);  // the last row's lanes below A
+    const int grp = lane / kGroup;
+    const bool g0 = grp == 0, g1 = grp == 1, g2 = grp == 2;
+
+    // Scalars: *_c of the 32 positions being read (lane i: position cb + i),
+    // *_n of the next 32, loaded a chunk ahead.
+    float f_n, u_n, f_c = 0.0f, u_c = 0.0f, rz_c = 0.0f;
+    int zb_n, zl_n, zb_c = 0, zl_c = 0;
+    fetch_scalars(0, 0, nsc, walk, U, D, d, lane, f, z0, uni, z_out, f_n, zb_n, zl_n, u_n);
+
+    // A segment is one ring chunk, positions [p0, p1), inside one chunk of
+    // 32: its loop makes no branch and no wait; the next position's
+    // operands are loaded a step ahead.
+    for (int m = 0; m < M; ++m) {
+      for (int k = 0; k < nck; ++k) {
+        const int p0 = k * C, p1 = min(p0 + C, walk);
+        if ((p0 & 31) == 0) {  // take the next 32 positions' scalars
+          f_c = f_n, u_c = u_n, zb_c = zb_n;
+          if (m == 0 || nsc > 1) zl_c = zl_n;  // one chunk of 32: its slots carry over
+          rz_c = __frcp_rn(nk_s[min(max(zb_c, 0), A - 1)] - f_c);
+          const int sc = p0 / 32 + 1;  // the 32 after these: (m, sc) or (m + 1, 0)
+          if (sc < nsc)
+            fetch_scalars(m, sc, nsc, walk, U, D, d, lane, f, z0, uni, z_out, f_n, zb_n,
+                          zl_n, u_n);
+          else if (m + 1 < M)
+            fetch_scalars(m + 1, 0, nsc, walk, U, D, d, lane, f, z0, uni, z_out, f_n, zb_n,
+                          zl_n, u_n);
+        }
+        const int g = resident ? k : m * nck + k;
+        if (!resident || m == 0) ring_wait(g, g + 1 < total, bar, bulk);
+        const float* row = ring + (g % kRingBufs) * buf_floats;  // position p's row
+        float cvv[S];
+        load_row<S>(cvv, row, A, lane);
+        const int i0 = p0 & 31;
+        float fp = __shfl_sync(kFullMask, f_c, i0), u = __shfl_sync(kFullMask, u_c, i0);
+        float rz = __shfl_sync(kFullMask, rz_c, i0);
+        int zo = __shfl_sync(kFullMask, zl_c, i0), zb = __shfl_sync(kFullMask, zb_c, i0);
+        // unrolled by two: ptxas then overlaps one step's tail with the
+        // next step's head (within a percent or two at S = 2, faster at
+        // S = 1 and 4 on the H100)
+#pragma unroll 2
+        for (int p = p0; p < p1; ++p) {
+          float c[S], r;
+          warp_weigh<S>(ndk, vl, r0, cvv, fp, zo, zb, u, rz, lane, last_lane, g0, g1, g2,
+                        alpha, beta, c, r);
+          // while the count is in flight: the next position's operands (the
+          // segment's last step loads its own again, unused)
+          const bool step = p + 1 < p1;
+          const int i = (p + step) & 31;
+          row += step ? A : 0;
+          load_row<S>(cvv, row, A, lane);
+          const float fp_n = __shfl_sync(kFullMask, f_c, i);
+          u = __shfl_sync(kFullMask, u_c, i);
+          rz = __shfl_sync(kFullMask, rz_c, i);
+          const int zo_n = __shfl_sync(kFullMask, zl_c, i);
+          zb = __shfl_sync(kFullMask, zb_c, i);
+          // the draw: a position with f == 0 keeps its slot (and adds 0)
+          int zn = warp_count<S>(c, r, last_bits);
+          zn = fp > 0.0f ? zn : zo;
+#pragma unroll
+          for (int j = 0; j < S; ++j) ndk[j] = ndk[j] + ((lane + 32 * j == zn) ? fp : 0.0f);
+          zl_c = lane == (p & 31) ? zn : zl_c;
+          fp = fp_n, zo = zo_n;
+        }
+        if ((p1 & 31) == 0 || p1 == walk) {  // write the 32 live slots back
+          const int cb = (p1 - 1) & ~31;
+          if (cb + lane < walk) z_out[(size_t)(cb + lane) * D + d] = zl_c;
+        }
+        if (!resident && g + kRingBufs < total) {  // refill the buffer
+          __syncwarp();  // every lane is done with chunk g's buffer
+          // chunk g + kRingBufs is chunk k + kRingBufs of the walk, wrapped
+          // (streaming means nck > kRingBufs, so one wrap at most)
+          const int k2 = k + kRingBufs < nck ? k + kRingBufs : k + kRingBufs - nck;
+          ring_fill(k2, g % kRingBufs, C, walk, A, cv_doc, ring, buf_floats, bar, bulk, lane);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < S; ++j) {
+    const int a = lane + 32 * j;
+    if (a < A) ndk_out[(size_t)a * D + d] = ndk[j];
+  }
+}
+
+template <int S>
+int warp_launch(size_t smem, cudaStream_t stream, const float* cv, const float* f,
+                const float* uni, const int* z0, const float* nkg, const float* valid,
+                const float* ndk0, int* z_out, float* ndk_out, int M, int U, int A, int D,
+                float alpha, float beta) {
+  fused_block_warp_kernel<S><<<D, 32, smem, stream>>>(
+      cv, f, uni, z0, nkg, valid, ndk0, z_out, ndk_out, M, U, A, D, alpha, beta);
+  return (int)cudaGetLastError();
+}
+
 // The device's shared memory per CTA (opt-in), or -1 on a CUDA error.
 int smem_limit() {
   int dev = 0, limit = 0;
@@ -597,6 +963,34 @@ extern "C" int fused_block_general_launch(const float* cv, const float* f,
       cv, f, uni, z0, nkg, valid, ndk0, z_out, ndk_out, scratch, M, U, A, D,
       alpha, beta);
   return (int)cudaGetLastError();
+}
+
+// S_MAX: the warp route takes A <= 32 * fused_block_warp_rows_max() slots.
+extern "C" int fused_block_warp_rows_max() { return kWarpRowsMax; }
+
+// Launches the warp route on `stream`, one CTA of one warp per document;
+// returns cudaGetLastError() as an int.
+extern "C" int fused_block_warp_launch(const float* cv, const float* f,
+                                       const float* uni, const int* z0,
+                                       const float* nkg, const float* valid,
+                                       const float* ndk0, int* z_out, float* ndk_out,
+                                       int M, int U, int A, int D, float alpha,
+                                       float beta, void* stream) {
+  const int S = (A + 31) / 32;
+  const size_t smem = warp_smem_bytes(A);
+  if (A < 1 || S > kWarpRowsMax || U < 0 || M < 0 || D < 1 || smem > 48 * 1024)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define FB_WARP_CASE(N)                                                           \
+  case N:                                                                         \
+    return warp_launch<N>(smem, st, cv, f, uni, z0, nkg, valid, ndk0, z_out, ndk_out, \
+                          M, U, A, D, alpha, beta);
+  switch (S) {
+    FB_WARP_CASE(1) FB_WARP_CASE(2) FB_WARP_CASE(3) FB_WARP_CASE(4)
+    FB_WARP_CASE(5) FB_WARP_CASE(6) FB_WARP_CASE(7) FB_WARP_CASE(8)
+  }
+#undef FB_WARP_CASE
+  return (int)cudaErrorInvalidValue;
 }
 
 // Launches the staged kernel on `stream`, one CTA per document; returns

@@ -6,13 +6,18 @@ against a topic-word table frozen at block start (the algorithm of
 ``_build_block_kernel`` the CUDA kernels of ``csrc/fused_block.cu``
 replace).  On a CUDA tensor it launches one of them; on a CPU tensor it
 runs :func:`fused_block_torch`, which repeats their floating-point
-operations in the same order, so the two agree bit for bit.  Both routes
-run one document per CTA and walk only its positions with f > 0.  The
-staged route (one warp, one lane per slot) stages the document's frozen
-operands and uniforms in shared memory, which bounds it to A <= 32 slots
-and :func:`max_positions` ``(A)`` positions; the general route takes every
-other shape, with one thread per slot, reading its operands
-from global memory (:func:`route`).
+operations in the same order, so the two agree bit for bit.  Every route
+walks only a document's positions with f > 0, and :func:`route` picks one
+per launch from ``(U, A)``:
+
+* ``"staged"`` (A <= 32 and U <= :func:`max_positions` ``(A)``): one warp
+  per document, one lane per slot, the document's frozen operands and
+  uniforms staged in shared memory;
+* ``"warp"`` (32 < A <= 32 · :data:`WARP_ROWS_MAX`, and A <= 32 past the
+  staged limit): one warp per document, each lane on ``ceil(A/32)`` slots in
+  registers, the cv rows streamed through a small ring in shared memory;
+* ``"general"`` (A > 32 · :data:`WARP_ROWS_MAX`): one CTA per document, one
+  thread per slot, its operands read from global memory.
 
 The kernel is compiled with ``nvcc`` at first use and loaded with ``ctypes``
 (:mod:`._nvcc`); importing this module needs neither ``nvcc`` nor a card.
@@ -29,14 +34,19 @@ import torch
 
 from . import _nvcc
 
-__all__ = ["fused_block", "fused_block_torch", "build", "max_positions", "route"]
+__all__ = ["fused_block", "fused_block_torch", "build", "max_positions", "route",
+           "choose_route"]
 
 SOURCE = _nvcc.CSRC / "fused_block.cu"
 STAGED_SLOTS = 32  # the staged route: one lane per slot
+# S_MAX, the warp route's rows of 32 slots per lane (kWarpRowsMax in the .cu)
+WARP_ROWS_MAX = 8
+ROUTES = ("staged", "warp", "general")
 
 # Number of kernel launches since import (or since a caller reset it), of
-# both routes, and of the general route alone.
+# every route, and of the warp and the general route alone.
 launches = 0
+warp_launches = 0
 general_launches = 0
 
 
@@ -59,6 +69,12 @@ def _library() -> ctypes.CDLL:
     lib.fused_block_general_state_bytes.restype = ctypes.c_longlong
     lib.fused_block_smem_limit.argtypes = []
     lib.fused_block_smem_limit.restype = ctypes.c_int
+    lib.fused_block_warp_launch.argtypes = [ptr] * 9 + [i32] * 4 + [f32, f32, ptr]
+    lib.fused_block_warp_launch.restype = ctypes.c_int
+    lib.fused_block_warp_rows_max.argtypes = []
+    lib.fused_block_warp_rows_max.restype = ctypes.c_int
+    if lib.fused_block_warp_rows_max() != WARP_ROWS_MAX:
+        raise RuntimeError("fused_block.cu's kWarpRowsMax differs from WARP_ROWS_MAX")
     return lib
 
 
@@ -67,7 +83,7 @@ def max_positions(A: int, index: int = 0) -> int:
     """The largest U the staged route takes at ``A`` (1..32) slots on CUDA
     device ``index``: one document's staging must fit one CTA's shared
     memory (563 positions at A = 32 on an H100).  Wider documents take the
-    general route."""
+    warp route."""
     if not 1 <= A <= STAGED_SLOTS:
         raise ValueError(f"the staged route takes 1..{STAGED_SLOTS} slots, got A={A}")
     with torch.cuda.device(index):
@@ -77,11 +93,22 @@ def max_positions(A: int, index: int = 0) -> int:
     return U
 
 
+def choose_route(U: int, A: int, staged_limit: int) -> str:
+    """The route of a launch at ``U`` positions and ``A`` slots, given the
+    staged route's position limit at ``A`` (consulted only for A <= 32):
+    ``"staged"`` where one document's staging fits one CTA, else ``"warp"``
+    up to ``32 *`` :data:`WARP_ROWS_MAX` slots, else ``"general"``."""
+    if A <= STAGED_SLOTS and U <= staged_limit:
+        return "staged"
+    return "warp" if A <= STAGED_SLOTS * WARP_ROWS_MAX else "general"
+
+
 def route(U: int, A: int, index: int = 0) -> str:
-    """The kernel a CUDA launch at ``U`` positions and ``A`` slots takes:
-    ``"staged"`` where one document's staging fits one CTA, else
-    ``"general"``."""
-    return "staged" if A <= STAGED_SLOTS and U <= max_positions(A, index) else "general"
+    """The kernel a CUDA launch at ``U`` positions and ``A`` slots takes on
+    CUDA device ``index`` (:func:`choose_route` with that card's staged
+    limit)."""
+    limit = max_positions(A, index) if A <= STAGED_SLOTS else 0
+    return choose_route(U, A, limit)
 
 
 @functools.lru_cache(maxsize=None)
@@ -133,17 +160,31 @@ def fused_block(cv, f, uniforms, z0, nkg, valid, ndk0, alpha: float,
     doc-topic counts.  CPU tensors take :func:`fused_block_torch`; CUDA
     tensors launch a kernel of the route :func:`route` picks, at any shape.
     """
-    global launches, general_launches
     M, U, A, D = _check_inputs(cv, f, uniforms, z0, nkg, valid, ndk0)
     if cv.device.type == "cpu":
         return fused_block_torch(cv, f, uniforms, z0, nkg, valid, ndk0, alpha, beta)
     if cv.device.type != "cuda":
         raise ValueError(f"no kernel for device {cv.device}")
+    return _launch(route(U, A, cv.device.index), cv, f, uniforms, z0, nkg, valid, ndk0,
+                   alpha, beta)
+
+
+def _launch(kernel: str, cv, f, uniforms, z0, nkg, valid, ndk0, alpha: float,
+            beta: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch route ``kernel`` on CUDA tensors and count it.  :func:`fused_block`
+    passes the route :func:`route` names; a measurement may name another
+    route that takes the shape (``"warp"`` at any A <= 256, ``"general"``
+    at any A)."""
+    global launches, warp_launches, general_launches
+    if kernel not in ROUTES:
+        raise ValueError(f"no route {kernel!r}; the routes are {ROUTES}")
+    M, U, A, D = _check_inputs(cv, f, uniforms, z0, nkg, valid, ndk0)
     tensors = (cv, f, uniforms, z0, nkg, valid, ndk0)
+    if cv.device.type != "cuda":
+        raise ValueError(f"the {kernel} route runs on a CUDA device, not {cv.device}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("fused_block inputs must be contiguous")
     index = cv.device.index
-    staged = route(U, A, index) == "staged"
     lib = _library()
     z_out = torch.empty((U, D), dtype=torch.int32, device=cv.device)
     ndk_out = torch.empty((A, D), dtype=torch.float32, device=cv.device)
@@ -152,9 +193,11 @@ def fused_block(cv, f, uniforms, z0, nkg, valid, ndk0, alpha: float,
     with torch.cuda.device(cv.device):
         stream = torch.cuda.current_stream(cv.device).cuda_stream
         ptrs = [t.data_ptr() for t in (*tensors, z_out, ndk_out)]
-        if staged:
-            err = lib.fused_block_launch(*ptrs, M, U, A, D, float(alpha),
-                                         float(beta), stream)
+        if kernel == "staged":
+            err = lib.fused_block_launch(*ptrs, M, U, A, D, float(alpha), float(beta), stream)
+        elif kernel == "warp":
+            err = lib.fused_block_warp_launch(*ptrs, M, U, A, D, float(alpha), float(beta),
+                                              stream)
         else:
             per_doc = _general_scratch_floats(A, index)
             scratch = (torch.empty(D * per_doc, dtype=torch.float32, device=cv.device)
@@ -163,9 +206,10 @@ def fused_block(cv, f, uniforms, z0, nkg, valid, ndk0, alpha: float,
                 *ptrs, None if scratch is None else scratch.data_ptr(), M, U, A, D,
                 float(alpha), float(beta), stream)
     if err != 0:
-        raise RuntimeError(f"fused_block kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"fused_block {kernel} kernel launch failed: CUDA error {err}")
     launches += 1
-    general_launches += not staged
+    warp_launches += kernel == "warp"
+    general_launches += kernel == "general"
     return z_out, ndk_out
 
 

@@ -55,10 +55,18 @@ def is_distributed() -> bool:
     return world()[1] > 1
 
 
+# The device :func:`initialize_distributed` brought this rank up on.
+_rank_device: Optional[torch.device] = None
+
+
 def local_device(device=None) -> torch.device:
-    """The device this rank computes on: ``device`` if it names an index,
-    else (``"cuda"``, the default) card ``LOCAL_RANK`` modulo the visible
-    cards, so several ranks on one card all take ``cuda:0``."""
+    """The device this rank computes on: ``device`` if it names an index;
+    with no ``device``, the one :func:`initialize_distributed` brought this
+    rank's group up on, else ``"cuda"``; a CUDA device with no index is card
+    ``LOCAL_RANK`` modulo the visible cards, so several ranks on one card
+    all take ``cuda:0``."""
+    if device is None and _rank_device is not None and dist.is_initialized():
+        return _rank_device
     dev = torch.device("cuda" if device is None else device)
     if dev.type != "cuda" or dev.index is not None:
         return dev
@@ -91,6 +99,7 @@ def initialize_distributed(
     of them set this is a no-op and the world stays one rank.  ``backend``
     defaults to ``nccl`` where ``device`` is CUDA and ``gloo`` on the CPU.
     """
+    global _rank_device
     if dist.is_initialized():
         return True
     if init_method is None:
@@ -114,6 +123,7 @@ def initialize_distributed(
         world_size=1 if world_size is None else int(world_size),
         rank=0 if rank is None else int(rank),
         timeout=datetime.timedelta(seconds=timeout_s))
+    _rank_device = dev
     r, w = world()
     print(f"torch.distributed: {backend} backend, rank {r} of {w}, device {dev}",
           flush=True)
@@ -122,6 +132,8 @@ def initialize_distributed(
 
 def shutdown() -> None:
     """Destroy the default process group if one is up."""
+    global _rank_device
+    _rank_device = None
     if dist.is_available() and dist.is_initialized():
         dist.destroy_process_group()
 

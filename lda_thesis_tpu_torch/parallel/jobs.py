@@ -40,7 +40,7 @@ def build_model(p: Dict[str, Any]):
     from .trainer import DistributedLabeledLDA
 
     mc, nd = p.get("mesh", (1, 1))
-    mesh = make_mesh(n_data=nd, n_chains=mc, device=p.get("device", "cpu"))
+    mesh = make_mesh(n_data=nd, n_chains=mc, device=p.get("device"))
     return DistributedLabeledLDA(p["docs"], p["labs"], p["labelset"], Dictionary(p["docs"]),
                                  mesh=mesh, **p.get("kw", {}))
 
@@ -232,7 +232,7 @@ def arrays_job(p: Dict[str, Any]) -> Dict[str, Any]:
                                 make_vocab_sharded_block, vocab_rows)
 
     mc, nd = p["mesh"]
-    mesh = make_mesh(n_data=nd, n_chains=mc, device=p.get("device", "cpu"))
+    mesh = make_mesh(n_data=nd, n_chains=mc, device=p.get("device"))
     C, V, K = p["n_chains"], p["V"], p["K"]
     alpha, beta = p.get("alpha", 0.1), p.get("beta", 0.01)
     gens = make_generators(mesh, C, p.get("seed", 0))
@@ -292,7 +292,7 @@ def mesh_job(p: Dict[str, Any]) -> Dict[str, Any]:
     out = []
     for mc, nd in p["shapes"]:
         try:
-            mesh = make_global_mesh(n_chains=mc, n_data=nd, device=p.get("device", "cpu"))
+            mesh = make_global_mesh(n_chains=mc, n_data=nd, device=p.get("device"))
         except ValueError as e:
             out.append({"error": str(e)})
             continue
@@ -301,6 +301,7 @@ def mesh_job(p: Dict[str, Any]) -> Dict[str, Any]:
         hi = mesh.data_extreme_(x.clone(), "max")
         total = mesh.world_sum_(x.clone())
         out.append({"shape": dict(mesh.shape), "coords": mesh.coords,
+                    "device": str(mesh.device),
                     "row_sum": float(row[0]), "row_max": float(hi[0]),
                     "world_sum": float(total[0])})
     return {"rank": rank, "size": size, "meshes": out}

@@ -29,7 +29,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
-from typing import Any, List
+from typing import Any, List, Optional
 
 __all__ = ["spawn", "free_port", "foreign_modules"]
 
@@ -51,11 +51,13 @@ def foreign_modules() -> List[str]:
 
 
 def spawn(target: str, world_size: int, payload: Any = None, *, backend: str = "gloo",
-          device: str = "cpu", timeout: float = 300.0) -> List[Any]:
-    """Run ``target(payload)`` on ``world_size`` ranks; returns each rank's
-    result, rank 0 first.  Raises ``RuntimeError`` with the workers' output
-    when one fails, outlasts ``timeout`` seconds or loaded a module of
-    ``jax`` or of the JAX package."""
+          device: Optional[str] = None, timeout: float = 300.0) -> List[Any]:
+    """Run ``target(payload)`` on ``world_size`` ranks, each computing on
+    ``device`` (CUDA unless the caller passes ``"cpu"``); returns each
+    rank's result, rank 0 first.  Raises ``RuntimeError`` with the workers'
+    output when one fails, outlasts ``timeout`` seconds or loaded a module
+    of ``jax`` or of the JAX package."""
+    device = "cuda" if device is None else device
     port = free_port()
     with tempfile.TemporaryDirectory(prefix="lda_spawn_") as tmp:
         with open(os.path.join(tmp, "payload.pkl"), "wb") as f:

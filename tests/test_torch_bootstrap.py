@@ -5,10 +5,12 @@ no-op, the mesh shapes over the ranks (four spawned gloo ranks; JAX: eight
 fake devices) and the ``chains_for`` split, including the north star's
 64 chains.  Also: the environment that ``torch.distributed.run`` sets and
 the JAX package's are both read, the mesh's collectives sum and reduce over
-the right ranks, and ``entry.dryrun_multichip`` runs one sharded step on
-four ranks.
+the right ranks, ``entry.dryrun_multichip`` runs one sharded step on
+four ranks, and ``launch.spawn`` computes on CUDA unless told otherwise,
+as every entry point of the port does, with each job on its rank's device.
 """
 
+import inspect
 import os
 import subprocess
 import sys
@@ -69,9 +71,11 @@ def test_initialize_reads_the_environment():
 
 def test_make_global_mesh_shapes():
     res = spawn("lda_thesis_tpu_torch.parallel.jobs:mesh_job", 4,
-                {"shapes": [(2, None), (4, 2), (1, 4), (3, None)]}, timeout=120)
+                {"shapes": [(2, None), (4, 2), (1, 4), (3, None)]}, device="cpu",
+                timeout=120)
     for rank, r in enumerate(res):
         two_by_two, bad_fill, one_by_four, three = r["meshes"]
+        assert all(m.get("device", "cpu") == "cpu" for m in r["meshes"])
         assert two_by_two["shape"] == {"chains": 2, "data": 2}
         assert two_by_two["coords"] == divmod(rank, 2)
         row = rank // 2 * 2
@@ -109,3 +113,14 @@ def test_dryrun_multichip():
     out = dryrun_multichip(4, device="cpu", timeout=120)
     assert out["mesh"] == {"chains": 2, "data": 2} and out["backend"] == "gloo"
     assert out["s"] == 1 and out["tokens"] > 0
+
+
+def test_spawn_and_jobs_default_to_cuda():
+    """``spawn``'s device is CUDA unless named, as for
+    ``entry.dryrun_multichip``, ``bootstrap.local_device`` and the models;
+    a job whose payload names no device computes on the device its rank was
+    brought up on (the CPU ranks of ``test_make_global_mesh_shapes``), and
+    outside a process group on CUDA."""
+    assert inspect.signature(spawn).parameters["device"].default is None
+    assert inspect.signature(dryrun_multichip).parameters["device"].default is None
+    assert not is_distributed() and local_device().type == "cuda"

@@ -269,8 +269,9 @@ def _check_block(args):
 # abstracts, A = 24, M = 25), then chip_smoke.py's edge cases: ragged
 # shapes, two waves of CTAs, one and 32 slots, a document with no live
 # position, interior gaps, U = 512, and documents of one or two positions
-# (with one, each step's next step is the same position); then the general
-# route's slot and position counts past the staged route's limits
+# (with one, each step's next step is the same position); then the warp
+# route's slot and position counts past the staged route's limits, and the
+# general route's past the warp route's widest A
 BLOCK_CASES = {
     "bucket0": (1653, 32, 24, 25, 0.0, False),
     "bucket1": (1148, 48, 24, 25, 0.0, False),
@@ -286,7 +287,9 @@ def test_fused_block_kernel_matches_plain_version(case):
     _needs_card()
     D, U, A, M, gaps, zero_doc = BLOCK_CASES[case]
     args = chip_smoke.block_case("cuda", D + U + A, D, U, A, M, gaps, zero_doc)
+    before = chip_smoke._route_counts(fbc)
     z, ndk = _check_block(args)
+    assert chip_smoke._launched_on(fbc, before) == fbc.route(U, A)
     if zero_doc:  # no live position: z and n_dk come back as they went in
         assert torch.equal(z[:, 0], args[3][:, 0])
         assert _same_bits(ndk[:, 0], args[6][:, 0])
@@ -296,19 +299,24 @@ def test_fused_block_kernel_matches_plain_version(case):
 def test_fused_block_shared_memory_layout_and_limit():
     """The staged route runs at the widest document its shared memory holds
     (at A = 32, at least the 512 positions of the old cap); one position
-    past it, and at A = 33, the general route runs, bitwise equal to the
-    plain version, and nothing is refused."""
+    past it, at A = 33 and at the warp route's widest A, the warp route
+    runs; one slot past that, the general route: each bitwise equal to the
+    plain version, each counted on its own route, and nothing is refused."""
     _needs_card()
     U = fbc.max_positions(32)
+    widest = 32 * fbc.WARP_ROWS_MAX
     assert U >= 512
     assert fbc.route(U, 32) == "staged"
-    assert fbc.route(U + 1, 32) == fbc.route(8, 33) == "general"
-    general = fbc.general_launches
-    _check_block(chip_smoke.block_case("cuda", 1, 4, U, 32, 1))
-    assert fbc.general_launches == general
-    _check_block(chip_smoke.block_case("cuda", 1, 4, U + 1, 32, 1))
-    _check_block(chip_smoke.block_case("cuda", 2, 4, 8, 33, 2))
-    assert fbc.general_launches == general + 2
+    assert fbc.route(U + 1, 32) == fbc.route(8, 33) == fbc.route(8, widest) == "warp"
+    assert fbc.route(8, widest + 1) == "general"
+    cases = [((1, 4, U, 32, 1), (1, 0, 0)), ((1, 4, U + 1, 32, 1), (1, 1, 0)),
+             ((2, 4, 8, 33, 2), (1, 1, 0)), ((3, 4, 8, widest, 2), (1, 1, 0)),
+             ((4, 4, 8, widest + 1, 2), (1, 0, 1))]
+    for args, moved in cases:
+        before = (fbc.launches, fbc.warp_launches, fbc.general_launches)
+        _check_block(chip_smoke.block_case("cuda", *args))
+        after = (fbc.launches, fbc.warp_launches, fbc.general_launches)
+        assert tuple(a - b for a, b in zip(after, before)) == moved, args
     with pytest.raises(ValueError, match="slots"):
         fbc.max_positions(33)
 
@@ -327,12 +335,13 @@ def _local_lda(K, sweep, device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("sweep,K", [("fused", 20), ("fused", 50), ("dense", 20)])
+@pytest.mark.parametrize("sweep,K", [("fused", 20), ("fused", 50), ("fused", 100),
+                                     ("dense", 20)])
 def test_local_lda_sweeps_on_card_equal_cpu(sweep, K):
     """Three LocalLDA sweeps from one state and the same uniforms: on the
-    card (kernel 1 on the staged route at K = 20 and the general route at
-    K = 50, or the dense sweep's graphed kernels) and on the CPU (the plain
-    versions) give the same bits."""
+    card (kernel 1 on the staged route at K = 20 and on the warp route at
+    K = 50 and 100, or the dense sweep's graphed kernels) and on the CPU
+    (the plain versions) give the same bits."""
     from lda_thesis_tpu_torch.ops import gibbs_fused as tfused
 
     _needs_card()
@@ -347,15 +356,16 @@ def test_local_lda_sweeps_on_card_equal_cpu(sweep, K):
     for m in (card, cpu):
         dev = m.device
         if sweep == "fused":
-            before = (fbc.launches, fbc.general_launches)
+            before = (fbc.launches, fbc.warp_launches, fbc.general_launches)
             for sw in us:
                 m.counts = tfused.fused_train_block_buckets(
                     m.counts, m._toks_v_t, m._toks_f_t, m.lab_ids_t, m._lab_valid_tt,
                     m.a, m.b, 1, uniforms=[u[None].to(dev) for u in sw])
             if dev.type == "cuda":
                 n = 3 * m.buckets.n_buckets
-                assert (fbc.launches - before[0], fbc.general_launches - before[1]) == (
-                    n, n if K > 32 else 0)
+                after = (fbc.launches, fbc.warp_launches, fbc.general_launches)
+                assert tuple(a - b for a, b in zip(after, before)) == (
+                    n, n if K > 32 else 0, 0)
             state = [*m.counts.z, *m.counts.n_dk, m.counts.n_vk, m.counts.n_k]
         else:
             st = m.counts

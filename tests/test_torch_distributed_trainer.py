@@ -119,7 +119,7 @@ def four_ranks(tmp_path_factory):
         ("block_job", fused_case),
         ("block_job", bucket_case),
     ]
-    res = spawn(JOBS, 4, {"jobs": jobs}, timeout=300)
+    res = spawn(JOBS, 4, {"jobs": jobs}, device="cpu", timeout=300)
     return [[r[i] for r in res] for i in range(len(jobs))], fused_want, bucket_want
 
 
@@ -217,7 +217,7 @@ def two_ranks(corpus_csv, tmp_path_factory):  # noqa: F811
         ("cli_job", {"argv": ["-f", corpus_csv, "-d", "2", "-i", "4", "-s", "2", "--seed",
                               "3", "--device", "cpu", "--n-data", "2", "--n-chains", "2"]}),
     ]
-    res = spawn(JOBS, 2, {"jobs": jobs}, timeout=300)
+    res = spawn(JOBS, 2, {"jobs": jobs}, device="cpu", timeout=300)
     return [[r[i] for r in res] for i in range(len(jobs))]
 
 

@@ -57,10 +57,15 @@ def _make_problem(D=D, U=U, A=A, gaps=0.0, zero_doc=False, max_labels=4, label_s
 # slots of the port's grouped scan and its group-total prefix decides them
 WIDE_24 = dict(D=37, A=24, max_labels=24, label_set=100)
 WIDE_32 = dict(D=37, A=32, max_labels=32, label_set=120)
-# every slot valid, past the staged kernel's 32 lanes (the general route's
-# shapes: LocalLDA at K = 50, and a label set of 136)
+# every slot valid, past the staged kernel's 32 lanes: the warp route's
+# shapes (LocalLDA at K = 50 and K = 100, a label set of 136), whose
+# group-total prefix spans 7, 13 and 17 groups of eight, and the first
+# multiple of 8 past the warp route's widest, which takes the general route
 WIDE_56 = dict(D=37, A=56, label_set=100, all_valid=True)
+WIDE_104 = dict(D=37, A=104, label_set=150, all_valid=True)
 WIDE_136 = dict(D=37, A=136, label_set=200, all_valid=True)
+PAST_WARP = 32 * fbc.WARP_ROWS_MAX + 8
+WIDE_PAST_WARP = dict(D=37, A=PAST_WARP, label_set=PAST_WARP + 40, all_valid=True)
 
 
 @pytest.fixture(scope="module")
@@ -112,7 +117,9 @@ def _kernel_inputs(problem, st):
     pytest.param(3, WIDE_24, id="A24"),
     pytest.param(3, WIDE_32, id="A32"),
     pytest.param(2, WIDE_56, id="A56"),
+    pytest.param(2, WIDE_104, id="A104"),
     pytest.param(2, WIDE_136, id="A136"),
+    pytest.param(2, WIDE_PAST_WARP, id=f"A{PAST_WARP}"),
 ])
 def test_fused_block_torch_matches_xla_twin(M, shape):
     problem = _make_problem(**shape)
@@ -144,7 +151,9 @@ def test_fused_block_torch_matches_xla_twin(M, shape):
     pytest.param(3, WIDE_24, id="A24"),
     pytest.param(3, WIDE_32, id="A32"),
     pytest.param(2, WIDE_56, id="A56"),
+    pytest.param(2, WIDE_104, id="A104"),
     pytest.param(2, WIDE_136, id="A136"),
+    pytest.param(2, WIDE_PAST_WARP, id=f"A{PAST_WARP}"),
 ])
 def test_fused_train_block_matches_jax(M, shape):
     problem = _make_problem(**shape)

@@ -83,8 +83,8 @@ def test_spawned_worker_loads_no_jax():
     and the launcher refuses a worker that loads it."""
     from lda_thesis_tpu_torch.parallel.launch import spawn
 
-    out = spawn("lda_thesis_tpu_torch.parallel.jobs:mesh_job", 2, {"shapes": [(1, 2)]},
-                timeout=120)
+    out = spawn("lda_thesis_tpu_torch.parallel.jobs:mesh_job", 2,
+                {"shapes": [(1, 2)]}, device="cpu", timeout=120)
     assert [r["meshes"][0]["row_sum"] for r in out] == [1.0, 1.0]
     with pytest.raises(RuntimeError, match="loaded .*jax"):
-        spawn("jax.numpy:dtype", 1, "float32", timeout=120)  # imports jax
+        spawn("jax.numpy:dtype", 1, "float32", device="cpu", timeout=120)  # imports jax

@@ -5,7 +5,7 @@ sentence documents and the bucket layout must be equal.  Fed the JAX
 model's own uniforms (``jax.random.uniform`` of the keys it folds per
 bucket), the port's init and first merge block must give the same z and
 counts exactly, at K = 4 (A = 8, the staged kernel's shape) and at K = 50
-(A = 56, the general route's shape; here on the CPU through the plain
+(A = 56, the warp route's shape; here on the CPU through the plain
 version).  The JAX side runs the fused XLA twin, whose ``tril @ w`` scan
 differs from the port's grouped scan in the last bits of c (not in the
 draws, at these sizes).  Then the port of ``tests/test_local_lda.py``:

@@ -88,8 +88,8 @@ def runs():
                             arrays=_toy(D=16, U=8, V=16, K=4, seed=2), saves=[True])),
         ("arrays_job", parity),
     ]
-    res = spawn("lda_thesis_tpu_torch.parallel.jobs:multi_job", WORLD, {"jobs": cases},
-                timeout=240)
+    res = spawn("lda_thesis_tpu_torch.parallel.jobs:multi_job", WORLD,
+                {"jobs": cases}, device="cpu", timeout=240)
     return [[r[i] for r in res] for i in range(len(cases))], want
 
 

@@ -66,7 +66,8 @@ def test_labeled_kill_resume_bit_identical(tmp_path):
     res = spawn("lda_thesis_tpu_torch.parallel.jobs:train_job", 4, dict(
         docs=DOCS, labs=LABS, labelset=LABELSET, mesh=(2, 2), estimators=False,
         kw=dict(alpha=0.5, beta=0.1, n_chains=4, seed=0), steps=[(8, 2, None)],
-        resume={"path": str(tmp_path / "llda_ckpt"), "at": 4}), timeout=240)
+        resume={"path": str(tmp_path / "llda_ckpt"), "at": 4}), device="cpu",
+        timeout=240)
     for r in res:
         assert r["resumed_meta_iters"] == 4
         for name, want in r["state"].items():
@@ -149,7 +150,7 @@ def test_jax_single_chain_vocab_state_loads_on_two_ranks():
     res = spawn("lda_thesis_tpu_torch.parallel.jobs:train_job", 2, dict(
         docs=DOCS, labs=LABS, labelset=LABELSET, mesh=(1, 2), steps=[], estimators=False,
         kw=dict(alpha=0.5, beta=0.1, n_chains=1, seed=0, table_shard="vocab"), init=want),
-        timeout=240)
+        device="cpu", timeout=240)
     for field, axis in (("z", 2), ("n_dk", 2), ("n_vk", 1), ("ph_hat", 1), ("th_hat", 1)):
         got = np.concatenate([r["state"][field] for r in res], axis=axis)
         np.testing.assert_array_equal(got, want[field][None], err_msg=field)

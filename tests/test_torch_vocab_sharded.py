@@ -86,8 +86,8 @@ def runs(tmp_path_factory):
                            test=(docs[:4], 4, 2, 1), resume={"path": str(tmp / "cv"), "at": 4})),
         ("block_job", parity),
     ]
-    res = spawn("lda_thesis_tpu_torch.parallel.jobs:multi_job", 4, {"jobs": jobs},
-                timeout=300)
+    res = spawn("lda_thesis_tpu_torch.parallel.jobs:multi_job", 4,
+                {"jobs": jobs}, device="cpu", timeout=300)
     return [[r[i] for r in res] for i in range(len(jobs))], parity_want
 
 
