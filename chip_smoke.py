@@ -108,7 +108,26 @@ made from ``--seed``.  Phases:
     ``--n-chains 4 --save-every 25`` killed by SIGKILL after its first
     checkpoint and resumed in a fresh process (its shard's arrays and the
     metric lines equal the uninterrupted run's); one ``multi_device`` line;
-14. one JSON line of kernel records, the card's line, and the result line.
+14. multi-device HSLDA (``parallel/hslda_*``, no kernel of its own) at the
+    JAX record's width (phase 12's corpus; only cycle and sweep counts are
+    cut): (a) 4 chains in one replayed z-sweep graph against 4 single-chain
+    graphs with the same generators, 3 sweeps: the share of equal draws (at
+    least 99%) and whether they are bitwise, replay == eager bitwise, every
+    chain's count invariants, device ms per replayed sweep both ways, the
+    bound and the graph's node count; (b) ``DistributedHSLDA`` on one rank
+    at C = 1, 4, 16 and 64 chains: reckoned and peak device memory, two
+    warm-up cycles (eager, capture), 3 timed cycles, cycles/s,
+    chain-cycles/s, tokens/s, the device's busy share, each chain's
+    invariants and finite η and β; (c) two gloo ranks on the card, mesh
+    (1, 2), 2 chains, 3 cycles, replicated then vocab-sharded: every chain's
+    replicas bitwise equal across the data row, the vocab-sharded counts
+    equal to the replicated ones; (d) the HSLDA CLI with ``--n-chains 8 -i
+    10 -s 5 --test-it 25 --test-s 5`` (chain-averaged AUC, wall by step, the
+    fold-in against phase 12's single chain) and a run of it killed by
+    SIGKILL after its first checkpoint and resumed in a fresh process, its
+    shard (both kinds of generator state included) and marker equal to the
+    uninterrupted run's; one ``multi_device_hslda`` line;
+15. one JSON line of kernel records, the card's line, and the result line.
 
 Every check raises; the script exits non-zero without a CUDA device.
 """
@@ -2575,6 +2594,314 @@ def multi_device_phase(seed: int, card: str) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------- multi-device HSLDA
+
+HMD_CHAINS = (1, 4, 16, 64)  # DistributedHSLDA on one rank, timed
+HMD_BATCH = 4  # chains of 14a's batched sweep
+HMD_SWEEPS = 3  # 14a: eager, capture, replay
+HMD_TIMED = 3  # 14b: timed cycles after two warm-up cycles (eager, capture)
+HMD_RANK_CYCLES = 3  # 14c
+HMD_CLI = (10, 5, 25, 5)  # 14d: -i, -s, --test-it, --test-s
+MIN_EQUAL_DRAWS = 0.99  # 12a's card-against-CPU standard
+
+
+def _hslda_model(docs, labs, labelset, seed: int, n_chains: int, device, k: int, **kw):
+    from lda_thesis_tpu_torch.parallel import DistributedHSLDA, make_mesh
+
+    return DistributedHSLDA(docs, labs, labelset, mesh=make_mesh(device=device),
+                            n_chains=n_chains, k=k, seed=seed, **kw)
+
+
+def _chain_counts_ok(state, total: int, what: str) -> None:
+    """Every chain's count invariants of a one-rank ``HSLDAShardedState``."""
+    for c in range(state.n_k.shape[0]):
+        _hslda_counts_ok(state.n_dk[c], state.n_vk[c], state.n_k[c], total,
+                         f"{what}, chain {c}")
+
+
+def hslda_chains_case(device, docs, labs, labelset, seed: int, C: int, sweeps: int,
+                      k: int) -> dict:
+    """``sweeps`` opt-1 z-sweeps of C chains (a ``DistributedHSLDA``'s
+    initial state) three ways on ``device``, each chain's Gumbel noise from
+    the generator seeded ``seed + c``: one batched ``HSLDASweep`` (eager,
+    then a captured graph replayed), the same batched sweep run eagerly
+    every time, and C single-chain ``HSLDASweep`` s.  Returns the three
+    end states, the share of the single-chain draws that the batched sweep
+    drew alike, the sweeps and the model."""
+    import torch
+
+    from lda_thesis_tpu_torch.ops.hslda_gibbs import HSLDASweep
+
+    m = _hslda_model(docs, labs, labelset, seed, C, device, k)
+    st, cp = m.state, m.corpus
+    N = st.z.shape[2]
+
+    def gens(c0=0, n=C):
+        out = []
+        for c in range(c0, c0 + n):
+            g = torch.Generator(device=device)
+            g.manual_seed(seed + c)
+            out.append(g)
+        return out
+
+    def batched(graphed: bool):
+        bufs = (st.z.permute(2, 0, 1).reshape(N, -1).contiguous(), st.n_dk.clone(),
+                st.n_vk.clone(), st.n_k.clone())
+        sweep = HSLDASweep(*bufs, cp.tok_v, cp.mask, cp.labs, m.gamma, m.xi, 1, m.V)
+        sweep._graphed = sweep._graphed and graphed
+        return sweep, bufs
+
+    ab = m.alpha * st.beta
+    runs = {}
+    for name, graphed in (("graphed", True), ("eager", False)):
+        sweep, bufs = batched(graphed)
+        g = gens()
+        for _ in range(sweeps):
+            sweep(st.eta, st.a, ab, generator=g)
+        runs[name] = (sweep, bufs)
+    singles = []
+    for c in range(C):
+        bufs = (st.z[c].T.contiguous(), st.n_dk[c].clone(), st.n_vk[c].clone(),
+                st.n_k[c].clone())
+        sweep = HSLDASweep(*bufs, cp.tok_v, cp.mask, cp.labs, m.gamma, m.xi, 1, m.V)
+        g = gens(c, 1)[0]
+        for _ in range(sweeps):
+            sweep(st.eta[c], st.a[c], ab[c], generator=g)
+        singles.append((sweep, bufs))
+    z_batched = runs["graphed"][1][0].view(N, C, -1)
+    equal = sum(int((z_batched[:, c] == s[1][0]).sum()) for c, s in enumerate(singles))
+    return dict(model=m, graphed=runs["graphed"], eager=runs["eager"], singles=singles,
+                equal_draws=equal / z_batched.numel(), N=N)
+
+
+def hslda_chains_phase(seed: int, card: str) -> dict:
+    """14a: 4 chains in one replayed z-sweep graph against 4 single-chain
+    graphs at full width."""
+    import torch
+
+    from lda_thesis_tpu_torch.data.synthetic import jel_corpus
+
+    jel = jel_corpus(seed, n_l3=HSLDA_N_L3)
+    r = hslda_chains_case(DEVICE, jel.train_docs, jel.train_labs, jel.labelset, seed,
+                          HMD_BATCH, HMD_SWEEPS, HSLDA_K)
+    m, (sweep, bufs) = r["model"], r["graphed"]
+    _check(sweep._graph is not None and sweep.sweeps == HMD_SWEEPS,
+           "14a: the batched sweep replays its captured graph")
+    _check(_bitwise(list(bufs), list(r["eager"][1])),
+           f"14a: {HMD_SWEEPS} batched sweeps replayed == eager, bitwise (z, n_dk, n_vk, n_k)")
+    z_t, n_dk, n_vk, n_k = bufs
+    for c in range(HMD_BATCH):
+        _hslda_counts_ok(n_dk[c], n_vk[c], n_k[c], m.n_tokens, f"14a batched chain {c}")
+        _hslda_counts_ok(*r["singles"][c][1][1:], m.n_tokens, f"14a single chain {c}")
+    share = r["equal_draws"]
+    bitwise = all(torch.equal(z_t.view(r["N"], HMD_BATCH, -1)[:, c], s[1][0])
+                  and torch.equal(n_vk[c], s[1][2]) for c, s in enumerate(r["singles"]))
+    _check(share >= MIN_EQUAL_DRAWS,
+           f"14a: {share:.6f} of the batched draws equal the single-chain ones "
+           f"(>= {MIN_EQUAL_DRAWS})")
+    batched_ms = _batch_ms(sweep._graph.replay, 5)
+    singles_ms = _batch_ms(lambda: [s[0]._graph.replay() for s in r["singles"]], 5)
+    twin = torch.cuda.CUDAGraph(keep_graph=True)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        twin.capture_begin()
+        sweep._sweep()
+        twin.capture_end()
+    torch.cuda.current_stream().wait_stream(stream)
+    nodes = _graph_nodes(twin)
+    del twin  # captured only to be counted: never replayed
+    live_b, live_o = hslda_sweep_bound_ms(m)
+    rows_b, _ = hslda_sweep_bound_ms(m, m.tok_v.numel())
+    rec = dict(card=card, chains=HMD_BATCH, equal_draws=share, bitwise=bitwise,
+               batched_ms=batched_ms, singles_ms=singles_ms, graph_nodes=nodes,
+               bound_ms=HMD_BATCH * max(live_b, live_o),
+               bound_by="bytes" if live_b >= live_o else "operations",
+               every_row_bound_ms=HMD_BATCH * rows_b)
+    print(f"14a ({card}): {HMD_BATCH} chains in one z-sweep graph ({nodes} nodes) against "
+          f"{HMD_BATCH} single-chain graphs, {HMD_SWEEPS} sweeps each: {share:.6f} of the "
+          f"draws equal ({'bitwise' if bitwise else 'not bitwise'}); replayed == eager "
+          f"bitwise; count invariants exact per chain; a replayed sweep {batched_ms:.4f} ms "
+          f"batched against {singles_ms:.4f} ms for the {HMD_BATCH} single-chain graphs "
+          f"(bound {rec['bound_ms']:.4f} ms by {rec['bound_by']} over the live instances, "
+          f"{rec['every_row_bound_ms']:.4f} ms over every row)")
+    return rec
+
+
+def hslda_reckoned_bytes(D: int, N: int, L: int, K: int, V: int, S: int, C: int) -> int:
+    """The device bytes a one-rank ``DistributedHSLDA`` of C chains holds at
+    its peak (the big terms): per chain the sweep's work state and noise
+    (z twice, n_dk, two tables, M, a, η·a temporaries, the Gumbels), the
+    cycle's m noise and a block of its logits, and the sweep's per-row
+    index tables (int64 rows and flat indices, int32 masks, for C·D rows)."""
+    from lda_thesis_tpu_torch.models.hslda import D_BLOCK
+
+    per_chain = (4 * N * D * 2 + 4 * D * K * 2 + 4 * V * K * 3 + 4 * D * L * 5
+                 + 4 * N * D * K + 4 * D * K * S + 2 * 4 * D_BLOCK * K * S)
+    static = N * D * (8 + 8 + 4 + 4)
+    return C * (per_chain + static)
+
+
+def hslda_chain_timing(seed: int, card: str) -> list:
+    """14b: ``DistributedHSLDA`` on one rank at C = 1, 4, 16, 64 at full
+    width: two warm-up cycles (the first sweep eager, the second captured),
+    ``HMD_TIMED`` cycles on the host clock ending in a synchronize, one
+    under torch.profiler; the peak memory against the reckoned bytes."""
+    import torch
+
+    from lda_thesis_tpu_torch.data.synthetic import jel_corpus
+    from lda_thesis_tpu_torch.parallel.jobs import hslda_invariants
+
+    jel = jel_corpus(seed, n_l3=HSLDA_N_L3)
+    out = []
+    for C in HMD_CHAINS:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        m = _hslda_model(jel.train_docs, jel.train_labs, jel.labelset, seed, C, DEVICE,
+                         HSLDA_K)
+        D, N = m.tok_v.shape
+        reckoned = hslda_reckoned_bytes(D, N, m.L, m.K, m.V, m._stirling_logs.shape[0], C)
+        print(f"14b C={C}: reckoned device bytes {reckoned / 1e9:.3f} GB")
+        m.run_training(2, 2)  # eager sweep, then the capture
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m.run_training(HMD_TIMED, HMD_TIMED)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        prof = _profile(lambda: m.run_training(1, 1))
+        st = m.state
+        inv = hslda_invariants(m.mesh, st, m.n_tokens, "replicated")
+        _check(inv["ok"], f"14b C={C}: every chain's count invariants hold: {inv}")
+        _check(bool(torch.isfinite(st.eta).all()) and bool(torch.isfinite(st.beta).all()),
+               f"14b C={C}: η and β are finite")
+        loop = m._loops[1]
+        _check(loop._sweep._graph is not None, f"14b C={C}: the chains' sweep replays a graph")
+        rec = dict(card=card, chains=C, cycles=HMD_TIMED, wall_s=wall,
+                   cycles_per_s=HMD_TIMED / wall, chain_cycles_per_s=C * HMD_TIMED / wall,
+                   tokens_per_s=C * m.n_tokens * HMD_TIMED / wall,
+                   profiled_cycle_ms=prof["wall_ms"], device_busy_ms=prof["busy_ms"],
+                   device_busy_share=prof["busy_ms"] / prof["wall_ms"],
+                   reckoned_gb=reckoned / 1e9,
+                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+        print(f"14b C={C:2d} ({card}): {rec['cycles_per_s']:.3f} cycles/s, "
+              f"{rec['chain_cycles_per_s']:.2f} chain-cycles/s, {rec['tokens_per_s']:.4g} "
+              f"tokens/s; a profiled cycle {prof['wall_ms']:.1f} ms, device busy "
+              f"{rec['device_busy_share']:.4f}; peak {rec['peak_mem_gb']:.3f} GB (reckoned "
+              f"{rec['reckoned_gb']:.3f})")
+        out.append(rec)
+        del m, loop, st
+    torch.cuda.empty_cache()
+    return out
+
+
+def hslda_ranks_case(seed: int) -> dict:
+    """14c: two gloo ranks on the card, mesh (1, 2), C = 2, at full width,
+    ``HMD_RANK_CYCLES`` cycles, replicated then vocab-sharded, in one spawn."""
+    from lda_thesis_tpu_torch.data.synthetic import jel_corpus
+    from lda_thesis_tpu_torch.parallel.launch import spawn
+
+    jel = jel_corpus(seed, n_l3=HSLDA_N_L3)
+    base = dict(docs=jel.train_docs, labs=jel.train_labs, labelset=jel.labelset, mesh=(1, 2),
+                steps=[(HMD_RANK_CYCLES, HMD_RANK_CYCLES, 1, False)])
+    kw = dict(n_chains=2, k=HSLDA_K, seed=seed)
+    t0 = time.perf_counter()
+    res = spawn("lda_thesis_tpu_torch.parallel.jobs:multi_job", 2, {"jobs": [
+        ("hslda_job", dict(base, kw=kw)),
+        ("hslda_job", dict(base, kw=dict(kw, table_shard="vocab")))]},
+        backend="gloo", device=DEVICE, timeout=400)
+    spawn_s = time.perf_counter() - t0
+    rep, voc = [r[0] for r in res], [r[1] for r in res]
+    for name, runs in (("replicated", rep), ("vocab", voc)):
+        for r in runs:
+            _check(r["backend"] == "gloo" and r["device"].startswith(DEVICE),
+                   f"14c {name}: rank {r['rank']} ran gloo with CUDA tensors")
+            _check(all(r["replicas_equal"]) and r["invariants"]["ok"],
+                   f"14c {name}: rank {r['rank']}: each chain's table, n_k, η and β are "
+                   f"bitwise equal across the data row, and the counts hold "
+                   f"{r['invariants']}")
+    for a, b in zip(rep, voc):
+        for f in ("z", "n_dk", "n_k", "eta", "a", "beta"):
+            _check(np.array_equal(a["state"][f], b["state"][f]),
+                   f"14c: vocab-sharded {f} equals replicated, rank {a['rank']}")
+    V = rep[0]["state"]["n_vk"].shape[1]
+    table = np.concatenate([r["state"]["n_vk"] for r in voc], axis=1)
+    _check(np.array_equal(table[:, :V], rep[0]["state"]["n_vk"]),
+           "14c: the vocab-sharded tables equal the replicated ones")
+    rec = dict(spawn_s=spawn_s, seconds=[[r["seconds"] for r in runs] for runs in (rep, voc)])
+    print(f"14c: two gloo ranks on the card, mesh (1, 2), 2 chains, {HMD_RANK_CYCLES} cycles: "
+          f"replicas bitwise equal across the data row, vocab-sharded == replicated bitwise; "
+          f"spawn {spawn_s:.2f} s, training {rec['seconds']} s")
+    return rec
+
+
+def hslda_cli_case(seed: int, card: str, tmp: str, single_test_s: float) -> dict:
+    """14d: the HSLDA CLI with ``--n-chains 8`` on phase 12's CSV, and a run
+    of it killed by SIGKILL after its first checkpoint and resumed in a
+    fresh process: every array and generator state of the final checkpoint
+    equal to the uninterrupted run's."""
+    from lda_thesis_tpu_torch.cli import evaluate_hslda
+    from lda_thesis_tpu_torch.data.synthetic import jel_corpus
+    from lda_thesis_tpu_torch.utils.checkpoint import load_checkpoint
+
+    it, s, test_it, test_s = HMD_CLI
+    csv_path = os.path.join(tmp, "jel.csv")
+    write_corpus_csv(csv_path, jel_corpus(seed, n_l3=HSLDA_N_L3))
+    argv = ["-f", csv_path, "-d", "3", "-k", str(HSLDA_K), "--seed", str(seed), "-i", str(it),
+            "-s", str(s), "--test-it", str(test_it), "--test-s", str(test_s),
+            "--n-chains", "8", "--save-every", str(s)]
+    ck_a, ck_b = os.path.join(tmp, "HA"), os.path.join(tmp, "HB")
+    res, text = _cli(evaluate_hslda.main, argv + ["--checkpoint", ck_a])
+    m = res["model"]
+    _check(m.n_chains == 8 and tuple(m.state.z.shape[:1]) == (8,),
+           "14d: --n-chains 8 runs eight chains batched on the card")
+    _chain_counts_ok(m.state, m.n_tokens, "14d --n-chains 8")
+    auc = res["metrics"]["auc_roc"]
+    _check(auc > MIN_AUC, f"14d: chain-averaged AUC {auc} > {MIN_AUC}")
+    _check("8 chains, mesh {'chains': 1, 'data': 1}" in text,
+           "14d: the wall-by-step line names the chains and the mesh")
+    want = METRIC_LINES.findall(text)
+    steps = {k[:-2]: v for k, v in res["stats"].items() if k.endswith("_s")}
+    del res, m
+    done, rc = _kill_after_first_checkpoint(argv + ["--checkpoint", ck_b], ck_b,
+                                            os.path.join(tmp, "HB.log"), cli="evaluate_hslda")
+    _check(done == s and rc == -signal.SIGKILL,
+           f"14d: the --n-chains 8 run was killed by SIGKILL at its first checkpoint ({done}, "
+           f"rc {rc})")
+    resumed = subprocess.run(_cli_module(argv + ["--checkpoint", ck_b, "--resume"],
+                                         "evaluate_hslda"),
+                             cwd=ROOT, capture_output=True, text=True, timeout=600)
+    _check(resumed.returncode == 0 and f"resumed from {ck_b} at iteration {s}" in resumed.stdout,
+           f"14d: the run resumed: {resumed.stdout[-2000:]}{resumed.stderr[-2000:]}")
+    got = METRIC_LINES.findall(resumed.stdout)
+    _check(len(want) == 4 and got == want,
+           f"14d: the resumed run prints the uninterrupted run's metrics: {got} != {want}")
+    (a, _), (b, _) = (load_checkpoint(f"{ck}.it{it}.rank0") for ck in (ck_a, ck_b))
+    (ma, _), (mb, meta_b) = load_checkpoint(ck_a), load_checkpoint(ck_b)
+    _check(meta_b["iters_done"] == it and _same_arrays(a, b) and _same_arrays(ma, mb),
+           "14d: the killed-and-resumed run's shard (every array, both generators' states) "
+           "and marker equal the uninterrupted run's")
+    rec = dict(card=card, chains=8, auc_roc=auc, wall_s=steps, killed_at=done,
+               kill_resume_arrays=sorted(a) + sorted(ma), test_s=steps["test"],
+               single_chain_test_s=single_test_s,
+               test_ratio=steps["test"] / single_test_s if single_test_s else None)
+    print(f"14d ({card}): the HSLDA CLI --n-chains 8 (-i {it} -s {s}, test {test_it}; "
+          f"{test_s}): chain-averaged AUC {auc}; wall by step "
+          f"{json.dumps({k: round(v, 4) for k, v in steps.items()})}; the fold-in "
+          f"{steps['test']:.3f} s against {single_test_s:.3f} s for one chain at test "
+          f"{test_it} (phase 12); killed at {done} and resumed: {len(a)} shard arrays, "
+          f"{len(ma)} marker arrays and the metric lines equal")
+    return rec
+
+
+def hslda_multi_phase(seed: int, card: str, single_test_s: float) -> dict:
+    """Phase 14: multi-device HSLDA (14a-d)."""
+    rec = {"card": card, "chains": hslda_chains_phase(seed, card),
+           "timing": hslda_chain_timing(seed, card), "ranks": hslda_ranks_case(seed)}
+    with tempfile.TemporaryDirectory() as tmp:
+        rec["cli"] = hslda_cli_case(seed, card, tmp, single_test_s)
+    return rec
+
+
 def warp_record(rec: dict, local: dict, ptxas: dict) -> dict:
     """The warp route's line of the kernel records: its launches on its
     main path (LocalLDA ``-k 50``, phase 10), its time, bound and plain
@@ -2724,7 +3051,13 @@ def main(argv=None) -> int:
     md = multi_device_phase(args.seed, card)
     phase_done("multi-device")
 
-    # 14. records
+    # 14. multi-device HSLDA: chains batched in one z-sweep graph, the
+    # trainer at 1-64 chains, two gloo ranks on the card, the CLI's
+    # --n-chains with a kill and resume
+    hmd = hslda_multi_phase(args.seed, card, hslda["cli_opt2"]["wall_s"]["test"])
+    phase_done("multi-device HSLDA")
+
+    # 15. records
     kernels = [{
         "name": "fused_block",
         "route": "cuda",
@@ -2844,6 +3177,7 @@ def main(argv=None) -> int:
     print(json.dumps({"vi": vi}))
     print(json.dumps({"hslda": hslda}))
     print(json.dumps({"multi_device": md}))
+    print(json.dumps({"multi_device_hslda": hmd}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -11,9 +11,11 @@ library-only; this CLI follows its module-level pipeline
 chunked training through utils/elastic (``--checkpoint PATH --save-every N
 --resume [--max-restarts R]``), the batch fold-in test and the ranking
 metrics with the root column dropped; a line of wall times by step follows.
-``--n-chains`` or ``--n-data`` above 1 (the JAX package's sharded
-``DistributedHSLDA``) are refused with an error (ROADMAP.md Queue 1 item 9b,
-the next slice).
+``--n-chains C`` or ``--n-data S`` above 1 train the sharded
+``parallel.DistributedHSLDA`` (chain-averaged predictions): in one process
+C chains batched on the device, or under ``python -m torch.distributed.run
+--nproc-per-node N`` a mesh of N ranks, S data shards by N/S chain rows;
+rank 0 alone prints the metrics and writes ``-p``'s pickles.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ import time
 
 import torch
 
-from .evaluate_labeled_lda import _resumed_at, check_supported
+from .evaluate_labeled_lda import _resumed_at, check_device, distributed_mesh
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -58,9 +60,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "training faults by restarting from the last "
                         "durable checkpoint (utils/elastic.elastic_train)")
     p.add_argument("--n-chains", type=int, default=1,
-                   help="parallel Gibbs chains (not ported yet)")
+                   help="parallel Gibbs chains (>1: sharded DistributedHSLDA, "
+                        "chain-averaged predictions)")
     p.add_argument("--n-data", type=int, default=1,
-                   help="document shards per chain row (not ported yet)")
+                   help="document shards per chain row (AD-LDA all-reduce merges)")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="device to train and test on")
     return p
@@ -69,11 +72,25 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> dict:
     """Run the CLI; returns the model, the metrics and ``stats``, the wall
     seconds by step (load, model, train, test, metrics) and the cycles this
-    call trained."""
+    call trained.  On a distributed run's ranks other than 0 it prints
+    nothing after training and returns the model alone."""
+    import torch.distributed as dist
+
     opt = build_parser().parse_args(argv)
     if opt.thinning == 0:
         opt.thinning = opt.it
-    check_supported(opt)
+    check_device(opt)
+    had_group = dist.is_available() and dist.is_initialized()
+    try:
+        return _main(opt)
+    finally:
+        if not had_group:
+            from ..parallel.bootstrap import shutdown
+
+            shutdown()
+
+
+def _main(opt) -> dict:
 
     from ..data.corpus import load_corpus, split_data
     from ..eval.metrics import binary_yreal, evaluate_ranking
@@ -92,9 +109,23 @@ def main(argv=None) -> dict:
                  gamma=opt.gamma, mu=opt.mu, sigma=opt.sigma, xi=opt.xi,
                  seed=opt.seed, device=opt.device)
 
+    rank, chains = 0, ""
+    if opt.n_chains > 1 or opt.n_data > 1:
+        from ..parallel import DistributedHSLDA
+
+        mesh, rank = distributed_mesh(opt)
+        chains = f", {opt.n_chains} chains, mesh {mesh.shape}"
+
+        def build():
+            return DistributedHSLDA(train.docs, train.labs, list(train.labelset), mesh=mesh,
+                                    n_chains=opt.n_chains, **hyper)
+    else:
+        def build():
+            return HSLDA(train.docs, train.labs, list(train.labelset), **hyper)
+
     def make_model():
         t = time.perf_counter()
-        model = HSLDA(train.docs, train.labs, list(train.labelset), **hyper)
+        model = build()
         stats["model_s"] += time.perf_counter() - t
         return model
 
@@ -110,21 +141,24 @@ def main(argv=None) -> dict:
             raise SystemExit("--max-restarts requires --checkpoint")
         model = elastic_train(
             make_model, opt.it, opt.thinning, opt.checkpoint, save_every,
-            max_restarts=opt.max_restarts, verbose=True, opt=opt.opt,
+            max_restarts=opt.max_restarts, verbose=rank == 0, opt=opt.opt,
             resume_first=opt.resume,
         )
     else:
-        eg = ElasticGibbs(make_model(), opt.checkpoint, resume=opt.resume, verbose=True)
+        eg = ElasticGibbs(make_model(), opt.checkpoint, resume=opt.resume, verbose=rank == 0)
         eg.run(opt.it, opt.thinning, save_every, opt=opt.opt)
         model = eg.model
     if model.device.type == "cuda":
         torch.cuda.synchronize(model.device)
     stats["train_s"] = time.perf_counter() - t0 - stats["model_s"]
 
-    print("Testing test data...")
+    if rank == 0:
+        print("Testing test data...")
     t0 = time.perf_counter()
     scores = model.run_tests(test.docs, it=opt.test_it, s=opt.test_s)
     stats["test_s"] = time.perf_counter() - t0
+    if rank != 0:
+        return dict(model=model)
 
     if opt.pickle:
         # scores first: they are the cheap artifact and must survive even if
@@ -135,7 +169,7 @@ def main(argv=None) -> dict:
             pickle.dump(model, f)
 
     t0 = time.perf_counter()
-    print(f"Model:               HSLDA (PyTorch, {model.device.type})")
+    print(f"Model:               HSLDA (PyTorch, {model.device.type}{chains})")
     print("Corpus:             ", opt.file)
     print("Label depth         ", opt.lvl)
     print("# of Gibbs samples: ", int(opt.it))
@@ -152,7 +186,8 @@ def main(argv=None) -> dict:
     stats["metrics_s"] = time.perf_counter() - t0
     print(f"wall time by step: load+preprocess {stats['load_s']:.3f} s, model "
           f"{stats['model_s']:.3f} s, train {stats['train_s']:.3f} s "
-          f"({stats['train_cycles']} cycles, opt {opt.opt}), test {stats['test_s']:.3f} s "
+          f"({stats['train_cycles']} cycles, opt {opt.opt}{chains}), test "
+          f"{stats['test_s']:.3f} s "
           f"({opt.test_it} fold-in sweeps), metrics {stats['metrics_s']:.3f} s")
     print(f"total wall time: {time.time()-t_start:.1f}s")
     return dict(model=model, metrics=m, scores=scores, stats=stats)

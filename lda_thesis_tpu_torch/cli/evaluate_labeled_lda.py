@@ -134,26 +134,21 @@ def check_device(opt) -> None:
 
 
 def check_supported(opt) -> None:
-    """Refuse, with ``SystemExit``, multi-device training of the models whose
-    distributed trainer is not ported yet (HSLDA: ROADMAP.md Queue 1 item
-    9b), and ``--device cuda`` where no card is visible."""
-    if getattr(opt, "n_chains", 1) > 1 or getattr(opt, "n_data", 1) > 1:
-        raise SystemExit("--n-chains and --n-data: this model's multi-device trainer is "
-                         "not ported to PyTorch yet (ROADMAP.md Queue 1 item 9b)")
+    """Refuse, with ``SystemExit``, what the port cannot run: ``--device
+    cuda`` where no card is visible.  Every option of the JAX CLIs is
+    ported, the multi-device flags of the Labeled-LDA and HSLDA CLIs
+    included."""
     check_device(opt)
 
 
-def _distributed_model(opt, train, dicti, g, rank_info):
-    """The mesh and a builder of the distributed trainer (``--n-chains``,
-    ``--n-data``, ``--table-shard``); ``rank_info`` receives the rank."""
-    from ..parallel import DistributedLabeledLDA, initialize_distributed, make_mesh
+def distributed_mesh(opt):
+    """``(mesh, rank)`` for ``--n-chains``/``--n-data``: the process group
+    from the environment (``python -m torch.distributed.run``; one rank
+    without it), ``--n-data`` data shards and the largest chains axis that
+    fills the ranks and divides ``--n-chains``."""
+    from ..parallel import initialize_distributed, make_mesh
     from ..parallel.bootstrap import world
 
-    if opt.sweep == "compact":
-        raise SystemExit("--sweep compact is single-device only")
-    if opt.pickle:
-        raise SystemExit("-p pickles a single-device model; the distributed trainer "
-                         "saves through --checkpoint")
     initialize_distributed(backend=getattr(opt, "dist_backend", None), device=opt.device)
     rank, size = world()
     if size % opt.n_data:
@@ -166,8 +161,21 @@ def _distributed_model(opt, train, dicti, g, rank_info):
         raise SystemExit(f"--n-chains {opt.n_chains} x --n-data {opt.n_data} cannot fill "
                          f"{size} ranks: the chains axis of {size // opt.n_data} must "
                          "divide --n-chains")
-    mesh = make_mesh(n_data=opt.n_data, n_chains=mesh_chains, device=opt.device)
-    rank_info["rank"] = rank
+    return make_mesh(n_data=opt.n_data, n_chains=mesh_chains, device=opt.device), rank
+
+
+def _distributed_model(opt, train, dicti, g, rank_info):
+    """A function that makes the distributed trainer on the mesh of
+    ``--n-chains``, ``--n-data`` and ``--table-shard``; ``rank_info``
+    receives the rank."""
+    from ..parallel import DistributedLabeledLDA
+
+    if opt.sweep == "compact":
+        raise SystemExit("--sweep compact is single-device only")
+    if opt.pickle:
+        raise SystemExit("-p pickles a single-device model; the distributed trainer "
+                         "saves through --checkpoint")
+    mesh, rank_info["rank"] = distributed_mesh(opt)
 
     def make_model():
         return DistributedLabeledLDA(

@@ -1,5 +1,10 @@
 """Carry a trained Labeled-LDA, LocalLDA, HSLDA or distributed state from NumPy arrays into the port.
 
+The distributed trainers' global ``(C, …)`` arrays load through
+:func:`sharded_state_from_numpy` (``DistributedLabeledLDA``) and
+:func:`hslda_sharded_state_from_numpy` (``DistributedHSLDA``), each rank
+keeping its part.
+
 The arrays are those that ``lda_thesis_tpu/utils/checkpoint.save_model``
 writes for a ``LabeledLDA`` or a ``LocalLDA``: per bucket ``z_{g}`` and
 ``n_dk_{g}``, the tables ``n_vk (V, Kp)`` and ``n_k (Kp,)``, and the thinned
@@ -31,9 +36,11 @@ import torch
 
 from .ops.gibbs import BucketLDAState, CompactBucketState
 from .ops.gibbs_fused import FusedBucketState
+from .parallel.sharded import local_chains
 
 __all__ = ["labeled_lda_state_from_numpy", "local_lda_state_from_numpy",
-           "hslda_state_from_numpy", "sharded_state_from_numpy", "local_state_from_global"]
+           "hslda_state_from_numpy", "sharded_state_from_numpy",
+           "hslda_sharded_state_from_numpy", "local_state_from_global"]
 
 
 def _taker(arrays, device):
@@ -164,16 +171,56 @@ def sharded_state_from_numpy(arrays: Mapping[str, np.ndarray], model,
                                           model.n_chains, axes)
 
 
+# the DistributedHSLDA state's document axes; vocab-sharded, the table's rows too
+HSLDA_AXES = {"z": 1, "n_dk": 1, "a": 1}
+HSLDA_VOCAB_AXES = dict(HSLDA_AXES, n_vk=1)
+
+
+def hslda_sharded_state_from_numpy(arrays: Mapping[str, np.ndarray], model,
+                                   meta: Optional[Mapping[str, Any]] = None) -> None:
+    """Load a JAX ``DistributedHSLDA``'s global arrays into this rank's part
+    of ``model`` (a port ``DistributedHSLDA``), on its device.
+
+    The arrays are those of JAX's ``HSLDAShardedState`` as its checkpoint
+    names them: ``z (C, D_p, N)``, ``n_dk (C, D_p, K)``, ``n_vk (C, V, K)``
+    (vocab-sharded: ``(C, V_p, K)``), ``n_k (C, K)`` (int32), ``eta (C, L,
+    K)``, ``a (C, D_p, L)``, ``beta_vec (C, K)`` and, where a save was
+    folded in, ``ph_hat (C, K, V or V_p)``.  This rank keeps its chains, its
+    documents and, vocab-sharded, its table rows.  Raises ``ValueError``
+    where ``meta``'s ``table_shard`` or a shape differs from the model's.
+    The threefry key has no counterpart: the model's generators stay."""
+    from .parallel.sharded_io import HSLDA_ARRAYS
+    from .parallel.vocab_sharded import vocab_rows
+
+    meta = meta or {}
+    if "table_shard" in meta and meta["table_shard"] != model.table_shard:
+        raise ValueError(f"table_shard mismatch: arrays are {meta['table_shard']!r}, "
+                         f"model {model.table_shard!r}")
+    vocab = model.table_shard == "vocab"
+    named = {f: arrays[a] for f, a in HSLDA_ARRAYS.items() if a in arrays}
+    model.state = local_state_from_global(named, model.state, model.mesh, model.n_chains,
+                                          HSLDA_VOCAB_AXES if vocab else HSLDA_AXES)
+    if "ph_hat" not in arrays:
+        model._ph_hat = None
+        return
+    L, g0 = local_chains(model.mesh, model.n_chains)
+    ph = np.asarray(arrays["ph_hat"], np.float32)[g0:g0 + L]
+    rows = vocab_rows(model.mesh, model.V) if vocab else slice(None)
+    ph = np.ascontiguousarray(ph[:, :, rows])
+    want = (L, model.K, model.state.n_vk.shape[1])
+    if ph.shape != want:
+        raise ValueError(f"ph_hat has shape {ph.shape}, model needs {want}")
+    model._ph_hat = torch.tensor(ph, device=model.device)
+
+
 def local_state_from_global(arrays: Mapping[str, np.ndarray], state, mesh, n_chains: int,
                             axes: Mapping[str, Any]):
     """A state of ``state``'s type and shapes holding this rank's part of the
     global ``(C, …)`` arrays: its chains and, along the axis that ``axes``
     names for a field, its slice of the data-sharded axis."""
-    from .parallel.sharded import local_chains
-
     L, g0 = local_chains(mesh, n_chains)
     di = mesh.coords[1]
-    fields = {"s": int(np.asarray(arrays.get("s", 0)))}
+    fields = {"s": int(np.asarray(arrays.get("s", 0)))} if "s" in state._fields else {}
     for name, value in state._asdict().items():
         if name == "s":
             continue

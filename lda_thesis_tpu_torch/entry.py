@@ -8,7 +8,9 @@ K = 16, numpy seed 0): on a card it launches the merge-block CUDA kernel
 once.  :func:`dryrun_multichip` (the counterpart of
 ``__graft_entry__.dryrun_multichip``) spawns ``n`` ranks and runs one full
 sharded training step on the same problem: a dense AD-LDA sweep of every
-chain, the merge over the data row and the thinned update.
+chain, the merge over the data row and the thinned update; then the
+sharded HSLDA loop (``parallel/hslda_sharded``) for 3 cycles at thinning
+2 on ``__graft_entry__``'s HSLDA problem.
 
     python -m lda_thesis_tpu_torch.entry [--device cpu] [--dryrun N [--backend gloo]]
 """
@@ -101,8 +103,46 @@ def _dryrun_rank(payload) -> dict:
     ph = pooled_phi(state, mesh, n_chains)
     if tuple(ph.shape) != (V, K):
         raise AssertionError(f"pooled phi has shape {tuple(ph.shape)}")
-    return {"mesh": mesh.shape, "coords": mesh.coords, "backend": mesh.backend,
-            "device": str(mesh.device), "tokens": total, "s": state.s}
+    out = {"mesh": mesh.shape, "coords": mesh.coords, "backend": mesh.backend,
+           "device": str(mesh.device), "tokens": total, "s": state.s}
+    out["hslda"] = _dryrun_hslda(mesh, n_chains, 4 * n)
+    return out
+
+
+def _dryrun_hslda(mesh, n_chains: int, D: int) -> dict:
+    """The sharded HSLDA loop of ``__graft_entry__.dryrun_multichip``: D
+    documents of 3–7 tokens over 64 words, K = 6, five labels (numpy seed
+    1); 3 cycles at thinning 2, so one save; checks the save count and
+    every chain's token totals."""
+    from .data.encode import encode_instances
+    from .ops.sampling import stirling_table
+    from .parallel.hslda_sharded import (init_hslda_sharded, make_hslda_generators,
+                                         make_hslda_train_loop, shard_hslda_corpus)
+    from .parallel.jobs import hslda_invariants
+
+    rng = np.random.default_rng(1)
+    V, K, L = 64, 6, 5
+    docs = [rng.integers(0, V, size=rng.integers(3, 8)).tolist() for _ in range(D)]
+    tok_v, mask = encode_instances(docs)
+    labs = np.zeros((D, L), np.float32)
+    labs[:, 0] = 1
+    for d in range(D):
+        labs[d, rng.integers(1, L)] = 1
+    corpus = shard_hslda_corpus(mesh, tok_v, mask, labs)
+    gens = make_hslda_generators(mesh, n_chains, seed=1)
+    state = init_hslda_sharded(mesh, corpus, V, K, n_chains, gens)
+    table = stirling_table(16)
+    logs = torch.as_tensor(np.log(np.where(table > 0, table, 1e-300)), dtype=torch.float32,
+                           device=mesh.device)
+    loop = make_hslda_train_loop(mesh, corpus, n_chains, logs, D_total=D)
+    ph = torch.zeros((state.n_k.shape[0], K, V), dtype=torch.float32, device=mesh.device)
+    state, ph, saves = loop(state, ph, 0, 3, 2, gens)
+    if saves != 1:
+        raise AssertionError(f"the HSLDA loop folded in {saves} saves, not 1")
+    inv = hslda_invariants(mesh, state, int(mask.sum()), "replicated")
+    if not inv["ok"]:
+        raise AssertionError(f"HSLDA count invariants fail: {inv}")
+    return {"chains": state.n_k.shape[0], "saves": saves, "tokens": inv["n_vk"]}
 
 
 def main(argv=None) -> None:

@@ -17,8 +17,12 @@ auxiliaries ``a``; blocked Gibbs over five variable groups z → η → a → m 
 * β: a Gamma-normalised Dirichlet (:func:`beta_block`).
 
 The linear-model blocks run eagerly, in float32 as the JAX function does
-(``torch.linalg.cholesky_ex``: no host sync).  Each block takes its draws
-as an optional input of the JAX draw's shape, so a test can feed JAX's.
+(``torch.linalg.cholesky_ex``: no host sync; IEEE float32 matmuls, TF32
+off as ``torch.backends.cuda.matmul.allow_tf32`` leaves it by default).
+Each block takes its draws as an optional input of the JAX draw's shape,
+so a test can feed JAX's.  Every block also takes a leading chain axis
+(``parallel/hslda_sharded`` runs a rank's chains at once), drawing each
+chain's numbers from its own generator where it is given one per chain.
 
 The model runs on ``device`` (CUDA unless the caller passes ``"cpu"``) and
 draws from one ``torch.Generator`` on that device, seeded by ``seed``:
@@ -46,11 +50,11 @@ import torch
 from ..data.encode import binarize_labels, build_labelmap, compact_labels, encode_instances
 from ..ops.gibbs import foldin_sweep
 from ..ops.hslda_gibbs import HSLDACounts, HSLDASweep, hslda_init_counts, hslda_z_sweep
-from ..ops.sampling import gumbel, norm_cdf, stirling_table, truncated_normal
+from ..ops.sampling import gumbel, norm_cdf, open_uniforms, stirling_table, truncated_normal
 from .state import running_average
 
-__all__ = ["HSLDA", "CycleNoise", "eta_block", "a_block", "antoniak_draw", "beta_block",
-           "D_BLOCK"]
+__all__ = ["HSLDA", "CycleNoise", "eta_block", "eta_gram", "eta_draw", "a_block",
+           "antoniak_draw", "beta_block", "chains_test_loop", "chain_scores", "D_BLOCK"]
 
 D_BLOCK = 512  # documents per block of the m draw (the JAX function's noise blocks)
 
@@ -61,7 +65,9 @@ class CycleNoise(NamedTuple):
     """The draws of one cycle, each optional: ``z (N, D, K)`` Gumbel noise,
     ``eta (K, L)`` standard normals, ``a (D, L)`` uniforms in [1e-7, 1),
     ``m (D, K, S)`` Gumbel noise and ``beta``, the Gamma variates (K,) or a
-    function of their concentration that gives them."""
+    function of their concentration that gives them.  For a state with a
+    chain axis each has one more: ``z (N, C, D, K)``, the others a leading
+    ``C``."""
 
     z: Optional[torch.Tensor] = None
     eta: Optional[torch.Tensor] = None
@@ -74,82 +80,124 @@ def _f32(x: float) -> float:
     return float(np.float32(x))
 
 
-def eta_block(zbar: torch.Tensor, a: torch.Tensor, mu: float, sigma: float,
-              normals: Optional[torch.Tensor] = None,
-              generator: Optional[torch.Generator] = None) -> torch.Tensor:
-    """η ~ its Bayesian-regression posterior given z̄ (D, K) and a (D, L)
-    (HSLDA.py:274-287); returns η (L, K).
+def per_chain(shape, generator, draw) -> torch.Tensor:
+    """A draw of ``shape``: ``draw(shape, gen)`` from one generator, or, given
+    one generator per chain (``shape[0]`` of them), chain c's slice from
+    generator c, as a single-chain draw of ``shape[1:]``."""
+    if generator is None or isinstance(generator, torch.Generator):
+        return draw(tuple(shape), generator)
+    if len(generator) != shape[0]:
+        raise ValueError(f"{len(generator)} generators for {shape[0]} chains")
+    return torch.stack([draw(tuple(shape[1:]), g) for g in generator])
+
+
+def eta_gram(zbar: torch.Tensor, a: torch.Tensor):
+    """The data terms of η's posterior: ``(z̄ᵀz̄, z̄ᵀa)``, (K, K) and (K, L),
+    or per chain (C, K, K) and (C, K, L).  A sharded run sums them over
+    its data row before :func:`eta_draw` (``hslda_sharded.py:216-227``)."""
+    return zbar.mT @ zbar, zbar.mT @ a
+
+
+def eta_draw(gram: torch.Tensor, raw: torch.Tensor, mu: float, sigma: float,
+             normals: Optional[torch.Tensor] = None, generator=None) -> torch.Tensor:
+    """η ~ its Bayesian-regression posterior (HSLDA.py:274-287) given the
+    Gram terms of :func:`eta_gram`; returns η (L, K), or (C, L, K) per chain.
 
     Σ̂⁻¹ = I/σ + z̄ᵀz̄ is factored by Cholesky; μ̂ = Σ̂ (μ/σ + z̄ᵀa) by two
     triangular solves, and η_l = μ̂_l + Σ̂^{1/2} ε with Σ̂^{1/2} = chol⁻ᵀ.
-    ``normals`` is ε (K, L)."""
-    K, L = zbar.shape[1], a.shape[1]
+    ``normals`` is ε, (K, L) or (C, K, L); the factor and the solves batch
+    over chains."""
+    K, L = gram.shape[-1], raw.shape[-1]
     sigma32 = _f32(sigma)
-    eye = torch.eye(K, dtype=torch.float32, device=zbar.device)
-    sig_inv = eye / sigma32 + zbar.T @ zbar  # (K, K) precision
+    eye = torch.eye(K, dtype=torch.float32, device=gram.device)
+    sig_inv = eye / sigma32 + gram  # (K, K) precision
     chol, _ = torch.linalg.cholesky_ex(sig_inv)
-    raw_mean = float(np.float32(mu) / np.float32(sigma)) + zbar.T @ a  # (K, L)
+    raw_mean = float(np.float32(mu) / np.float32(sigma)) + raw  # (K, L)
     tmp = torch.linalg.solve_triangular(chol, raw_mean, upper=False)
-    mu_hat = torch.linalg.solve_triangular(chol.T, tmp, upper=True)
+    mu_hat = torch.linalg.solve_triangular(chol.mT, tmp, upper=True)
     if normals is None:
-        eps = torch.randn((K, L), generator=generator, device=zbar.device, dtype=torch.float32)
+        eps = per_chain(tuple(raw.shape[:-2]) + (K, L), generator, lambda s, g: torch.randn(
+            s, generator=g, device=gram.device, dtype=torch.float32))
     else:
-        eps = normals.to(device=zbar.device, dtype=torch.float32)
-    return (mu_hat + torch.linalg.solve_triangular(chol.T, eps, upper=True)).T
+        eps = normals.to(device=gram.device, dtype=torch.float32)
+    return (mu_hat + torch.linalg.solve_triangular(chol.mT, eps, upper=True)).mT
+
+
+def eta_block(zbar: torch.Tensor, a: torch.Tensor, mu: float, sigma: float,
+              normals: Optional[torch.Tensor] = None, generator=None) -> torch.Tensor:
+    """η ~ its posterior given z̄ (D, K) and a (D, L) (HSLDA.py:274-287):
+    :func:`eta_draw` of :func:`eta_gram`; returns η (L, K).  With a chain
+    axis (z̄ (C, D, K), a (C, D, L)) it draws every chain's η (C, L, K)."""
+    return eta_draw(*eta_gram(zbar, a), mu, sigma, normals, generator)
 
 
 def a_block(zbar: torch.Tensor, eta: torch.Tensor, labs: torch.Tensor,
-            uniforms: Optional[torch.Tensor] = None,
-            generator: Optional[torch.Generator] = None):
+            uniforms: Optional[torch.Tensor] = None, generator=None):
     """a ~ N(z̄ηᵀ, 1) truncated to (0, ∞) on positive labels and (−∞, 0) on
-    negative ones (HSLDA.py:289-292); returns (a, z̄ηᵀ), both (D, L)."""
-    mean_a = zbar @ eta.T
+    negative ones (HSLDA.py:289-292); returns (a, z̄ηᵀ), both (D, L), or
+    (C, D, L) for z̄ (C, D, K) and η (C, L, K)."""
+    mean_a = zbar @ eta.mT
     lo = torch.where(labs > 0, 0.0, float("-inf"))
     hi = torch.where(labs > 0, float("inf"), 0.0)
+    if uniforms is None and generator is not None and not isinstance(generator,
+                                                                     torch.Generator):
+        uniforms = per_chain(mean_a.shape, generator,
+                             lambda s, g: open_uniforms(s, mean_a.device, g))
     return truncated_normal(lo, hi, loc=mean_a, scale=1.0, uniforms=uniforms,
                             generator=generator), mean_a
 
 
 def antoniak_draw(n_dk: torch.Tensor, alpha: float, beta: torch.Tensor,
                   stirling_logs: torch.Tensor, gumbels: Optional[torch.Tensor] = None,
-                  generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                  generator=None) -> torch.Tensor:
     """Antoniak table counts m ∈ {0..n} with p(m) ∝ s(n, m)·(αβ_k)^m per
     (document, topic), by Gumbel-max over the log Stirling table
-    (HSLDA.py:298-310 with the index-draw fix); returns m (D, K) int64.
+    (HSLDA.py:298-310 with the index-draw fix); returns m (D, K) int64, or
+    (C, D, K) for ``n_dk (C, D, K)`` and ``beta (C, K)``.
 
     Counts are clipped to the table (S rows).  ``gumbels`` is the noise
-    (D, K, S); documents go in blocks of ``D_BLOCK`` to bound the (·, K, S)
-    transient."""
-    D, K = n_dk.shape
+    (D, K, S) or (C, D, K, S); documents go in blocks of ``D_BLOCK``, all
+    chains at once, to bound the (C, ·, K, S) transient."""
+    single = n_dk.dim() == 2
+    n3 = n_dk[None] if single else n_dk
+    C, D, K = n3.shape
     S = stirling_logs.shape[0]
-    log_ab = torch.log(torch.clamp(alpha * beta, min=1e-38))  # (K,)
-    n_clip = torch.clamp(n_dk, max=S - 1).long()
-    step = torch.arange(S, dtype=torch.float32, device=n_dk.device)[None, None, :] \
-        * log_ab[None, :, None]  # (1, K, S)
+    log_ab = torch.log(torch.clamp(alpha * beta.reshape(C, K), min=1e-38))  # (C, K)
+    n_clip = torch.clamp(n3, max=S - 1).long()
+    step = torch.arange(S, dtype=torch.float32, device=n_dk.device)[None, None, None, :] \
+        * log_ab[:, None, :, None]  # (C, 1, K, S)
+    shape = (C, D, K, S)
     if gumbels is None:
-        gumbels = gumbel((D, K, S), n_dk.device, generator)
-    elif tuple(gumbels.shape) != (D, K, S):
-        raise ValueError(f"gumbels must have shape {(D, K, S)}, got {tuple(gumbels.shape)}")
-    m = torch.empty((D, K), dtype=torch.int64, device=n_dk.device)
+        gumbels = per_chain(shape, [generator] if single else generator,
+                            lambda s, g: gumbel(s, n_dk.device, g))
+    elif gumbels.numel() != C * D * K * S or (not single and tuple(gumbels.shape) != shape):
+        raise ValueError(f"gumbels must have shape {shape[1:] if single else shape}, "
+                         f"got {tuple(gumbels.shape)}")
+    gumbels = gumbels.reshape(shape)
+    m = torch.empty((C, D, K), dtype=torch.int64, device=n_dk.device)
     for s in range(0, D, D_BLOCK):
-        logits = stirling_logs[n_clip[s:s + D_BLOCK]] + step  # (·, K, S), -inf above n
-        m[s:s + D_BLOCK] = torch.argmax(logits + gumbels[s:s + D_BLOCK].to(logits.device),
-                                        dim=2)
-    return m
+        logits = stirling_logs[n_clip[:, s:s + D_BLOCK]] + step  # (C, ·, K, S), -inf above n
+        m[:, s:s + D_BLOCK] = torch.argmax(
+            logits + gumbels[:, s:s + D_BLOCK].to(logits.device), dim=3)
+    return m[0] if single else m
 
 
 def beta_block(mdot: torch.Tensor, aprime: float, gammas: Draws = None,
-               generator: Optional[torch.Generator] = None) -> torch.Tensor:
-    """β ~ Dir(mdot + α') by normalised Gamma variates (HSLDA.py:294-296).
-    ``gammas`` is the variates (K,) or a function of the concentration that
-    gives them."""
+               generator=None) -> torch.Tensor:
+    """β ~ Dir(mdot + α') by normalised Gamma variates (HSLDA.py:294-296),
+    (K,) or per chain (C, K).  ``gammas`` is the variates or a function of
+    the concentration that gives them."""
     conc = mdot + _f32(aprime)
     if gammas is None:
-        g = torch._standard_gamma(conc, generator=generator)
+        if generator is None or isinstance(generator, torch.Generator):
+            g = torch._standard_gamma(conc, generator=generator)
+        else:  # one generator per chain
+            g = torch.stack([torch._standard_gamma(conc[c], generator=gen)
+                             for c, gen in enumerate(generator)])
     else:
         g = gammas(conc) if callable(gammas) else gammas
         g = g.to(device=conc.device, dtype=torch.float32)
-    return g / g.sum()
+    return g / g.sum(dim=-1, keepdim=True)
 
 
 def _train_cycle(counts: HSLDACounts, tok_v, mask, labs, eta, a, beta, stirling_logs,
@@ -224,6 +272,39 @@ def _test_loop(tok_v, mask, init_phi, sweep_phi, alpha_beta, it: int, thinning: 
     return avg
 
 
+def chains_test_loop(tok_v, mask, init_phi, sweep_phi, alpha_beta, it: int, thinning: int,
+                     init_uniforms: Optional[torch.Tensor] = None,
+                     sweep_uniforms: Optional[Sequence[torch.Tensor]] = None,
+                     generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """:func:`_test_loop` of C chains at once: each chain folds the same
+    documents in against its own ``init_phi``/``sweep_phi (C, V, K)`` and
+    ``alpha_beta (C, K)``; returns z̄ (C, D, K).
+
+    The chains' documents lie side by side as C·D rows of one fold-in,
+    chain c's words reading rows ``c·V + v`` of the stacked (C·V, K)
+    tables and its rows taking α·β_c, so each position is as many launches
+    for C chains as for one.  The uniforms are ``(N, C·D)`` (chain c's
+    documents in columns ``c·D … c·D + D − 1``)."""
+    C, V, K = init_phi.shape
+    D, N = tok_v.shape
+    rows = torch.arange(C, device=tok_v.device).repeat_interleave(D)  # (C·D,)
+    tv = tok_v.long().repeat(C, 1) + (V * rows)[:, None]
+    zbar = _test_loop(tv, mask.repeat(C, 1), init_phi.reshape(C * V, K),
+                      sweep_phi.reshape(C * V, K), alpha_beta[rows], it, thinning,
+                      init_uniforms=init_uniforms, sweep_uniforms=sweep_uniforms,
+                      generator=generator)
+    return zbar.view(C, D, K)
+
+
+def chain_scores(zbar: np.ndarray, eta: np.ndarray, xi: float) -> np.ndarray:
+    """Label probabilities Φ(η_c·z̄_c − ξ) of every chain, averaged over the
+    chains: z̄ (C, D, K) and η (C, L, K) give (D, L).  HSLDA's topics are
+    not identifiable across chains, so the chains are pooled in the
+    probabilities, not in φ or η."""
+    mean_a = np.matmul(zbar, eta.transpose(0, 2, 1)) - np.float32(xi)
+    return norm_cdf(torch.from_numpy(mean_a)).numpy().mean(axis=0)
+
+
 class HSLDA:
     """Hierarchically supervised LDA with a probit label cascade, on
     ``device`` (CUDA unless the caller passes ``"cpu"``)."""
@@ -281,11 +362,26 @@ class HSLDA:
             for x in labelset if x in self.labelmap
         }
 
-        self._gen = torch.Generator(device=self.device)
-        self._gen.manual_seed(int(seed))
-        gen = self._gen
+        # Stirling table in log space, sized to the longest document
+        max_n = int(mask.sum(axis=1).max()) + 2
+        table = stirling_table(max(max_n, 8))
+        with np.errstate(divide="ignore"):
+            self._stirling_logs = self._t(np.log(table), torch.float32)
 
-        # priors and initial state (HSLDA.py:109-137), in the JAX order
+        self.ph: Optional[np.ndarray] = None  # thinned (K, V) φ̂
+        self.th: Optional[np.ndarray] = None  # thinned (D, K) z̄
+        self._avg_s = 0
+        self._cycles_done = 0
+        self._sweeps: Dict[int, HSLDASweep] = {}
+        self.seed = int(seed)
+        self._gen = torch.Generator(device=self.device)
+        self._gen.manual_seed(self.seed)
+        self._init_state()
+
+    def _init_state(self) -> None:
+        """Priors and the initial state (HSLDA.py:109-137), drawn from the
+        model's generator in the JAX constructor's order."""
+        gen = self._gen
         self.eta = self.mu + torch.randn((self.L, self.K), generator=gen, device=self.device)
         g = torch._standard_gamma(torch.full((self.K,), self.aprime, device=self.device),
                                   generator=gen)
@@ -300,18 +396,6 @@ class HSLDA:
         self._n_d = torch.clamp(self.mask.sum(dim=1), min=1).to(torch.float32)
         zbar = self._n_dk.to(torch.float32) / self._n_d[:, None]
         self.a, _ = a_block(zbar, self.eta, self.labs, generator=gen)
-
-        # Stirling table in log space, sized to the longest document
-        max_n = int(mask.sum(axis=1).max()) + 2
-        table = stirling_table(max(max_n, 8))
-        with np.errstate(divide="ignore"):
-            self._stirling_logs = self._t(np.log(table), torch.float32)
-
-        self.ph: Optional[np.ndarray] = None  # thinned (K, V) φ̂
-        self.th: Optional[np.ndarray] = None  # thinned (D, K) z̄
-        self._avg_s = 0
-        self._cycles_done = 0
-        self._sweeps: Dict[int, HSLDASweep] = {}
 
     def __getstate__(self):
         # a captured CUDA graph does not pickle; the sweeps are made again
@@ -431,8 +515,7 @@ class HSLDA:
         sweep_phi = self._t(sweep, torch.float32)
         zbar = _test_loop(tok_v, mask, init_phi, sweep_phi, self.alpha * self.beta,
                           it=int(it), thinning=int(s), generator=self._gen)
-        mean_a = zbar.cpu().numpy() @ self.eta.cpu().numpy().T - np.float32(self.xi)
-        return norm_cdf(torch.from_numpy(mean_a)).numpy()
+        return chain_scores(zbar.cpu().numpy()[None], self.eta.cpu().numpy()[None], self.xi)
 
     def run_test(self, newdoc, it: int = 250, s: int = 25) -> np.ndarray:
         return self.run_tests([newdoc], it=it, s=s)[0]

@@ -24,8 +24,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-__all__ = ["mask_to_logits", "gumbel_argmax", "gumbel", "norm_cdf", "truncated_normal",
-           "stirling_table"]
+__all__ = ["mask_to_logits", "gumbel_argmax", "gumbel", "norm_cdf", "open_uniforms",
+           "truncated_normal", "stirling_table"]
 
 
 def mask_to_logits(mask: torch.Tensor) -> torch.Tensor:
@@ -74,6 +74,14 @@ def norm_cdf(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x < 0, 0.5 * torch.erfc(-w), 0.5 * (1.0 + torch.erf(w)))
 
 
+def open_uniforms(shape, device, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Uniforms in [1e-7, 1), as ``jax.random.uniform(minval=1e-7,
+    maxval=1)`` forms them: :func:`truncated_normal`'s draws."""
+    u = torch.rand(tuple(shape), generator=generator, device=device, dtype=torch.float32)
+    lo_u = np.float32(1e-7)
+    return torch.clamp(u * float(np.float32(1.0) - lo_u) + float(lo_u), min=float(lo_u))
+
+
 def truncated_normal(
     lower: torch.Tensor,
     upper: torch.Tensor,
@@ -101,10 +109,7 @@ def truncated_normal(
     hi_f = torch.where(flip, -lo, hi)
 
     if uniforms is None:
-        # as jax.random.uniform(minval=1e-7, maxval=1) forms them
-        u = torch.rand(lo.shape, generator=generator, device=device, dtype=torch.float32)
-        lo_u = np.float32(1e-7)
-        u = torch.clamp(u * float(np.float32(1.0) - lo_u) + float(lo_u), min=float(lo_u))
+        u = open_uniforms(lo.shape, device, generator)
     elif tuple(uniforms.shape) != tuple(lo.shape):
         raise ValueError(f"uniforms must have shape {tuple(lo.shape)}, "
                          f"got {tuple(uniforms.shape)}")

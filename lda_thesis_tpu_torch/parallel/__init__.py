@@ -10,8 +10,8 @@ Counterpart of ``lda_thesis_tpu/parallel/``:
   as a leading batch axis of one kernel launch; pooled estimators average
   over chains.
 
-The multi-device HSLDA trainer is not ported yet (ROADMAP.md Queue 1
-item 9b).
+``DistributedLabeledLDA`` (:mod:`.trainer`) and ``DistributedHSLDA``
+(:mod:`.hslda_trainer`, over :mod:`.hslda_sharded`) are the trainers.
 """
 
 from .bootstrap import (
@@ -28,9 +28,11 @@ from .sharded import (
     pooled_phi,
     shard_corpus,
 )
+from .hslda_trainer import DistributedHSLDA
 from .trainer import DistributedLabeledLDA
 
 __all__ = [
+    "DistributedHSLDA",
     "DistributedLabeledLDA",
     "Mesh",
     "ShardedLDAState",

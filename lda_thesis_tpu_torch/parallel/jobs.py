@@ -18,6 +18,14 @@ and ``chip_smoke.py`` drive the parallel layer through these:
   block and loop) on raw corpus arrays;
 * :func:`mesh_job` builds meshes and checks the collectives;
 * :func:`cli_job` runs the Labeled-LDA CLI's ``main``;
+* :func:`hslda_job` builds a :class:`.hslda_trainer.DistributedHSLDA`,
+  trains it, checks after every call that the data row's replicas of each
+  chain (tables, η, β) are bitwise equal, and returns this rank's state,
+  the count invariants and, if asked, the chain-averaged scores and a
+  kill-and-resume run through the sharded checkpoint;
+* :func:`hslda_arrays_job` drives ``parallel/hslda_sharded`` on raw corpus
+  arrays: one cycle from a given global state with given noise, or the
+  training loop;
 * :func:`multi_job` runs several of these in one spawn.
 """
 
@@ -26,10 +34,12 @@ from __future__ import annotations
 import time
 from typing import Any, Dict
 
+import numpy as np
 import torch
 
 __all__ = ["train_job", "block_job", "arrays_job", "mesh_job", "cli_job", "multi_job",
-           "replica_check", "count_invariants", "build_model"]
+           "replica_check", "count_invariants", "build_model", "hslda_job", "hslda_arrays_job",
+           "hslda_invariants", "hslda_replicas_equal", "build_hslda"]
 
 
 def build_model(p: Dict[str, Any]):
@@ -305,6 +315,172 @@ def mesh_job(p: Dict[str, Any]) -> Dict[str, Any]:
                     "row_sum": float(row[0]), "row_max": float(hi[0]),
                     "world_sum": float(total[0])})
     return {"rank": rank, "size": size, "meshes": out}
+
+
+def build_hslda(p: Dict[str, Any]):
+    """The payload's ``DistributedHSLDA``: ``docs``, ``labs``, ``labelset``,
+    ``mesh`` ``(mesh_chains, n_data)``, ``device`` and keywords ``kw``."""
+    from .hslda_trainer import DistributedHSLDA
+    from .sharded import make_mesh
+
+    mc, nd = p.get("mesh", (1, 1))
+    mesh = make_mesh(n_data=nd, n_chains=mc, device=p.get("device"))
+    return DistributedHSLDA(p["docs"], p["labs"], p["labelset"], mesh=mesh,
+                            **p.get("kw", {}))
+
+
+def hslda_invariants(mesh, state, total: int, table_shard: str) -> Dict[str, Any]:
+    """Global count invariants of every local chain of a ``HSLDAShardedState``:
+    Σn_dk = Σn_vk = Σmask, no negative count, n_k = Σ_v n_vk (each summed
+    over the data row where it is sharded)."""
+    L = state.n_k.shape[0]
+    ndk = mesh.data_sum_(state.n_dk.reshape(L, -1).sum(dim=1, dtype=torch.int64))
+    vk = state.n_vk.reshape(L, -1).sum(dim=1, dtype=torch.int64)
+    col = state.n_vk.sum(dim=1, dtype=torch.int32)
+    if table_shard == "vocab":
+        vk, col = mesh.data_sum_(vk), mesh.data_sum_(col)
+    neg = torch.tensor([int(min(int(state.n_dk.min()), int(state.n_vk.min()),
+                                int(state.n_k.min())) < 0)], device=state.n_k.device)
+    mesh.data_extreme_(neg, "max")
+    ok = (bool((ndk == total).all()) and bool((vk == total).all())
+          and torch.equal(col, state.n_k) and not bool(neg.item()))
+    return {"total": int(total), "n_dk": ndk.tolist(), "n_vk": vk.tolist(),
+            "n_k_equal": bool(torch.equal(col, state.n_k)), "negative": bool(neg.item()),
+            "ok": ok}
+
+
+def hslda_replicas_equal(mesh, state, table_shard: str) -> bool:
+    """Each chain's replicated arrays (n_k, η, β and, unless vocab-sharded,
+    the table) are bitwise equal across the data row: the row's elementwise
+    max and min equal the local copy."""
+    arrays = [state.n_k, state.eta, state.beta]
+    if table_shard != "vocab":
+        arrays.append(state.n_vk)
+    return all(torch.equal(mesh.data_extreme_(t.clone(), op), t)
+               for t in arrays for op in ("max", "min"))
+
+
+def hslda_job(p: Dict[str, Any]) -> Dict[str, Any]:
+    """Train the payload's ``DistributedHSLDA``: ``steps`` is a list of
+    ``(it, thinning, opt, continue_avg)`` calls; after each, every chain's
+    replicas must be equal across the data row.  ``test`` ``(docs, it, s)``
+    scores documents after training; ``diagnostics`` reads the chain-0
+    estimators; ``resume`` ``{"path", "at"}`` also runs
+    the first step killed after ``at`` cycles (saved, then a fresh model
+    restored from the checkpoint and trained on with ``continue_avg``; with
+    ``wrong_kw``, first into a model built with those keywords, recording
+    the refusal)."""
+    from .sharded_io import restore_hslda_sharded, save_hslda_sharded
+
+    model = build_hslda(p)
+    mesh = model.mesh
+    _sync(model)
+    t0 = time.perf_counter()
+    replicas, saves = [], []
+    for it, thinning, opt, cont in p["steps"]:
+        model.run_training(it, thinning, opt=opt, continue_avg=cont)
+        replicas.append(hslda_replicas_equal(mesh, model.state, model.table_shard))
+        saves.append(model._n_saves)
+    _sync(model)
+    out: Dict[str, Any] = {
+        "rank": mesh.rank, "coords": mesh.coords, "seconds": time.perf_counter() - t0,
+        "replicas_equal": replicas, "backend": mesh.backend, "device": str(model.device),
+        "invariants": hslda_invariants(mesh, model.state, model.n_tokens, model.table_shard),
+        "state": _host_state(model.state), "n_saves": model._n_saves,
+        "cycles_done": model._cycles_done, "n_saves_by_step": saves,
+        "ph_hat": None if model._ph_hat is None else model._ph_hat.cpu().numpy(),
+    }
+    if p.get("diagnostics"):
+        out.update(get_ph=model.get_ph(), chain_ph=model._chain_ph(),
+                   get_zbar=model.get_zbar(), topics=model.display_topics(n=3))
+    if p.get("test") is not None:
+        docs, it, s = p["test"]
+        out["scores"] = model.run_tests(docs, it=it, s=s)
+    if p.get("resume") is not None:
+        path, at = p["resume"]["path"], int(p["resume"]["at"])
+        it, thinning, opt, _ = p["steps"][0]
+        first = build_hslda(p)
+        first.run_training(at, thinning, opt=opt)
+        save_hslda_sharded(path, first, iters_done=at)
+        del first
+        if p["resume"].get("wrong_kw") is not None:
+            wrong = build_hslda(dict(p, kw=dict(p.get("kw", {}), **p["resume"]["wrong_kw"])))
+            try:
+                restore_hslda_sharded(path, wrong)
+                out["wrong_restore"] = None
+            except ValueError as e:
+                out["wrong_restore"] = str(e)
+        second = build_hslda(p)
+        meta = restore_hslda_sharded(path, second)
+        second.run_training(it - at, thinning, opt=opt, continue_avg=True)
+        out["resumed_state"] = _host_state(second.state)
+        out["resumed_ph_hat"] = (None if second._ph_hat is None
+                                 else second._ph_hat.cpu().numpy())
+        out["resumed_meta"] = {k: meta[k] for k in ("iters_done", "n_saves", "cycles_done")}
+        out["resumed_gens"] = [g.get_state().numpy() for g in
+                               second._gens.local + second._gens.chain]
+        out["uninterrupted_gens"] = [g.get_state().numpy() for g in
+                                     model._gens.local + model._gens.chain]
+    return out
+
+
+def hslda_arrays_job(p: Dict[str, Any]) -> Dict[str, Any]:
+    """``parallel/hslda_sharded`` on raw arrays ``(tok_v, mask, labs)``: the
+    init from the generators of ``seed`` (or the global state ``init``, JAX
+    field names with ``beta``), then either one cycle with the noise
+    ``noise[(g, di)]`` of global chain ``g`` on data shard ``di`` (a dict of
+    ``z``, ``eta``, ``a``, ``m`` and the Gamma variates ``beta``; the cycle's
+    ``mdot`` is returned too), or ``cycles`` steps, or the training ``loop``
+    ``(iters, thinning)``.  ``table_shard``, ``D_total``, ``logs`` (the log
+    Stirling table) and the hyperparameters ride along."""
+    from ..convert import HSLDA_AXES, HSLDA_VOCAB_AXES, local_state_from_global
+    from ..models.hslda import CycleNoise
+    from .hslda_sharded import (init_hslda_sharded, make_hslda_generators,
+                                make_hslda_train_loop, pooled_ph, shard_hslda_corpus)
+    from .sharded import local_chains, make_mesh
+
+    mc, nd = p["mesh"]
+    mesh = make_mesh(n_data=nd, n_chains=mc, device=p.get("device"))
+    C, V, K = p["n_chains"], p["V"], p["K"]
+    shard = p.get("table_shard", "replicated")
+    hyper = {k: p[k] for k in ("alpha", "aprime", "gamma", "mu", "sigma", "xi") if k in p}
+    corpus = shard_hslda_corpus(mesh, *p["arrays"])
+    gens = make_hslda_generators(mesh, C, p.get("seed", 0))
+    state = init_hslda_sharded(mesh, corpus, V, K, C, gens, table_shard=shard,
+                               **{k: hyper[k] for k in ("alpha", "aprime", "mu") if k in hyper})
+    if p.get("init") is not None:
+        state = local_state_from_global(p["init"], state, mesh, C,
+                                        HSLDA_VOCAB_AXES if shard == "vocab" else HSLDA_AXES)
+    out: Dict[str, Any] = {"rank": mesh.rank, "coords": mesh.coords, "init": _host_state(state)}
+    logs = torch.as_tensor(p["logs"], dtype=torch.float32, device=mesh.device)
+    loop = make_hslda_train_loop(mesh, corpus, C, logs, p["D_total"], opt=p.get("opt", 1),
+                                 table_shard=shard, V=V, **hyper)
+    L, g0 = local_chains(mesh, C)
+    di = mesh.coords[1]
+    if p.get("noise") is not None:
+        def mine(name, axis=0):
+            return torch.stack([torch.as_tensor(p["noise"][(g0 + j, di)][name],
+                                                device=mesh.device) for j in range(L)], axis)
+
+        noise = CycleNoise(z=mine("z", 1), eta=mine("eta"), a=mine("a"), m=mine("m"),
+                           beta=mine("beta"))
+        loop.load(state)
+        loop.cycle(noise=noise)
+        state = loop.state()
+        out["mdot"] = loop.mdot.cpu().numpy()
+    elif p.get("loop") is not None:
+        iters, thinning = p["loop"]
+        ph = torch.zeros((L, K, state.n_vk.shape[1]), dtype=torch.float32, device=mesh.device)
+        state, ph, n_saves = loop(state, ph, 0, iters, thinning, gens)
+        out.update(ph_hat=ph.cpu().numpy(), n_saves=n_saves)
+    else:  # ``cycles`` cycles, none saved
+        n = int(p.get("cycles", 0))
+        state, _, _ = loop(state, None, 0, n, n + 1, gens)
+    out["state"] = _host_state(state)
+    out["invariants"] = hslda_invariants(mesh, state, int(np.asarray(p["arrays"][1]).sum()),
+                                         shard)
+    out["pooled_ph"] = pooled_ph(state, p.get("gamma", 1.0), V, mesh, C, shard).cpu().numpy()
+    return out
 
 
 def multi_job(p: Dict[str, Any]) -> list:

@@ -14,8 +14,9 @@ Counterpart of ``lda_thesis_tpu/utils/checkpoint.py``, with its layout:
 * :func:`save_model` / :func:`restore_model` round-trip the training state of
   ``LabeledLDA`` (fused, dense and compact), ``LocalLDA`` (fused and dense),
   ``CascadeLDA`` and ``HSLDA``; training resumes mid-chain with the same
-  draws as the uninterrupted run.  A ``DistributedLabeledLDA`` goes to
-  ``parallel/sharded_io.py`` (one shard per rank and a marker).
+  draws as the uninterrupted run.  A ``DistributedLabeledLDA`` or a
+  ``DistributedHSLDA`` goes to ``parallel/sharded_io.py`` (one shard per
+  rank and a marker).
 
 The array names and meta keys are the JAX package's, except that the port
 has no ``rng_key``: it stores its ``torch.Generator`` state as ``rng_state``
@@ -41,12 +42,10 @@ import torch
 
 __all__ = ["save_checkpoint", "load_checkpoint", "save_model", "restore_model"]
 
-# model kinds of the JAX package whose port is still to come: the
-# multi-device HSLDA trainer; every other kind is ported
-_NOT_PORTED = {
-    "DistributedHSLDA": "ROADMAP.md Queue 1 item 9b",
-}
-_KINDS = ("LabeledLDA", "LocalLDA", "CascadeLDA", "HSLDA", "DistributedLabeledLDA")
+# every model kind of the JAX package; the distributed ones go to
+# parallel/sharded_io.py
+_KINDS = ("LabeledLDA", "LocalLDA", "CascadeLDA", "HSLDA", "DistributedLabeledLDA",
+          "DistributedHSLDA")
 # the array of a port checkpoint's ``.npz`` that holds its metadata
 META_ARRAY = "meta_json"
 
@@ -109,10 +108,6 @@ def load_checkpoint(path: str) -> Tuple[Dict[str, np.ndarray], Dict[str, Any]]:
 
 def _model_kind(model) -> str:
     kind = type(model).__name__
-    if kind in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{kind} is not ported yet ({_NOT_PORTED[kind]}); only "
-            f"{', '.join(_KINDS)} checkpoints are")
     if kind not in _KINDS:
         raise TypeError(f"unknown model kind: {kind}")
     return kind
@@ -120,17 +115,18 @@ def _model_kind(model) -> str:
 
 def save_model(path: str, model, extra_meta: Dict[str, Any] = None) -> None:
     """Snapshot a LabeledLDA / LocalLDA / CascadeLDA / HSLDA /
-    DistributedLabeledLDA training state.
+    DistributedLabeledLDA / DistributedHSLDA training state.
 
     ``extra_meta`` lets callers record run-level progress (e.g. the CLI's
     ``iters_done``) alongside the model state; a distributed trainer's
     checkpoint records ``iters_done`` alone (and is written on every rank).
     """
     kind = _model_kind(model)
-    if kind == "DistributedLabeledLDA":
-        from ..parallel.sharded_io import save_sharded
+    if kind in ("DistributedLabeledLDA", "DistributedHSLDA"):
+        from ..parallel.sharded_io import save_hslda_sharded, save_sharded
 
-        return save_sharded(path, model, iters_done=int((extra_meta or {}).get("iters_done", 0)))
+        save = save_sharded if kind == "DistributedLabeledLDA" else save_hslda_sharded
+        return save(path, model, iters_done=int((extra_meta or {}).get("iters_done", 0)))
     arrays: Dict[str, Any] = {"rng_state": model._gen.get_state().numpy()}
     meta: Dict[str, Any] = {"kind": kind, "framework": "torch",
                             "rng_device": model._gen.device.type}
@@ -206,10 +202,11 @@ def restore_model(path: str, model) -> Dict[str, Any]:
     )
 
     kind = _model_kind(model)
-    if kind == "DistributedLabeledLDA":
-        from ..parallel.sharded_io import restore_sharded
+    if kind in ("DistributedLabeledLDA", "DistributedHSLDA"):
+        from ..parallel.sharded_io import restore_hslda_sharded, restore_sharded
 
-        return restore_sharded(path, model)
+        restore = restore_sharded if kind == "DistributedLabeledLDA" else restore_hslda_sharded
+        return restore(path, model)
     arrays, meta = load_checkpoint(path)
     if meta["kind"] != kind:
         raise ValueError(f"checkpoint is {meta['kind']}, model is {kind}")

@@ -113,6 +113,11 @@ def test_dryrun_multichip():
     out = dryrun_multichip(4, device="cpu", timeout=120)
     assert out["mesh"] == {"chains": 2, "data": 2} and out["backend"] == "gloo"
     assert out["s"] == 1 and out["tokens"] > 0
+    # the sharded HSLDA loop: 3 cycles at thinning 2 fold in one save, and
+    # both of the rank's chains hold every token of the corpus
+    h = out["hslda"]
+    assert h["chains"] == 2 and h["saves"] == 1
+    assert len(h["tokens"]) == 2 and len(set(h["tokens"])) == 1 and h["tokens"][0] > 0
 
 
 def test_spawn_and_jobs_default_to_cuda():

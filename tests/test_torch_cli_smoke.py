@@ -145,6 +145,24 @@ def test_options_not_ported_exit(corpus_csv, flags, item):
         _run(corpus_csv, *flags)
 
 
+def test_hslda_cli_n_chains(corpus_csv, capsys):
+    """``evaluate_hslda --n-chains 2``: two chains batched in one process,
+    chain-averaged scores, the chain count and mesh on the step line."""
+    from lda_thesis_tpu_torch.cli import evaluate_hslda
+    from lda_thesis_tpu_torch.parallel import DistributedHSLDA
+
+    res = evaluate_hslda.main(["-f", corpus_csv, "-d", "3", "-k", "4", "-i", "4", "-s", "2",
+                               "--test-it", "4", "--test-s", "2", "--seed", "3",
+                               "--n-chains", "2", "--device", "cpu"])
+    out, aucs = _capture(capsys)
+    m = res["model"]
+    assert isinstance(m, DistributedHSLDA) and m.n_chains == 2 and m.device.type == "cpu"
+    assert tuple(m.state.n_vk.shape[:1]) == (2,) and m._cycles_done == 4
+    assert len(aucs) == 1 and 0.0 <= aucs[0] <= 1.0
+    assert "(4 cycles, opt 1, 2 chains, mesh {'chains': 1, 'data': 1})" in out
+    assert res["scores"].shape[1] == m.L and np.isfinite(res["scores"]).all()
+
+
 def test_engine_vi_runs(corpus_csv, capsys):
     """``--engine vi``, once refused, runs the CAVI engine: -i CAVI
     iterations with a non-falling ELBO, a CAVI fold-in and the metric block."""

@@ -431,3 +431,27 @@ def test_batched_chains_equal_single_chain_launches():
                                   mesh=make_mesh(device="cuda"), n_chains=3, seed=0)
     rec = chip_smoke.chains_batch_case(model, 4)
     assert rec["launches_batched"] == 1 and rec["launches_single"] == 3
+
+
+@pytest.mark.cuda
+def test_hslda_batched_sweep_equals_single_chain_sweeps():
+    """Three HSLDA chains in one z-sweep (their documents side by side, one
+    CUDA graph) against three single-chain sweeps with the same generators,
+    three sweeps each: the batched graph's replays equal its eager sweeps
+    bitwise, every chain keeps its count invariants, and at least 99% of the
+    draws equal the single-chain ones (batched matmuls may round otherwise;
+    chip_smoke.py's phase 14a at full width)."""
+    _needs_card()
+    docs, labs, labelset = chip_smoke.hslda_small_problem(0)
+    r = chip_smoke.hslda_chains_case("cuda", docs, labs, labelset, 0, 3, 3,
+                                     chip_smoke.HSLDA_SMALL_K)
+    torch.cuda.synchronize()
+    sweep, bufs = r["graphed"]
+    assert sweep._graph is not None
+    assert all(_same_bits(a, b) for a, b in zip(bufs, r["eager"][1]))
+    total = r["model"].n_tokens
+    for c in range(3):
+        n_dk, n_vk, n_k = bufs[1][c], bufs[2][c], bufs[3][c]
+        assert int(n_dk.sum()) == int(n_vk.sum()) == int(n_k.sum()) == total
+        assert torch.equal(n_vk.sum(dim=0, dtype=torch.int32), n_k)
+    assert r["equal_draws"] >= chip_smoke.MIN_EQUAL_DRAWS

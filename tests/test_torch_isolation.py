@@ -74,7 +74,8 @@ def test_parallel_modules_are_scanned():
     """The parallel layer's modules are among those imported and scanned."""
     names = _modules()
     for mod in ("_util", "bootstrap", "sharded", "fused_sharded", "fused_sharded_buckets",
-                "vocab_sharded", "trainer", "sharded_io", "launch", "jobs"):
+                "vocab_sharded", "trainer", "sharded_io", "launch", "jobs", "hslda_sharded",
+                "hslda_trainer"):
         assert f"lda_thesis_tpu_torch.parallel.{mod}" in names
 
 
