@@ -37,13 +37,15 @@ made from ``--seed``.  Phases:
    ragged case, and one whole exact sweep of bucket 0 on the card against
    the same sweep on the CPU; times of the kernels and their plain
    versions; then one replayed CUDA-graph sweep over all buckets under
-   torch.profiler: every draw and commit record and their mean device time;
+   torch.profiler: every draw and commit record and their mean device time,
+   from the best of up to three padded sessions (``_most_records``);
 6. the dense Labeled-LDA path at (50; 25): invariants, kernel launches
    (a draw per type position with a live row per sweep, and the commits),
    AUC, tokens/s; 3 graphed sweeps against 3 eager ones from one seed,
    bitwise, and the device time per position of replayed sweeps; and one
-   (25; 25) call under torch.profiler, whose kernel records must equal the
-   counted launches;
+   (25; 25) call under torch.profiler, whose kernel records (the best of up
+   to three padded sessions of more such calls) must reach the counted
+   launches;
 7. the compact Labeled-LDA path at (10; 5): invariants and AUC, no kernel;
 8. CascadeLDA at the thesis config, ``go_down_tree(4, 2)`` (root level
    (16; 4)) on a JEL-shaped corpus, ``test_down_tree_batch`` of the test
@@ -70,6 +72,8 @@ made from ``--seed``.  Phases:
     the LocalLDA checkpoint whose next call equals the uninterrupted one's;
 11. the VI engine: the Labeled-LDA CLI with ``--engine vi -i 20`` on phase
     9's CSV, a non-falling ELBO, held-out AUC and seconds per CAVI step;
+    then one ``fit_svi`` epoch of its model from a fresh start (2 batches
+    of 2,048 documents and a CAVI pass), whose ELBO must rise;
 12. HSLDA (no CUDA kernel of its own: its z-sweep is plain PyTorch, on the
     card one CUDA graph per sweep): one cycle of each coupling form (opt 1,
     opt 2 compact and blockwise, opt 3) at D = 64, L = 12, K = 8 on the card
@@ -127,7 +131,19 @@ made from ``--seed``.  Phases:
     SIGKILL after its first checkpoint and resumed in a fresh process, its
     shard (both kinds of generator state included) and marker equal to the
     uninterrupted run's; one ``multi_device_hslda`` line;
-15. one JSON line of kernel records, the card's line, and the result line.
+15. the test-time loops as replayed CUDA graphs, at full width: the
+    Labeled-LDA fold-in on the planted corpus's test split, HSLDA's fold-in
+    at phase 12's width at one chain and eight, CascadeLDA's
+    ``test_down_tree_batch`` (4; 2), each loop's output (recorded from the
+    model's own call) against its eager loop (``eager_fold_in``,
+    ``eager_test_loop``, ``eager_cascade_loop``) from the same generator
+    state, and 5 sweeps of each graphed sweep against the eager sweep
+    function (``foldin_sweeps_case``, ``cascade_sweeps_case``), bitwise;
+    ``LogLikelihood`` against ``log_likelihood`` on each bucket at three
+    saves' estimates (``loglik_case``); a ``run_test`` after more training
+    against an eager fold-in with the new φ̂; each graph's node count and
+    the device ms per sweep of eager sweeps, graphed calls and replays;
+16. one JSON line of kernel records, the card's line, and the result line.
 
 Every check raises; the script exits non-zero without a CUDA device.
 """
@@ -271,7 +287,7 @@ def _profile(train) -> dict:
     _check(busy_ms > 0, "the profiler recorded device time")
     records = [[e.key, e.count, e.self_device_time_total / 1e3] for e in kernels]
     return dict(wall_ms=wall_ms, busy_ms=busy_ms, idle_share=1.0 - busy_ms / wall_ms,
-                top=[[k[:80], n, ms] for k, n, ms in records[:6]], records=records)
+                top=[[k[:80], n, ms] for k, n, ms in records[:6]])
 
 
 def _card_line() -> str:
@@ -866,15 +882,6 @@ def sweep_bound_ms(tok_f_t, K: int) -> list:
     return out
 
 
-def _kernel_records(prof, name: str) -> tuple:
-    """(records, device ms) of the CUDA kernels whose name holds ``name``."""
-    from torch.autograd import DeviceType
-
-    spans = [e for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA and name in e.key]
-    return sum(e.count for e in spans), sum(e.self_device_time_total for e in spans) / 1e3
-
-
 def dense_state_copy(model):
     """A copy of ``model``'s dense state, z position-major."""
     import torch
@@ -902,10 +909,10 @@ def bucket_runners(model):
 
 def graphed_sweep_profile(model, seed: int) -> dict:
     """One replayed sweep over all buckets under torch.profiler, after an
-    eager sweep and the capture: every draw and commit record, their mean
-    device time per launch, and the draws' mean bound."""
+    eager sweep and the capture: every draw and commit record
+    (``_most_records``), their mean device time per launch, and the draws'
+    mean bound."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from lda_thesis_tpu_torch.ops import draw_update_cuda as duc
 
@@ -918,22 +925,16 @@ def graphed_sweep_profile(model, seed: int) -> dict:
     torch.cuda.synchronize()
     plan = [planned_sweep_launches(tf) for tf in model._toks_f_t]
     draws, commits = sum(p[0] for p in plan), sum(p[1] for p in plan)
-    for attempt in range(3):
+
+    def sweep():
         d0, c0 = duc.launches, duc.commit_launches
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            time.sleep(0.002)
-            for run in runs:
-                run(gen)
-            torch.cuda.synchronize()
-            time.sleep(0.002)
+        for run in runs:
+            run(gen)
         _check((duc.launches - d0, duc.commit_launches - c0) == (draws, commits),
                f"a replayed sweep counts its planned launches ({draws}, {commits})")
-        (n_draw, draw_ms), (n_commit, commit_ms) = (_kernel_records(prof, KERNEL2),
-                                                    _kernel_records(prof, COMMIT))
-        if (n_draw, n_commit) == (draws, commits):
-            break
-        print(f"  the profiler kept {n_draw} of {draws} draw and {n_commit} of "
-              f"{commits} commit records of the replayed sweep")
+
+    rec = _most_records(sweep, draws + commits, names=(KERNEL2, COMMIT))
+    (n_draw, draw_ms), (n_commit, commit_ms) = rec[KERNEL2], rec[COMMIT]
     _check(draws - LOST_RECORDS <= n_draw <= draws
            and commits - LOST_RECORDS <= n_commit <= commits,
            f"the profiler recorded the kernel nodes of the replayed sweep "
@@ -942,7 +943,8 @@ def graphed_sweep_profile(model, seed: int) -> dict:
     c_bounds = [b for tf in model._toks_f_t for b in sweep_commit_bound_ms(tf, model.Kp)]
     _check(len(c_bounds) == commits, "one commit bound per planned commit")
     return dict(draws=draws, commits=commits, ms=draw_ms / n_draw, commit_ms=commit_ms / n_commit,
-                bound_ms=float(np.mean(bounds)), commit_bound_ms=float(np.mean(c_bounds)))
+                bound_ms=float(np.mean(bounds)), commit_bound_ms=float(np.mean(c_bounds)),
+                records=(n_draw, n_commit))
 
 
 def draw_bound(args) -> tuple:
@@ -1136,7 +1138,8 @@ def draw_kernel_phase(corpus, dicti, jel, jel_dicti, seed: int) -> dict:
                commit_ms=sweep["commit_ms"], commit_bound_ms=sweep["commit_bound_ms"],
                draws_per_sweep=sweep["draws"], commits_per_sweep=sweep["commits"])
     print(f"one replayed sweep ({sweep['draws']} draw and {sweep['commits']} commit "
-          f"records): draw kernel {sweep['ms']:.5f} ms per launch (bound "
+          f"launches; {sweep['records'][0]} and {sweep['records'][1]} records in the best "
+          f"padded profiler session): draw kernel {sweep['ms']:.5f} ms per launch (bound "
           f"{sweep['bound_ms']:.5f} ms), commit kernel {sweep['commit_ms']:.5f} ms per "
           f"launch (bound {sweep['commit_bound_ms']:.5f} ms)")
     return rec
@@ -1246,17 +1249,22 @@ def graph_check(model, seed: int) -> dict:
 
 def dense_profile(model) -> dict:
     """One (25; 25) call of the dense path, perplexity off, under
-    torch.profiler."""
+    torch.profiler (wall, busy time, idle share, top kernels); its draw and
+    commit records, from the best of up to three more such calls in padded
+    sessions (``_most_records``), must reach the counted launches."""
     from lda_thesis_tpu_torch.ops import draw_update_cuda as duc
 
+    def train():
+        model.run_training(THINNING, THINNING, perplexity=False)
+
     d0, c0 = duc.launches, duc.commit_launches
-    prof = _profile(lambda: model.run_training(THINNING, THINNING, perplexity=False))
+    prof = _profile(train)
     plan = [planned_sweep_launches(tf) for tf in model._toks_f_t]
     planned = (THINNING * sum(p[0] for p in plan), THINNING * sum(p[1] for p in plan))
     counted = (duc.launches - d0, duc.commit_launches - c0)
-    recorded = tuple(sum(n for key, n, _ in prof["records"] if name in key)
-                     for name in (KERNEL2, COMMIT))
     _check(counted == planned, f"profiled call's launches {counted}, planned {planned}")
+    rec = _most_records(train, sum(planned), names=(KERNEL2, COMMIT))
+    recorded = (rec[KERNEL2][0], rec[COMMIT][0])
     _check(all(n - LOST_RECORDS <= r <= n for r, n in zip(recorded, planned)),
            f"the profiler's records {recorded} == launches {planned}")
     print(f"  launches (draw, commit): counted {counted}, recorded by the profiler "
@@ -1326,7 +1334,8 @@ def cascade_path(jel, jel_dicti, seed: int) -> dict:
               f"{st['sweeps'] * p[1]} ({st['seconds']:.3f} s)")
     print(f"  macro AUC by depth {aucs}")
     return dict(launches=launches["draw_update"], commit_launches=launches["count_commit"],
-                aucs=aucs, levels=model.level_stats, train_s=t1 - t0, test_s=t2 - t1)
+                aucs=aucs, levels=model.level_stats, train_s=t1 - t0, test_s=t2 - t1,
+                model=model)
 
 
 # ---------------------------------------------------------- product surface
@@ -1774,7 +1783,37 @@ def vi_phase(seed: int) -> dict:
           f"steps, {step_s:.4f} s per step, ELBO {e[0]:.6g} -> {e[-1]:.6g}, AUC {auc}; "
           f"wall by step {json.dumps({k: round(v, 4) for k, v in _steps(res).items()})}")
     return dict(cavi_step_s=step_s, steps=len(e), auc_roc=auc, elbo_first=float(e[0]),
-                elbo_last=float(e[-1]), D=m.D, Kp=m.Kp, V=m.V, wall_s=_steps(res))
+                elbo_last=float(e[-1]), D=m.D, Kp=m.Kp, V=m.V, wall_s=_steps(res),
+                svi=svi_epoch_case(m, seed))
+
+
+def svi_epoch_case(m, seed: int) -> dict:
+    """One ``fit_svi`` epoch (its defaults: batches of 2,048 documents,
+    then one CAVI pass) of the CLI's VI model from a fresh start at full
+    width: the ELBO must rise from the start's, within tests/test_vi.py's
+    float32 slack."""
+    import torch
+
+    from lda_thesis_tpu_torch.ops.vi import elbo, vi_init
+
+    m._gen = torch.Generator(device=m.device)
+    m._gen.manual_seed(seed)
+    m.state = vi_init(m.labs, m.V, m.alpha, m.beta, generator=m._gen)
+    m.elbo_history = []
+    e0 = float(elbo(m.state, m.tok_v, m.tok_f, m.labs, m.alpha, m.beta))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m.fit_svi(epochs=1)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    e1 = m.elbo_history[-1]
+    batches = max(m.D // min(2048, m.D), 1)
+    _check(np.isfinite(e1) and e1 - e0 >= -1e-3 * abs(e0),
+           f"SVI: one epoch does not lower the ELBO past the float32 slack ({e0} -> {e1})")
+    print(f"fit_svi, one epoch of {batches} batches of 2048 documents and a CAVI pass at "
+          f"full width (D={m.D} Kp={m.Kp} V={m.V}): ELBO {e0:.6g} -> {e1:.6g} (a rise of "
+          f"{e1 - e0:.6g}), {secs:.4f} s")
+    return dict(batches=batches, elbo_start=e0, elbo_after=e1, elbo_rise=e1 - e0, seconds=secs)
 
 
 # ---------------------------------------------------------------- HSLDA
@@ -1954,9 +1993,11 @@ def _graph_nodes(graph) -> int:
     return n.value
 
 
-def _most_records(fn, want: int, sessions: int = 3) -> int:
-    """Device records of one call of ``fn`` under torch.profiler, the most
-    that any of up to ``sessions`` sessions kept (stopping at ``want``).
+def _most_records(fn, want: int, sessions: int = 3, names=("",)) -> dict:
+    """Device records of one call of ``fn`` under torch.profiler: for each
+    of ``names``, ``(records, device ms)`` of the kernels whose name holds
+    it ("" holds every kernel), from the session of up to ``sessions``
+    that kept the most of them (stopping at ``want``).
     A session late in this process drops the first records it would keep
     (a dozen or more by phase 12 on the H100; PERF.md),
     so ``PAD_LAUNCHES`` spin kernels run first and take that loss; a session
@@ -1965,7 +2006,7 @@ def _most_records(fn, want: int, sessions: int = 3) -> int:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    best = 0
+    best, out = -1, {name: (0, 0.0) for name in names}
     for _ in range(sessions):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1979,10 +2020,32 @@ def _most_records(fn, want: int, sessions: int = 3) -> int:
         pad = sum(e.count for e in records if "spin_kernel" in e.key)
         _check(pad <= PAD_LAUNCHES, f"{pad} spin records of {PAD_LAUNCHES} launches")
         if pad:
-            best = max(best, sum(e.count for e in records) - pad)
+            kept = [e for e in records if "spin_kernel" not in e.key]
+            got = {name: (sum(e.count for e in kept if name in e.key),
+                          sum(e.self_device_time_total for e in kept if name in e.key) / 1e3)
+                   for name in names}
+            total = sum(n for n, _ in got.values())
+            if total > best:
+                best, out = total, got
         if best >= want:
             break
-    return best
+    return out
+
+
+def _captured_nodes(fn) -> int:
+    """Nodes of a CUDA graph of ``fn()`` (``_graph_nodes``), captured only
+    to be counted: never replayed."""
+    import torch
+
+    twin = torch.cuda.CUDAGraph(keep_graph=True)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        twin.capture_begin()
+        fn()
+        twin.capture_end()
+    torch.cuda.current_stream().wait_stream(stream)
+    return _graph_nodes(twin)
 
 
 def hslda_launch_check(model) -> dict:
@@ -2002,22 +2065,12 @@ def hslda_launch_check(model) -> dict:
     gen.manual_seed(7)
     ab = model.alpha * model.beta
     run(model.eta, model.a, ab, generator=gen)  # eager: loads what the sweep needs
+    nodes = _captured_nodes(run._sweep)
 
-    twin = torch.cuda.CUDAGraph(keep_graph=True)
-    stream = torch.cuda.Stream()
-    stream.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(stream):
-        twin.capture_begin()
-        run._sweep()
-        twin.capture_end()
-    torch.cuda.current_stream().wait_stream(stream)
-    nodes = _graph_nodes(twin)
-    del twin  # captured only to be counted: never replayed
-
-    eager = _most_records(run._sweep, nodes)
+    eager = _most_records(run._sweep, nodes)[""][0]
     run(model.eta, model.a, ab, generator=gen)  # captures, then replays
     _check(run._graph is not None, "the sweep was captured")
-    replayed = _most_records(run._graph.replay, nodes)
+    replayed = _most_records(run._graph.replay, nodes)[""][0]
     _check(nodes - LOST_RECORDS <= eager <= nodes and nodes - LOST_RECORDS <= replayed <= nodes,
            f"a replayed sweep runs the eager sweep's device operations ({nodes} nodes in "
            f"the sweep's graph; {replayed} recorded in a replay, {eager} in the eager sweep)")
@@ -2902,6 +2955,362 @@ def hslda_multi_phase(seed: int, card: str, single_test_s: float) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------- compiled loops
+LOOP_SWEEPS = 5  # sweeps of each graphed loop held to the eager one, and timed
+LOOP_TEST = (10, 5)  # (it, thinning) of the recorded fold-in calls
+LOOP_CYCLES = 2  # HSLDA cycles trained before its fold-ins
+
+
+@contextlib.contextmanager
+def _recording(module, name: str):
+    """Inside, every call of ``module.name`` runs as before and is recorded
+    as ``(args, kwargs, its generator's states before and after the call,
+    its output, its seconds)``."""
+    calls, real = [], getattr(module, name)
+
+    def record(*args, **kw):
+        gen = _generator_of(args, kw)
+        before = gen.get_state()
+        _sync()
+        t0 = time.perf_counter()
+        out = real(*args, **kw)
+        _sync()
+        calls.append((args, kw, (before, gen.get_state()), out, time.perf_counter() - t0))
+        return out
+
+    setattr(module, name, record)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, real)
+
+
+def _same_as_eager(eager, call, what: str) -> tuple:
+    """A recorded loop's output equals ``eager`` run on the same inputs from
+    the same generator state, bit for bit; returns the seconds of the
+    recorded call and of the eager loop (host clock, synchronized)."""
+    import torch
+
+    args, kw, (before, after), out, secs = call
+    gen = _generator_of(args, kw)
+    now = gen.get_state()
+    gen.set_state(before)
+    _sync()
+    t0 = time.perf_counter()
+    want = eager(*args, **kw)
+    _sync()
+    eager_s = time.perf_counter() - t0
+    drawn = torch.equal(gen.get_state(), after)
+    gen.set_state(now)
+    _check(drawn, f"{what}: the eager loop draws as many numbers")
+    _check(_bitwise([out], [want]), f"{what}: the graphed loop == the eager loop, bitwise")
+    return secs, eager_s
+
+
+def _sync() -> None:
+    import torch
+
+    if torch.device(DEVICE).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _generator_of(args, kw):
+    import torch
+
+    return next(x for x in (*args, *kw.values()) if isinstance(x, torch.Generator))
+
+
+def eager_fold_in(phi, tok_v, tok_f, topic_mask, alpha, it: int, thinning: int, generator):
+    """``models/labeled_lda.fold_in_test`` with eager ``foldin_sweep`` calls
+    in place of ``FoldinSweep``: the reference of its replays."""
+    import torch
+
+    from lda_thesis_tpu_torch.models.labeled_lda import _fold_in_init
+    from lda_thesis_tpu_torch.models.state import running_average
+    from lda_thesis_tpu_torch.ops.gibbs import foldin_sweep
+
+    D, U = tok_v.shape
+    u = torch.rand((U, D), generator=generator, device=phi.device)
+    z, n_dk = _fold_in_init(phi, tok_v, tok_f, topic_mask, u)
+    avg, s = torch.zeros_like(n_dk), 0
+    for i in range(int(it)):
+        z, n_dk = foldin_sweep(z, n_dk, tok_v, tok_f, phi, alpha, generator=generator)
+        if (i + 1) % int(thinning) == 0:
+            s += 1
+            cur = n_dk / torch.clamp(n_dk.sum(dim=1, keepdim=True), min=1.0)
+            avg = running_average(avg, cur, s)
+    return avg
+
+
+def eager_test_loop(tok_v, mask, init_phi, sweep_phi, alpha_beta, it: int, thinning: int,
+                    init_uniforms=None, sweep_uniforms=None, generator=None):
+    """``models/hslda._test_loop`` with eager ``foldin_sweep`` calls in
+    place of ``FoldinSweep``: the reference of its replays."""
+    import torch
+
+    from lda_thesis_tpu_torch.models.hslda import _test_init
+    from lda_thesis_tpu_torch.models.state import running_average
+    from lda_thesis_tpu_torch.ops.gibbs import foldin_sweep
+
+    D, N = tok_v.shape
+    n_d = torch.clamp(mask.sum(dim=1), min=1).to(torch.float32)
+    if init_uniforms is None:
+        init_uniforms = torch.rand((N, D), generator=generator, device=tok_v.device)
+    z, n_dk = _test_init(tok_v.long(), mask.to(torch.float32), init_phi, init_uniforms)
+    avg, s = torch.zeros_like(n_dk), 0
+    for i in range(int(it)):
+        u = None if sweep_uniforms is None else sweep_uniforms[i]
+        z, n_dk = foldin_sweep(z, n_dk, tok_v, mask, sweep_phi, alpha_beta, uniforms=u,
+                               generator=generator)
+        if (i + 1) % int(thinning) == 0:
+            s += 1
+            avg = running_average(avg, n_dk / n_d[:, None], s)
+    return avg
+
+
+def eager_cascade_loop(tok_v, tok_f, phi_vk, lab_ids, lab_mask, it: int, thinning: int,
+                       alpha: float, beta: float, init_gumbels=None, sweep_gumbels=None,
+                       generator=None):
+    """``ops/gibbs.cascade_test_loop`` with eager ``cascade_sweep`` calls,
+    each position's noise drawn where its draw is made, in place of
+    ``CascadeSweep``: the reference of its replays."""
+    import torch
+
+    from lda_thesis_tpu_torch.ops.gibbs import _cascade_init, cascade_sweep
+    from lda_thesis_tpu_torch.ops.sampling import mask_to_logits
+
+    z, n_dk = _cascade_init(tok_v.long(), tok_f.to(torch.float32), phi_vk, lab_ids.long(),
+                            lab_mask, mask_to_logits(lab_mask), beta, init_gumbels, generator)
+    avg, s = torch.zeros_like(n_dk), 0
+    for i in range(int(it)):
+        cascade_sweep(z, n_dk, tok_v, tok_f, phi_vk, lab_ids, lab_mask, alpha, beta,
+                      gumbels=None if sweep_gumbels is None else sweep_gumbels[i],
+                      generator=generator)
+        if (i + 1) % int(thinning) == 0:
+            s += 1
+            cur = n_dk / torch.clamp(n_dk.sum(dim=1, keepdim=True), min=1.0)
+            if s == 1:
+                avg = cur
+            else:
+                s32 = np.float32(s)
+                avg = float((s32 - np.float32(1.0)) / s32) * avg + cur / float(s32)
+    return avg
+
+
+def foldin_sweeps_case(z, n_dk, tok_v, tok_f, phi, alpha, seed: int, norm,
+                       sweeps: int = LOOP_SWEEPS):
+    """``sweeps`` fold-in sweeps from the state ``(z, n_dk)`` and one seed,
+    through ``FoldinSweep`` (on a card replayed from its second call) and
+    through eager ``foldin_sweep`` calls: z, n_dk and the running average of
+    ``norm(n_dk)`` equal bit for bit after every sweep.  Returns the
+    ``FoldinSweep`` and a function that makes one eager sweep."""
+    import torch
+
+    from lda_thesis_tpu_torch.models.state import running_average
+    from lda_thesis_tpu_torch.ops.gibbs import FoldinSweep, foldin_sweep
+
+    gens = [torch.Generator(device=z.device) for _ in range(2)]
+    for g in gens:
+        g.manual_seed(seed)
+    run = FoldinSweep(z.clone(), n_dk.clone(), tok_v, tok_f, phi, alpha)
+    avgs = [torch.zeros_like(n_dk)] * 2
+    for i in range(sweeps):
+        run(gens[0])
+        z, n_dk = foldin_sweep(z, n_dk, tok_v, tok_f, phi, alpha, generator=gens[1])
+        avgs = [running_average(a, norm(x), i + 1) for a, x in zip(avgs, (run.n_dk, n_dk))]
+        _check(_bitwise([run.z, run.n_dk, avgs[0]], [z, n_dk, avgs[1]]),
+               f"fold-in sweep {i + 1}: FoldinSweep == foldin_sweep (z, n_dk, average), "
+               f"bitwise")
+    return run, lambda: foldin_sweep(z, n_dk, tok_v, tok_f, phi, alpha, generator=gens[1])
+
+
+def cascade_sweeps_case(tok_v, tok_f, phi_vk, lab_ids, lab_mask, alpha: float, beta: float,
+                        seed: int, sweeps: int = LOOP_SWEEPS):
+    """``sweeps`` cascade sweeps from one init and one seed, through
+    ``CascadeSweep`` (its noise one ``gumbel(out=)`` per position into a
+    static buffer; on a card replayed from its second call) and through
+    eager ``cascade_sweep`` calls (each position's noise drawn where its
+    draw is made): z and n_dk equal bit for bit after every sweep.  Returns
+    the ``CascadeSweep`` and a function that makes one eager sweep."""
+    import torch
+
+    from lda_thesis_tpu_torch.ops.gibbs import CascadeSweep, _cascade_init, cascade_sweep
+    from lda_thesis_tpu_torch.ops.sampling import mask_to_logits
+
+    gens = [torch.Generator(device=tok_v.device) for _ in range(3)]
+    for g in gens:
+        g.manual_seed(seed)
+    tv, ff, ids = tok_v.long(), tok_f.to(torch.float32), lab_ids.long()
+    z, n_dk = _cascade_init(tv, ff, phi_vk, ids, lab_mask, mask_to_logits(lab_mask), beta,
+                            None, gens[2])
+    run = CascadeSweep(z.clone(), n_dk.clone(), tv, ff, phi_vk, ids, lab_mask, alpha, beta)
+    for i in range(sweeps):
+        run(gens[0])
+        cascade_sweep(z, n_dk, tok_v, tok_f, phi_vk, lab_ids, lab_mask, alpha, beta,
+                      generator=gens[1])
+        _check(_bitwise([run.z, run.n_dk], [z, n_dk]),
+               f"cascade sweep {i + 1}: CascadeSweep == cascade_sweep (z, n_dk), bitwise")
+    return run, lambda: cascade_sweep(z, n_dk, tok_v, tok_f, phi_vk, lab_ids, lab_mask, alpha,
+                                      beta, generator=gens[1])
+
+
+def loglik_case(model, rounds: int = 3) -> list:
+    """``LogLikelihood`` of each bucket of ``model`` (a ``LabeledLDA``)
+    against ``log_likelihood``, bit for bit, at ``rounds`` saves' estimates
+    (more training between them: the static θ̂ and φ̂ take new values).
+    Returns each bucket's ``LogLikelihood`` and a function that makes one
+    eager sum on its last inputs."""
+    from lda_thesis_tpu_torch.ops.gibbs import LogLikelihood, log_likelihood
+
+    runs = [LogLikelihood(tv, tf) for tv, tf in zip(model.toks_v, model.toks_f)]
+    for r in range(rounds):
+        if r:
+            model.run_training(TRAIN_ITERS, THINNING, perplexity=False, total_iters=TOTAL_ITERS)
+        phi, thetas = model._cur_estimates()
+        for g, (run, th) in enumerate(zip(runs, thetas)):
+            got = run(th, phi)
+            want = log_likelihood(th, phi, model.toks_v[g], model.toks_f[g])
+            _check(_bitwise([got[0]], [want[0]]) and int(got[1]) == int(want[1]),
+                   f"log-likelihood, bucket {g}, call {r + 1}: LogLikelihood == "
+                   f"log_likelihood, bitwise")
+    return [(run, (lambda g=g, th=th: log_likelihood(th, phi, model.toks_v[g],
+                                                     model.toks_f[g])), (th, phi))
+            for g, (run, th) in enumerate(zip(runs, thetas))]
+
+
+def _loop_timing(run, eager, call, positions: int) -> dict:
+    """Device ms per sweep of a graphed loop: eager sweeps, calls of the
+    graphed class (its static inputs filled, then the replay) and replays
+    alone, each from CUDA events around ``LOOP_SWEEPS`` made back to back;
+    and the nodes of the sweep's graph."""
+    _check(run._graph is not None, "the loop replays a captured graph")
+    kept = dict(run.__dict__)  # a capture may rebind what the sweep writes
+    nodes = _captured_nodes(run._sweep)
+    run.__dict__.update(kept)
+    return dict(eager_ms=_batch_ms(eager, LOOP_SWEEPS), call_ms=_batch_ms(call, LOOP_SWEEPS),
+                replay_ms=_batch_ms(run._graph.replay, LOOP_SWEEPS), graph_nodes=nodes,
+                nodes_per_position=nodes / positions)
+
+
+def _print_loop(name: str, shape: str, t: dict) -> None:
+    print(f"compiled loops, {name} ({shape}): graphed == eager bitwise; {t['graph_nodes']} "
+          f"graph nodes ({t['nodes_per_position']:.2f} per position); device ms per sweep: "
+          f"eager {t['eager_ms']:.4f}, graphed call {t['call_ms']:.4f} (replay alone "
+          f"{t['replay_ms']:.4f}), {t['eager_ms'] / t['call_ms']:.2f}x")
+
+
+def _loop_line(loop_s, schedule=LOOP_TEST) -> str:
+    return (f"the model's loop calls at ({schedule[0]}; {schedule[1]}), seconds graphed "
+            f"against eager: " + ", ".join(f"{a:.4f} / {b:.4f}" for a, b in loop_s))
+
+
+def compiled_loops_phase(seed: int, corpus, dicti, cascade_model, jel) -> dict:
+    """The test-time position loops as replayed CUDA graphs (phase 15),
+    each at full width against its eager loop, bit for bit: the
+    Labeled-LDA fold-in on the planted corpus's test split (D = 464,
+    U = 128, Kp = 512), HSLDA's at phase 12's width (N = 192, K = 15) at
+    C = 1 and C = 8 chains, CascadeLDA's ``test_down_tree_batch`` (4; 2) on
+    the JEL tree, and the log-likelihood of each bucket of the planted
+    corpus; a second ``run_test`` after more training folds in against
+    the new φ̂.  Each loop's graph nodes and device ms per sweep, eager and
+    replayed."""
+    import torch
+
+    from lda_thesis_tpu_torch.data.synthetic import jel_corpus
+    from lda_thesis_tpu_torch.models import cascade_lda, hslda, labeled_lda
+    from lda_thesis_tpu_torch.models.hslda import HSLDA, _test_init
+    from lda_thesis_tpu_torch.models.labeled_lda import LabeledLDA, _fold_in_init
+
+    rec = {"card": _card_line()}
+    it, thinning = LOOP_TEST
+
+    # a. Labeled LDA: fold_in_test, then again after more training
+    model = LabeledLDA(corpus.train_docs, corpus.train_labs, corpus.labelset, dicti,
+                       alpha=0.1, beta=0.01, seed=seed, device=DEVICE)
+    model.run_training(TRAIN_ITERS, THINNING, total_iters=TOTAL_ITERS)
+    with _recording(labeled_lda, "fold_in_test") as calls:
+        first = model.run_test(corpus.test_docs, it, thinning)
+        model.run_training(TRAIN_ITERS, THINNING, total_iters=TOTAL_ITERS)
+        second = model.run_test(corpus.test_docs, it, thinning)
+    loop_s = [_same_as_eager(eager_fold_in, call, f"Labeled-LDA fold-in, run_test {n + 1}")
+              for n, call in enumerate(calls)]
+    _check(calls[1][0][0] is model.ph_hat and not np.array_equal(first, second),
+           "the second run_test folds in against the new φ̂ (another θ̂)")
+    phi, tv, tf, mask, alpha = calls[1][0][:5]
+    D, U = tv.shape
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(seed)
+    z, n_dk = _fold_in_init(phi, tv, tf, mask, torch.rand((U, D), generator=g, device=DEVICE))
+    run, eager = foldin_sweeps_case(
+        z, n_dk, tv, tf, phi, alpha, seed,
+        lambda x: x / torch.clamp(x.sum(dim=1, keepdim=True), min=1.0))
+    t = _loop_timing(run, eager, lambda: run(g), U)
+    shape = f"D={D}, U={U}, Kp={phi.shape[1]}"
+    _print_loop("Labeled-LDA fold-in", shape, t)
+    print(f"  run_test after {TRAIN_ITERS} more sweeps folds in against the new φ̂: equal to "
+          f"a fresh eager fold-in, bitwise, and unlike the first run_test; {_loop_line(loop_s)}")
+    rec["labeled_foldin"] = dict(t, shape=shape, stale_phi_check=True, loop_s=loop_s)
+    del run, eager
+
+    # b. the log-likelihood of each bucket
+    per_bucket = []
+    for g_, (run, eager, inputs) in enumerate(loglik_case(model)):
+        t = _loop_timing(run, eager, lambda: run(*inputs), int(model.toks_v[g_].shape[1]))
+        _print_loop(f"log-likelihood, bucket {g_}", f"D={inputs[0].shape[0]}, "
+                    f"U={model.toks_v[g_].shape[1]}, Kp={model.Kp}", t)
+        per_bucket.append(t)
+    rec["loglik"] = per_bucket
+    del model, per_bucket
+
+    # c. HSLDA at phase 12's width, one chain and eight
+    hjel = jel_corpus(seed, n_l3=HSLDA_N_L3)
+    for C in (1, 8):
+        if C == 1:
+            m = HSLDA(hjel.train_docs, hjel.train_labs, hjel.labelset, k=HSLDA_K, seed=seed,
+                      device=DEVICE)
+        else:
+            m = _hslda_model(hjel.train_docs, hjel.train_labs, hjel.labelset, seed, C, DEVICE,
+                             HSLDA_K)
+        m.run_training(it=LOOP_CYCLES, thinning=1)
+        with _recording(hslda, "_test_loop") as calls:
+            scores = m.run_tests(hjel.test_docs, it=it, s=thinning)
+        _check(len(calls) == 1 and bool(np.isfinite(scores).all()),
+               f"HSLDA C={C}: one fold-in for every chain, finite scores")
+        loop_s = [_same_as_eager(eager_test_loop, calls[0], f"HSLDA fold-in, C={C}")]
+        tv, mask, init_phi, sweep_phi, ab = calls[0][0][:5]
+        D, N = tv.shape
+        g = torch.Generator(device=DEVICE)
+        g.manual_seed(seed)
+        z, n_dk = _test_init(tv.long(), mask.to(torch.float32), init_phi,
+                             torch.rand((N, D), generator=g, device=DEVICE))
+        n_d = torch.clamp(mask.sum(dim=1), min=1).to(torch.float32)
+        run, eager = foldin_sweeps_case(z, n_dk, tv, mask, sweep_phi, ab, seed,
+                                        lambda x: x / n_d[:, None])
+        t = _loop_timing(run, eager, lambda: run(g), N)
+        shape = f"C={C}, rows C*D={D}, N={N}, K={init_phi.shape[1]}, alpha*beta {tuple(ab.shape)}"
+        _print_loop("HSLDA fold-in", shape, t)
+        print(f"  {_loop_line(loop_s)}")
+        rec[f"hslda_foldin_c{C}"] = dict(t, shape=shape, loop_s=loop_s)
+        del m, run, eager
+
+    # d. CascadeLDA's test, (4; 2) on the JEL tree
+    with _recording(cascade_lda, "cascade_test_loop") as calls:
+        cascade_model.test_down_tree_batch(jel.test_docs, CASCADE_IT, CASCADE_S)
+    loop_s = [_same_as_eager(eager_cascade_loop, call, f"cascade test loop, call {n + 1}")
+              for n, call in enumerate(calls)]
+    args, kw = max(calls, key=lambda c: c[0][0].numel() * c[0][3].shape[1])[:2]
+    run, eager = cascade_sweeps_case(*args, kw["alpha"], kw["beta"], seed)
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(seed)
+    R, U = args[0].shape
+    t = _loop_timing(run, eager, lambda: run(g), U)
+    shape = f"R={R}, U={U}, Kt={args[3].shape[1]}; {len(calls)} calls"
+    _print_loop("CascadeLDA test loop", shape, t)
+    print(f"  {_loop_line(loop_s, (CASCADE_IT, CASCADE_S))}")
+    rec["cascade"] = dict(t, shape=shape, loop_s=loop_s)
+    return rec
+
+
 def warp_record(rec: dict, local: dict, ptxas: dict) -> dict:
     """The warp route's line of the kernel records: its launches on its
     main path (LocalLDA ``-k 50``, phase 10), its time, bound and plain
@@ -3029,6 +3438,7 @@ def main(argv=None) -> int:
 
     # 8. CascadeLDA
     cascade = cascade_path(jel, jel_dicti, args.seed)
+    cascade_model = cascade.pop("model")
     phase_done("cascade path")
 
     # 9. the product surface: the CLIs, checkpoint/resume, entry()
@@ -3057,7 +3467,13 @@ def main(argv=None) -> int:
     hmd = hslda_multi_phase(args.seed, card, hslda["cli_opt2"]["wall_s"]["test"])
     phase_done("multi-device HSLDA")
 
-    # 15. records
+    # 15. the test-time loops as replayed CUDA graphs, each against its
+    # eager loop
+    loops = compiled_loops_phase(args.seed, corpus, dicti, cascade_model, jel)
+    del cascade_model
+    phase_done("compiled loops")
+
+    # 16. records
     kernels = [{
         "name": "fused_block",
         "route": "cuda",
@@ -3178,6 +3594,7 @@ def main(argv=None) -> int:
     print(json.dumps({"hslda": hslda}))
     print(json.dumps({"multi_device": md}))
     print(json.dumps({"multi_device_hslda": hmd}))
+    print(json.dumps({"compiled_loops": loops}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

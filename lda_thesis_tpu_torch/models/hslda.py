@@ -48,7 +48,7 @@ import numpy as np
 import torch
 
 from ..data.encode import binarize_labels, build_labelmap, compact_labels, encode_instances
-from ..ops.gibbs import foldin_sweep
+from ..ops.gibbs import FoldinSweep
 from ..ops.hslda_gibbs import HSLDACounts, HSLDASweep, hslda_init_counts, hslda_z_sweep
 from ..ops.sampling import gumbel, norm_cdf, open_uniforms, stirling_table, truncated_normal
 from .state import running_average
@@ -234,38 +234,44 @@ def _train_cycle(counts: HSLDACounts, tok_v, mask, labs, eta, a, beta, stirling_
     return counts, eta_new, a_new, beta_new, zbar, mean_a
 
 
+def _test_init(tv, mF, init_phi, init_uniforms):
+    """:func:`_test_loop`'s init pass: z (D, N) int32 drawn from the thinned
+    φ̂ by inverse CDF with ``init_uniforms (N, D)``, and its ``n_dk``."""
+    D, N = tv.shape
+    n_dk = torch.zeros((D, init_phi.shape[1]), dtype=torch.float32, device=tv.device)
+    z = torch.empty((D, N), dtype=torch.int32, device=tv.device)
+    for p in range(N):
+        c = torch.cumsum(init_phi[tv[:, p]], dim=1)
+        z_p = (c < (init_uniforms[p] * c[:, -1])[:, None]).sum(dim=1)
+        n_dk.scatter_add_(1, z_p[:, None], mF[:, p, None])
+        z[:, p] = z_p
+    return z, n_dk
+
+
 def _test_loop(tok_v, mask, init_phi, sweep_phi, alpha_beta, it: int, thinning: int,
                init_uniforms: Optional[torch.Tensor] = None,
                sweep_uniforms: Optional[Sequence[torch.Tensor]] = None,
                generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """Batched fold-in of held-out documents (HSLDA.py:335-374): z drawn from
     the thinned φ̂ (``init_phi (V, K)``) by inverse CDF, then ``it`` sweeps
-    with ``sweep_phi`` frozen (``ops/gibbs.foldin_sweep``, α·β as the prior)
-    and z̄ averaged at every ``thinning``-th sweep; returns z̄ (D, K).
+    with ``sweep_phi`` frozen (``ops/gibbs.FoldinSweep``, α·β as the prior;
+    on a card one replayed CUDA graph from the second sweep on, with the
+    bits of ``foldin_sweep``) and z̄ averaged at every ``thinning``-th
+    sweep; returns z̄ (D, K).
 
     ``init_uniforms (N, D)`` and ``sweep_uniforms`` (one (N, D) per sweep)
     are the draws; without them they come from ``generator``."""
     D, N = tok_v.shape
-    K = init_phi.shape[1]
     device = tok_v.device
     n_d = torch.clamp(mask.sum(dim=1), min=1).to(torch.float32)
     if init_uniforms is None:
         init_uniforms = torch.rand((N, D), generator=generator, device=device)
-    mF = mask.to(torch.float32)
-    tv = tok_v.long()
-    n_dk = torch.zeros((D, K), dtype=torch.float32, device=device)
-    z = torch.empty((D, N), dtype=torch.int32, device=device)
-    for p in range(N):
-        c = torch.cumsum(init_phi[tv[:, p]], dim=1)
-        z_p = (c < (init_uniforms[p] * c[:, -1])[:, None]).sum(dim=1)
-        n_dk.scatter_add_(1, z_p[:, None], mF[:, p, None])
-        z[:, p] = z_p
-    avg = torch.zeros((D, K), dtype=torch.float32, device=device)
+    z, n_dk = _test_init(tok_v.long(), mask.to(torch.float32), init_phi, init_uniforms)
+    sweep = FoldinSweep(z, n_dk, tok_v, mask, sweep_phi, alpha_beta)
+    avg = torch.zeros_like(n_dk)
     s = 0
     for i in range(int(it)):
-        u = None if sweep_uniforms is None else sweep_uniforms[i]
-        z, n_dk = foldin_sweep(z, n_dk, tok_v, mask, sweep_phi, alpha_beta, uniforms=u,
-                               generator=generator)
+        sweep(generator, uniforms=None if sweep_uniforms is None else sweep_uniforms[i])
         if (i + 1) % int(thinning) == 0:
             s += 1
             avg = running_average(avg, n_dk / n_d[:, None], s)

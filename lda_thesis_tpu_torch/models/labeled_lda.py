@@ -38,11 +38,11 @@ from ..data.buckets import BucketedDocs, bucket_encode
 from ..data.encode import binarize_labels, build_labelmap, compact_labels, encode_bow_types
 from ..ops.gibbs import (
     ExactSweep,
+    FoldinSweep,
+    LogLikelihood,
     compact_sweep,
-    foldin_sweep,
     init_bucket_counts,
     init_bucket_counts_compact,
-    log_likelihood,
     theta_from_compact,
 )
 from ..ops.gibbs_fused import (
@@ -70,6 +70,25 @@ def check_merge_block(model, merge: int) -> None:
     model._merge_M = int(merge)
 
 
+def _fold_in_init(phi: torch.Tensor, tok_v: torch.Tensor, tok_f: torch.Tensor,
+                  topic_mask: torch.Tensor, u: torch.Tensor):
+    """:func:`fold_in_test`'s init pass with uniforms ``u (U, D)``: z drawn
+    from φ̂'s column for each type (uniform over the real topics of
+    ``topic_mask`` where that column is all zero), and its ``n_dk``."""
+    D, U = tok_v.shape
+    ff = tok_f.to(torch.float32)
+    n_dk = torch.zeros((D, phi.shape[1]), dtype=torch.float32, device=phi.device)
+    z = torch.empty((D, U), dtype=torch.int32, device=phi.device)
+    for p in range(U):
+        w = phi[tok_v[:, p]]
+        dead = w.sum(dim=1, keepdim=True) <= 0.0
+        c = torch.cumsum(torch.where(dead, topic_mask[None, :], w), dim=1)
+        zp = (c < (u[p] * c[:, -1])[:, None]).sum(dim=1, dtype=torch.int32)
+        n_dk.scatter_add_(1, zp.long()[:, None], ff[:, p, None])
+        z[:, p] = zp
+    return z, n_dk
+
+
 def fold_in_test(phi: torch.Tensor, tok_v: torch.Tensor, tok_f: torch.Tensor,
                  topic_mask: torch.Tensor, alpha: float, it: int, thinning: int,
                  generator: torch.Generator) -> torch.Tensor:
@@ -80,27 +99,18 @@ def fold_in_test(phi: torch.Tensor, tok_v: torch.Tensor, tok_f: torch.Tensor,
     topics of ``topic_mask`` where that column is all zero); then ``it``
     frozen-φ̂ sweeps, averaging the normalised doc-topic counts at
     multiples of ``thinning``; trailing sweeps run unsaved, as in the
-    reference.
+    reference.  The sweeps run through ``ops/gibbs.FoldinSweep`` (on a card,
+    one replayed CUDA graph from the second sweep on), with the bits of
+    ``foldin_sweep``.
     """
-    device = phi.device
     D, U = tok_v.shape
-    Kp = phi.shape[1]
-    ff = tok_f.to(torch.float32)
-    u = torch.rand((U, D), generator=generator, device=device)
-    n_dk = torch.zeros((D, Kp), dtype=torch.float32, device=device)
-    z = torch.empty((D, U), dtype=torch.int32, device=device)
-    for p in range(U):
-        w = phi[tok_v[:, p]]
-        dead = w.sum(dim=1, keepdim=True) <= 0.0
-        c = torch.cumsum(torch.where(dead, topic_mask[None, :], w), dim=1)
-        zp = (c < (u[p] * c[:, -1])[:, None]).sum(dim=1, dtype=torch.int32)
-        n_dk.scatter_add_(1, zp.long()[:, None], ff[:, p, None])
-        z[:, p] = zp
-
+    u = torch.rand((U, D), generator=generator, device=phi.device)
+    z, n_dk = _fold_in_init(phi, tok_v, tok_f, topic_mask, u)
+    sweep = FoldinSweep(z, n_dk, tok_v, tok_f, phi, alpha)
     avg = torch.zeros_like(n_dk)
     s = 0
     for i in range(int(it)):
-        z, n_dk = foldin_sweep(z, n_dk, tok_v, tok_f, phi, alpha, generator=generator)
+        sweep(generator)
         if (i + 1) % int(thinning) == 0:
             s += 1
             cur = n_dk / torch.clamp(n_dk.sum(dim=1, keepdim=True), min=1.0)
@@ -189,6 +199,7 @@ class LabeledLDA:
         self._th_hat_t: Tuple[torch.Tensor, ...] = self._zeros_th()
         self._avg_s = 0  # number of thinned saves folded into ph_hat/th_hat
         self.cur_perplx: List[float] = []
+        self._ll: Optional[List[LogLikelihood]] = None
 
     def _t(self, x, dtype) -> torch.Tensor:
         return torch.as_tensor(np.ascontiguousarray(x)).to(
@@ -307,11 +318,17 @@ class LabeledLDA:
             self._sweeps = None
         self._check_ph_hat()
 
+    def _log_likelihoods(self, phi, thetas):
+        """``ops/gibbs.log_likelihood`` of each bucket, one ``LogLikelihood``
+        (on a card, a replayed CUDA graph) per bucket, kept across calls."""
+        if self._ll is None:
+            self._ll = [LogLikelihood(tv, tf) for tv, tf in zip(self.toks_v, self.toks_f)]
+        return [ll(th, phi) for ll, th in zip(self._ll, thetas)]
+
     def _perplexity_of(self, phi, thetas) -> float:
         ll = torch.zeros((), dtype=torch.float32, device=self.device)
         n = torch.zeros((), dtype=torch.float32, device=self.device)
-        for th, tv, tf in zip(thetas, self.toks_v, self.toks_f):
-            llg, ng = log_likelihood(th, phi, tv, tf)
+        for llg, ng in self._log_likelihoods(phi, thetas):
             ll = ll + llg
             n = n + ng.to(torch.float32)
         return float(torch.exp(-ll / torch.clamp(n, min=1.0)))
@@ -391,8 +408,7 @@ class LabeledLDA:
         JAX model."""
         phi, thetas = self._cur_estimates()
         ll, n = 0.0, 0
-        for th, tv, tf in zip(thetas, self.toks_v, self.toks_f):
-            llg, ng = log_likelihood(th, phi, tv, tf)
+        for llg, ng in self._log_likelihoods(phi, thetas):
             ll += float(llg)
             n += int(ng)
         return float(np.exp(-ll / max(n, 1)))

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from ..data.encode import binarize_labels, build_labelmap, encode_bow_types
-from ..ops.gibbs import log_likelihood
+from ..ops.gibbs import LogLikelihood
 from ..ops.vi import VIState, _expect_logs, _gamma_stats, cavi_step, svi_epoch, vi_init
 
 __all__ = ["LabeledLDAVI"]
@@ -65,6 +65,7 @@ class LabeledLDAVI:
         self._gen.manual_seed(int(seed))
         self.state = vi_init(self.labs, self.V, self.alpha, self.beta, generator=self._gen)
         self.elbo_history: List[float] = []
+        self._ll = LogLikelihood(self.tok_v, self.tok_f)  # on a card a replayed CUDA graph
 
     def _t(self, x, dtype) -> torch.Tensor:
         return torch.as_tensor(np.ascontiguousarray(x)).to(device=self.device, dtype=dtype)
@@ -145,7 +146,7 @@ class LabeledLDAVI:
     def perplexity(self) -> float:
         theta = torch.from_numpy(self.get_theta()).to(self.device)
         phi_vk = torch.from_numpy(np.ascontiguousarray(self.get_phi().T)).to(self.device)
-        ll, ntok = log_likelihood(theta, phi_vk, self.tok_v, self.tok_f)
+        ll, ntok = self._ll(theta, phi_vk)
         return float(np.exp(-float(ll) / max(int(ntok), 1)))
 
     def topwords_per_topic(self, topwords: int = 10):

@@ -32,7 +32,7 @@ import torch
 from ..data.buckets import bucket_encode
 from ..data.textproc import prep_docs, split_sentences
 from ..data.vocab import Dictionary
-from ..ops.gibbs import ExactSweep, init_bucket_counts, log_likelihood
+from ..ops.gibbs import ExactSweep, LogLikelihood, init_bucket_counts
 from ..ops.gibbs_fused import (
     fused_train_block_buckets,
     init_fused_buckets,
@@ -127,6 +127,9 @@ class LocalLDA:
 
         self.ph_hat: Optional[np.ndarray] = None  # (K, V), reference orientation
         self.th_hat: Optional[np.ndarray] = None  # (D, K)
+        # one LogLikelihood per bucket (on a card a replayed CUDA graph),
+        # made at the first perplexity
+        self._ll: Optional[List[LogLikelihood]] = None
 
     def _t(self, x, dtype) -> torch.Tensor:
         return torch.as_tensor(np.ascontiguousarray(x)).to(device=self.device, dtype=dtype)
@@ -242,9 +245,11 @@ class LocalLDA:
         likelihood is summed per bucket on the host in float64, as in the
         JAX model."""
         phi = self._phi()
+        if self._ll is None:
+            self._ll = [LogLikelihood(tv, tf) for tv, tf in zip(self.toks_v, self.toks_f)]
         ll, n = 0.0, 0
-        for g in range(self.buckets.n_buckets):
-            llg, ng = log_likelihood(self._theta(g), phi, self.toks_v[g], self.toks_f[g])
+        for g, run in enumerate(self._ll):
+            llg, ng = run(self._theta(g), phi)
             ll += float(llg)
             n += int(ng)
         return float(np.exp(-ll / max(n, 1)))

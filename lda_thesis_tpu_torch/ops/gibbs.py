@@ -6,7 +6,10 @@ count-commit kernels, :mod:`.draw_update_cuda`, replayed as one CUDA graph
 per sweep state by :class:`ExactSweep`; compact in plain PyTorch) and their
 bucket variants, the compact → dense doc-topic helpers, the frozen-φ fold-in
 sweep, CascadeLDA's batched node-level fold-in and the training
-log-likelihood.
+log-likelihood.  The last three are JAX scans that a model runs again and
+again: :class:`FoldinSweep`, :class:`CascadeSweep` and
+:class:`LogLikelihood` replay each as one CUDA graph per sweep (or sum) on
+a card, with the bits of the eager function.
 Counts are float32 tensors holding integers below 2^24, so every count
 update is exact in any order.
 
@@ -32,7 +35,7 @@ import torch
 
 from . import draw_update_cuda as duc
 from .draw_update_cuda import Slots, commit_counts, draw_rows
-from .sampling import gumbel_argmax, mask_to_logits
+from .sampling import gumbel, gumbel_argmax, mask_to_logits
 
 __all__ = [
     "LDACounts",
@@ -53,9 +56,14 @@ __all__ = [
     "compact_sweep",
     "densify_ndk",
     "theta_from_compact",
+    "capture_graph",
     "foldin_sweep",
+    "FoldinSweep",
+    "cascade_sweep",
+    "CascadeSweep",
     "cascade_test_loop",
     "log_likelihood",
+    "LogLikelihood",
 ]
 
 
@@ -276,6 +284,24 @@ def exact_sweep(
     return z_t
 
 
+def capture_graph(fn, device) -> "torch.cuda.CUDAGraph":
+    """One CUDA graph of the work ``fn()`` launches on ``device``, captured
+    on a side stream.  Capture runs nothing: the caller replays the graph.
+    Tensors that ``fn`` allocates live in the graph's private pool for the
+    graph's lifetime."""
+    graph = torch.cuda.CUDAGraph()
+    stream = torch.cuda.Stream(device)
+    stream.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(stream):
+        graph.capture_begin()
+        try:
+            fn()
+        finally:
+            graph.capture_end()
+    torch.cuda.current_stream(device).wait_stream(stream)
+    return graph
+
+
 class ExactSweep:
     """Repeated exact dense sweeps (:func:`exact_sweep`) over one set of
     state tensors, which every call updates in place.
@@ -310,20 +336,9 @@ class ExactSweep:
         wrappers counted while capturing are taken back and counted per
         replay instead."""
         before = (duc.launches, duc.commit_launches)
-        device = self.u.device
-        graph = torch.cuda.CUDAGraph()
-        stream = torch.cuda.Stream(device)
-        stream.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(stream):
-            graph.capture_begin()
-            try:
-                self._sweep()
-            finally:
-                graph.capture_end()
-        torch.cuda.current_stream(device).wait_stream(stream)
+        self._graph = capture_graph(self._sweep, self.u.device)
         self._replay_launches = (duc.launches - before[0], duc.commit_launches - before[1])
         duc.launches, duc.commit_launches = before
-        self._graph = graph
 
     def __call__(self, generator: Optional[torch.Generator] = None,
                  uniforms: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -510,6 +525,51 @@ def theta_from_compact(n_dk_c, lab_ids, lab_valid, alpha: float, K: int) -> torc
     return densify_ndk(num / torch.clamp(den, min=1e-38), lab_ids, K)
 
 
+class _Replayed:
+    """The replay rule of :class:`FoldinSweep`, :class:`CascadeSweep` and
+    :class:`LogLikelihood`: on a card the first call runs ``_sweep``
+    eagerly (it loads what the body needs), the second captures it as one
+    CUDA graph and every call from then on replays it; on the CPU every
+    call runs eagerly.  A subclass fills its static inputs, then ``_run``s.
+    A captured graph does not pickle: a pickled instance captures again."""
+
+    def __init__(self, device):
+        self._device = torch.device(device)
+        self._graphed = self._device.type == "cuda"
+        self._graph = None
+        self.calls = 0
+
+    def _sweep(self) -> None:
+        raise NotImplementedError
+
+    def _run(self) -> None:
+        if not self._graphed or self.calls == 0:
+            self._sweep()
+        else:
+            if self._graph is None:
+                self._graph = capture_graph(self._sweep, self._device)
+            self._graph.replay()
+        self.calls += 1
+
+    def __getstate__(self):
+        state = self.__dict__.copy()
+        state["_graph"], state["calls"] = None, 0
+        return state
+
+
+def _foldin_positions(z, n_dk, tv, ff, phi, alpha, u) -> None:
+    """:func:`foldin_sweep`'s positions, in order, on ``z``/``n_dk`` in place."""
+    for p in range(tv.shape[1]):
+        f_p = ff[:, p]
+        z_old = z[:, p].long()[:, None]
+        n_dk.scatter_add_(1, z_old, -f_p[:, None])
+        c = torch.cumsum((n_dk + alpha) * phi[tv[:, p]], dim=1)
+        z_new = (c < (u[p] * c[:, -1])[:, None]).sum(dim=1, dtype=torch.int32)
+        z_new = torch.where(f_p > 0, z_new, z[:, p])
+        n_dk.scatter_add_(1, z_new.long()[:, None], f_p[:, None])
+        z[:, p] = z_new
+
+
 def foldin_sweep(
     z: torch.Tensor,  # (D, U) int32
     n_dk: torch.Tensor,  # (D, K) float32
@@ -528,20 +588,149 @@ def foldin_sweep(
     """
     D, U = tok_v.shape
     u = _uniforms((U, D), tok_v, uniforms, generator)
-    ff = tok_f.to(torch.float32)
-    tv = tok_v.long()
     z = z.clone()
     n_dk = n_dk.clone()
-    for p in range(U):
-        f_p = ff[:, p]
-        z_old = z[:, p].long()[:, None]
-        n_dk.scatter_add_(1, z_old, -f_p[:, None])
-        c = torch.cumsum((n_dk + alpha) * phi[tv[:, p]], dim=1)
-        z_new = (c < (u[p] * c[:, -1])[:, None]).sum(dim=1, dtype=torch.int32)
-        z_new = torch.where(f_p > 0, z_new, z[:, p])
-        n_dk.scatter_add_(1, z_new.long()[:, None], f_p[:, None])
-        z[:, p] = z_new
+    _foldin_positions(z, n_dk, tok_v.long(), tok_f.to(torch.float32), phi, alpha, u)
     return z, n_dk
+
+
+class FoldinSweep(_Replayed):
+    """Repeated fold-in sweeps (:func:`foldin_sweep`, its ops in its order)
+    over one state ``z (D, U)`` int32 and ``n_dk (D, K)`` float32, which
+    every call updates in place.
+
+    ``phi (V, K)`` is read in place and must not change while the instance
+    is used.  ``alpha`` is a number, or a tensor that broadcasts against
+    ``n_dk`` (HSLDA's α·β, ``(K,)`` or one row per document), copied into a
+    static buffer.  Each call fills a static ``(U, D)`` uniforms buffer
+    outside the graph, from ``generator`` as :func:`foldin_sweep` draws it
+    (``torch.rand(..., out=)``) or from the given ``uniforms``, then sweeps
+    (:class:`_Replayed`: replayed as one CUDA graph on a card from the
+    second call on).  A state of C chains' documents side by side is a
+    taller D: one graph for all chains.
+    """
+
+    def __init__(self, z, n_dk, tok_v, tok_f, phi, alpha):
+        super().__init__(n_dk.device)
+        D, U = tok_v.shape
+        self.z, self.n_dk = z, n_dk
+        self._tv = tok_v.long()
+        self._ff = tok_f.to(torch.float32)
+        self._phi = phi
+        self._alpha = alpha.clone() if torch.is_tensor(alpha) else alpha
+        self.u = torch.empty((U, D), dtype=torch.float32, device=n_dk.device)
+
+    def _sweep(self) -> None:
+        _foldin_positions(self.z, self.n_dk, self._tv, self._ff, self._phi, self._alpha,
+                          self.u)
+
+    def __call__(self, generator: Optional[torch.Generator] = None,
+                 uniforms: Optional[torch.Tensor] = None) -> None:
+        """One sweep of the state, with these uniforms ``(U, D)`` or the
+        generator's."""
+        if uniforms is None:
+            torch.rand(tuple(self.u.shape), generator=generator, out=self.u)
+        else:
+            self.u.copy_(uniforms)
+        self._run()
+
+
+def _cascade_init(tv, ff, phi_vk, ids, lab_mask, mask_logits, beta, init_gumbels,
+                  generator) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`cascade_test_loop`'s init pass: ``z (U, R)`` int64 and
+    ``n_dk (R, Kt)``."""
+    R, U = tv.shape
+    Kt = ids.shape[1]
+    ld = torch.clamp((ff > 0).sum(dim=1), min=1).to(torch.float32)
+    n_dk = torch.zeros((R, Kt), dtype=torch.float32, device=tv.device)
+    z = torch.zeros((U, R), dtype=torch.int64, device=tv.device)
+    for p in range(U):
+        q = phi_vk[tv[:, p][:, None], ids] + beta
+        q = q / torch.clamp((q * lab_mask).sum(dim=1, keepdim=True), min=1e-38)
+        q[:, 0] = 1.0 / ld
+        logits = torch.log(torch.clamp(q, min=1e-38)) + mask_logits
+        z[p] = gumbel_argmax(logits, 1, gumbels=None if init_gumbels is None else init_gumbels[p],
+                             generator=generator)
+        n_dk.scatter_add_(1, z[p][:, None], ff[:, p, None])
+    return z, n_dk
+
+
+def _cascade_positions(z, n_dk, tv, ff, phi_vk, ids, mask_logits, alpha: float, beta: float,
+                       gumbels, generator) -> None:
+    """:func:`cascade_sweep`'s positions, in order, on ``z``/``n_dk`` in
+    place; position p's noise is ``gumbels[p]``, else the generator's."""
+    for p in range(tv.shape[1]):
+        f = ff[:, p]
+        z_old = z[p]
+        n_dk.scatter_add_(1, z_old[:, None], -f[:, None])
+        lp_doc = torch.log(n_dk + alpha)
+        phi_l = phi_vk[tv[:, p][:, None], ids]
+        logp = (lp_doc + torch.log(torch.clamp(phi_l, min=0.0))) + mask_logits
+        dead = ~torch.isfinite(logp).any(dim=1, keepdim=True)
+        logp_fb = (lp_doc + torch.log(phi_l + beta)) + mask_logits
+        logp = torch.where(dead, logp_fb, logp)
+        z_new = gumbel_argmax(logp, 1, gumbels=None if gumbels is None else gumbels[p],
+                              generator=generator)
+        z[p] = torch.where(f > 0, z_new, z_old)
+        n_dk.scatter_add_(1, z[p][:, None], f[:, None])
+
+
+def cascade_sweep(
+    z: torch.Tensor,  # (U, R) int64, position-major, updated in place
+    n_dk: torch.Tensor,  # (R, Kt), updated in place
+    tok_v: torch.Tensor,  # (R, U)
+    tok_f: torch.Tensor,  # (R, U)
+    phi_vk: torch.Tensor,  # (V, Kglob)
+    lab_ids: torch.Tensor,  # (R, Kt)
+    lab_mask: torch.Tensor,  # (R, Kt)
+    alpha: float,
+    beta: float,
+    gumbels: Optional[torch.Tensor] = None,  # (U, R, Kt)
+    generator: Optional[torch.Generator] = None,
+) -> None:
+    """One sweep of :func:`cascade_test_loop` over its state, eagerly, each
+    position's Gumbel noise drawn where the draw is made (or taken from
+    ``gumbels``): p(z=k) ∝ (n_dk+α)·φ[v, k], with the (n_dk+α)·(φ[v, k]+β)
+    fallback for a row whose posterior is all zero."""
+    _cascade_positions(z, n_dk, tok_v.long(), tok_f.to(torch.float32), phi_vk,
+                       lab_ids.long(), mask_to_logits(lab_mask), alpha, beta, gumbels,
+                       generator)
+
+
+class CascadeSweep(_Replayed):
+    """Repeated :func:`cascade_sweep` over one state ``z (U, R)`` int64 and
+    ``n_dk (R, Kt)``, which every call updates in place.
+
+    Each call fills a static ``(U, R, Kt)`` Gumbel buffer outside the graph:
+    one :func:`~.sampling.gumbel` per position into its slice, in the order
+    the eager sweep draws them (a single ``(U, R, Kt)`` draw would take other
+    numbers: a card's generator advances per call), or a copy of the given
+    ``gumbels``; then sweeps (:class:`_Replayed`).  ``phi_vk`` is read in
+    place and must not change while the instance is used.
+    """
+
+    def __init__(self, z, n_dk, tok_v, tok_f, phi_vk, lab_ids, lab_mask, alpha: float,
+                 beta: float):
+        super().__init__(n_dk.device)
+        U, R = z.shape
+        self.z, self.n_dk = z, n_dk
+        self._args = (tok_v.long(), tok_f.to(torch.float32), phi_vk, lab_ids.long(),
+                      mask_to_logits(lab_mask), float(alpha), float(beta))
+        self.g = torch.empty((U, R, lab_ids.shape[1]), dtype=torch.float32,
+                             device=n_dk.device)
+
+    def _sweep(self) -> None:
+        _cascade_positions(self.z, self.n_dk, *self._args, self.g, None)
+
+    def __call__(self, generator: Optional[torch.Generator] = None,
+                 gumbels: Optional[torch.Tensor] = None) -> None:
+        """One sweep, with this noise ``(U, R, Kt)`` or the generator's."""
+        if gumbels is None:
+            for p in range(self.g.shape[0]):
+                gumbel(self.g.shape[1:], self.g.device, generator, out=self.g[p])
+        else:
+            self.g.copy_(gumbels)
+        self._run()
 
 
 def cascade_test_loop(
@@ -572,50 +761,20 @@ def cascade_test_loop(
 
     Draws are Gumbel-max in the log domain.  ``init_gumbels`` and
     ``sweep_gumbels`` are the noise of each position's draw; without them
-    the noise comes from ``generator``.  Returns ``avg (R, Kt)``.
+    the noise comes from ``generator``.  The init pass and the thinning run
+    eagerly; the sweeps run through :class:`CascadeSweep`, so on a card
+    every sweep from the second on is one replayed CUDA graph, with the
+    bits of :func:`cascade_sweep`.  Returns ``avg (R, Kt)``.
     """
-    R, U = tok_v.shape
-    Kt = lab_ids.shape[1]
-    mask_logits = mask_to_logits(lab_mask)
-    ld = torch.clamp((tok_f > 0).sum(dim=1), min=1).to(torch.float32)
-    ids = lab_ids.long()
-    tv = tok_v.long()
-    ff = tok_f.to(torch.float32)
-
-    def local_phi(p):  # (R, Kt) φ of each task's word at position p
-        return phi_vk[tv[:, p][:, None], ids]
-
-    def noise(g, *index):
-        return None if g is None else g[index]
-
-    n_dk = torch.zeros((R, Kt), dtype=torch.float32, device=tok_v.device)
-    z = torch.zeros((U, R), dtype=torch.int64, device=tok_v.device)
-    for p in range(U):
-        q = local_phi(p) + beta
-        q = q / torch.clamp((q * lab_mask).sum(dim=1, keepdim=True), min=1e-38)
-        q[:, 0] = 1.0 / ld
-        logits = torch.log(torch.clamp(q, min=1e-38)) + mask_logits
-        z[p] = gumbel_argmax(logits, 1, gumbels=noise(init_gumbels, p),
-                             generator=generator)
-        n_dk.scatter_add_(1, z[p][:, None], ff[:, p, None])
-
+    R, Kt = lab_ids.shape
+    tv, ff, ids = tok_v.long(), tok_f.to(torch.float32), lab_ids.long()
+    z, n_dk = _cascade_init(tv, ff, phi_vk, ids, lab_mask, mask_to_logits(lab_mask), beta,
+                            init_gumbels, generator)
+    sweep = CascadeSweep(z, n_dk, tv, ff, phi_vk, ids, lab_mask, alpha, beta)
     avg = torch.zeros((R, Kt), dtype=torch.float32, device=tok_v.device)
     s = 0
     for i in range(int(it)):
-        for p in range(U):
-            f = ff[:, p]
-            z_old = z[p]
-            n_dk.scatter_add_(1, z_old[:, None], -f[:, None])
-            lp_doc = torch.log(n_dk + alpha)
-            phi_l = local_phi(p)
-            logp = (lp_doc + torch.log(torch.clamp(phi_l, min=0.0))) + mask_logits
-            dead = ~torch.isfinite(logp).any(dim=1, keepdim=True)
-            logp_fb = (lp_doc + torch.log(phi_l + beta)) + mask_logits
-            logp = torch.where(dead, logp_fb, logp)
-            z_new = gumbel_argmax(logp, 1, gumbels=noise(sweep_gumbels, i, p),
-                                  generator=generator)
-            z[p] = torch.where(f > 0, z_new, z_old)
-            n_dk.scatter_add_(1, z[p][:, None], f[:, None])
+        sweep(generator, gumbels=None if sweep_gumbels is None else sweep_gumbels[i])
         if (i + 1) % int(thinning) == 0:
             s += 1
             cur = n_dk / torch.clamp(n_dk.sum(dim=1, keepdim=True), min=1.0)
@@ -627,17 +786,61 @@ def cascade_test_loop(
     return avg
 
 
+def _ll_positions(theta, phi_vk, tv, ff) -> torch.Tensor:
+    """:func:`log_likelihood`'s sum, positions in order."""
+    acc = torch.zeros((), dtype=torch.float32, device=theta.device)
+    for p in range(tv.shape[1]):
+        inner = (theta * phi_vk[tv[:, p]]).sum(dim=1)
+        safe = torch.where(ff[:, p] > 0, torch.log(torch.clamp(inner, min=1e-38)), 0.0)
+        acc = acc + (ff[:, p] * safe).sum()
+    return acc
+
+
 def log_likelihood(theta, phi_vk, tok_v, tok_f) -> Tuple[torch.Tensor, torch.Tensor]:
     """Σ_{d,v} f · log ⟨θ_d, φ_v⟩ and the total token count (float32).
 
     Used for training perplexity exp(−ll/N) (reference LabeledLDA.py:256-265);
     positions are summed one after another, as in the JAX function.
     """
-    acc = torch.zeros((), dtype=torch.float32, device=theta.device)
-    ff = tok_f.to(torch.float32)
-    tv = tok_v.long()
-    for p in range(tok_v.shape[1]):
-        inner = (theta * phi_vk[tv[:, p]]).sum(dim=1)
-        safe = torch.where(ff[:, p] > 0, torch.log(torch.clamp(inner, min=1e-38)), 0.0)
-        acc = acc + (ff[:, p] * safe).sum()
-    return acc, tok_f.sum()
+    return _ll_positions(theta, phi_vk, tok_v.long(), tok_f.to(torch.float32)), tok_f.sum()
+
+
+class LogLikelihood(_Replayed):
+    """:func:`log_likelihood` of one set of tokens ``tok_v/tok_f (D, U)``,
+    called again and again with new θ (D, K) and φ (V, K) of one shape: a
+    model's perplexity at every save, one instance per bucket.
+
+    Each call copies θ and φ into static buffers (made at the first call)
+    and sums (:class:`_Replayed`: one replayed CUDA graph on a card from the
+    second call on), in :func:`log_likelihood`'s order, so the result has
+    its bits.  Returns ``(ll, n)`` as it does.
+    """
+
+    def __init__(self, tok_v, tok_f):
+        super().__init__(tok_v.device)
+        self._tv = tok_v.long()
+        self._ff = tok_f.to(torch.float32)
+        self.n_tokens = tok_f.sum()
+        self._inputs = None  # static θ, φ
+        self._ll = None
+
+    def _sweep(self) -> None:
+        self._ll = _ll_positions(*self._inputs, self._tv, self._ff)
+
+    def __call__(self, theta, phi_vk) -> Tuple[torch.Tensor, torch.Tensor]:
+        if self._inputs is None:
+            self._inputs = tuple(x.clone(memory_format=torch.contiguous_format)
+                                 for x in (theta, phi_vk))
+        else:
+            for buf, x, name in zip(self._inputs, (theta, phi_vk), ("theta", "phi_vk")):
+                if x.shape != buf.shape:
+                    raise ValueError(f"{name} must keep the shape {tuple(buf.shape)}, "
+                                     f"got {tuple(x.shape)}")
+                buf.copy_(x)
+        self._run()
+        return self._ll.clone(), self.n_tokens
+
+    def __getstate__(self):
+        state = super().__getstate__()
+        state["_inputs"] = state["_ll"] = None
+        return state

@@ -54,6 +54,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from .gibbs import capture_graph
 from .sampling import gumbel, gumbel_argmax
 
 __all__ = ["HSLDACounts", "hslda_init_counts", "hslda_z_sweep", "HSLDASweep", "L_BLOCK",
@@ -394,18 +395,7 @@ class HSLDASweep:
                 self.xi, self.opt, self.ids, self.valid)
 
     def _capture(self) -> None:
-        device = self.g.device
-        graph = torch.cuda.CUDAGraph()
-        stream = torch.cuda.Stream(device)
-        stream.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(stream):
-            graph.capture_begin()
-            try:
-                self._sweep()
-            finally:
-                graph.capture_end()
-        torch.cuda.current_stream(device).wait_stream(stream)
-        self._graph = graph
+        self._graph = capture_graph(self._sweep, self.g.device)
 
     def __call__(self, eta, a, alpha_beta, generator: Generators = None,
                  gumbels: Optional[torch.Tensor] = None) -> None:

@@ -139,7 +139,9 @@ def test_cascade_cli_with_test_budget(corpus_csv, capsys):
 @pytest.mark.parametrize("flags,item", [(["--n-chains", "2", "--sweep", "compact"],
                                          "single-device only"),
                                         (["--n-data", "2"], "does not divide 1 ranks"),
-                                        (["--table-shard", "vocab"], "requires --n-data")])
+                                        (["--table-shard", "vocab"], "requires --n-data"),
+                                        (["-p", "--n-chains", "2"],
+                                         "-p pickles a single-device model")])
 def test_options_not_ported_exit(corpus_csv, flags, item):
     with pytest.raises(SystemExit, match=item):
         _run(corpus_csv, *flags)

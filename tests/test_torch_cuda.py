@@ -455,3 +455,93 @@ def test_hslda_batched_sweep_equals_single_chain_sweeps():
         assert int(n_dk.sum()) == int(n_vk.sum()) == int(n_k.sum()) == total
         assert torch.equal(n_vk.sum(dim=0, dtype=torch.int32), n_k)
     assert r["equal_draws"] >= chip_smoke.MIN_EQUAL_DRAWS
+
+
+def _foldin_problem(seed, D=300, U=24, K=40, V=120):
+    """Held-out documents (a third of the slots empty), a frozen φ and a
+    state of them, on the card."""
+    rng = np.random.default_rng(seed)
+    tok_v = rng.integers(0, V, size=(D, U))
+    tok_f = rng.integers(1, 4, size=(D, U)) * (rng.random((D, U)) > 0.33)
+    phi = rng.dirichlet(np.ones(V), size=K).T.astype(np.float32)
+    z = rng.integers(0, K, size=(D, U)).astype(np.int32)
+    n_dk = np.zeros((D, K), np.float32)
+    for d in range(D):
+        np.add.at(n_dk[d], z[d], tok_f[d].astype(np.float32))
+    alpha = (rng.random((D, K)) * 0.2 + 0.01).astype(np.float32)
+    return [torch.from_numpy(x).cuda() for x in (z, n_dk, tok_v, tok_f, phi, alpha)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["scalar", "per_row"])
+def test_foldin_replays_equal_eager_sweeps(form):
+    """Four ``FoldinSweep`` calls (eager, capture and replay, replays)
+    against four eager ``foldin_sweep`` calls from one state and seed: z,
+    n_dk and the running average bitwise after each (chip_smoke.py's
+    phase 15 at full width); α a number or HSLDA's per-row α·β."""
+    _needs_card()
+    z, n_dk, tok_v, tok_f, phi, alpha = _foldin_problem(0)
+    run, _ = chip_smoke.foldin_sweeps_case(
+        z, n_dk, tok_v, tok_f, phi, ALPHA if form == "scalar" else alpha, 0,
+        lambda x: x / torch.clamp(x.sum(dim=1, keepdim=True), min=1.0), sweeps=4)
+    torch.cuda.synchronize()
+    assert run._graph is not None and run.calls == 4
+
+
+@pytest.mark.cuda
+def test_cascade_replays_equal_eager_sweeps():
+    """Four ``CascadeSweep`` calls, each position's Gumbel noise drawn into
+    its slice of the static buffer, against four eager ``cascade_sweep``
+    calls drawing at each position: z and n_dk bitwise after each."""
+    _needs_card()
+    rng = np.random.default_rng(1)
+    R, U, V, Kg, Kt = 200, 16, 80, 30, 8
+    tok_v = rng.integers(0, V, size=(R, U))
+    tok_f = rng.integers(0, 4, size=(R, U))
+    phi = rng.dirichlet(np.ones(V), size=Kg).T.astype(np.float32)
+    phi[0] = 0.0  # a word with no mass: the (φ + β) fallback
+    lab_ids = np.stack([rng.choice(Kg, Kt, replace=False) for _ in range(R)])
+    lab_mask = (np.arange(Kt)[None, :] < rng.integers(2, Kt + 1, size=(R, 1))).astype(np.float32)
+    args = [torch.from_numpy(x).cuda() for x in (tok_v, tok_f, phi, lab_ids, lab_mask)]
+    run, _ = chip_smoke.cascade_sweeps_case(*args, ALPHA, BETA, 0, sweeps=4)
+    torch.cuda.synchronize()
+    assert run._graph is not None and run.calls == 4
+
+
+@pytest.mark.cuda
+def test_log_likelihood_replays_equal_eager():
+    """``LogLikelihood`` called with four (θ, φ) pairs, the last two
+    replayed, each bitwise equal to ``log_likelihood``."""
+    _needs_card()
+    _, n_dk, tok_v, tok_f, phi, _ = _foldin_problem(2)
+    run = tgibbs.LogLikelihood(tok_v, tok_f)
+    for i in range(4):
+        theta = (n_dk + ALPHA * (i + 1)) / (n_dk + ALPHA * (i + 1)).sum(dim=1, keepdim=True)
+        got, want = run(theta, phi * (1 + i)), tgibbs.log_likelihood(theta, phi * (1 + i),
+                                                                     tok_v, tok_f)
+        assert _same_bits(got[0], want[0]) and int(got[1]) == int(want[1])
+    assert run._graph is not None
+
+
+@pytest.mark.cuda
+def test_run_test_sees_new_phi():
+    """Two ``run_test`` calls with training between: each equals an eager
+    fold-in from the same generator state, bitwise, the second against the
+    new φ̂, so the two differ."""
+    _needs_card()
+    from lda_thesis_tpu_torch.data.synthetic import planted_corpus
+    from lda_thesis_tpu_torch.data.vocab import Dictionary
+    from lda_thesis_tpu_torch.models import labeled_lda
+    from lda_thesis_tpu_torch.models.labeled_lda import LabeledLDA
+
+    c = planted_corpus(0, n_train=200, n_test=30, V=300, n_labels=30)
+    model = LabeledLDA(c.train_docs, c.train_labs, c.labelset, Dictionary(c.train_docs),
+                       alpha=ALPHA, beta=BETA, seed=0, device="cuda")
+    model.run_training(10, 5)
+    with chip_smoke._recording(labeled_lda, "fold_in_test") as calls:
+        first = model.run_test(c.test_docs, 6, 3)
+        model.run_training(10, 5)
+        second = model.run_test(c.test_docs, 6, 3)
+    for n, call in enumerate(calls):
+        chip_smoke._same_as_eager(chip_smoke.eager_fold_in, call, f"run_test {n + 1}")
+    assert calls[1][0][0] is model.ph_hat and not np.array_equal(first, second)
