@@ -99,15 +99,24 @@ made from ``--seed``.  Phases:
     16 chains, and at 8 chains with 4 buckets, each timed model's count
     invariants after its calls, and the 16-chain launch (66,736 documents)
     against single-chain launches and the plain version as in (a); (c)
-    dense AD-LDA, two chains, (10; 5): replayed sweeps equal eager ones
-    bitwise, kernel-2 draws and commits as planned, and one step on the
+    dense AD-LDA, two chains in the rank's one sweep graph, (10; 5):
+    replayed sweeps equal eager ones bitwise, kernel-2 draws and commits
+    as planned (iterations × a sweep's, not × chains), and one step on the
     card equals the same step on the CPU (kernel 2's plain version),
-    bitwise; (d) spawned ranks on the one card over gloo with
+    bitwise; then kernel 2 over a chain axis at that shape
+    (``md_dense_chains_case``): the batched draw and commit launches
+    against their plain versions and single-chain launches at C = 3 and 8,
+    a ragged live list and K = 1,100, bitwise; a 4-chain replayed sweep
+    against 4 single-chain replayed sweeps, bitwise, and a sweep graph's
+    node count at 1 and 16 chains; device ms per replayed sweep, batched
+    against C single-chain graphs, its bound and peak memory at C = 1, 2,
+    4, 8 and 16; (d) spawned ranks on the one card over gloo with
     CUDA tensors on the full corpus at (10; 5): (1, 2) fused and dense,
     (2, 2) replicated against (2, 2) vocab-sharded (z and tables bitwise
     equal), every merge leaving the data row's replicas identical, the
     global count invariants; (e) the CLI: ``--n-chains 8`` at (200; 25)
-    with an AUC gate, ``--n-data 2 --table-shard vocab`` under ``python -m
+    with an AUC gate, fused and with ``--sweep dense`` (kernel-2 launches
+    200 × a sweep's; wall by step), ``--n-data 2 --table-shard vocab`` under ``python -m
     torch.distributed.run --nproc-per-node 2`` with gloo, and a run at
     ``--n-chains 4 --save-every 25`` killed by SIGKILL after its first
     checkpoint and resumed in a fresh process (its shard's arrays and the
@@ -858,26 +867,33 @@ def _compare_sweep_steps(commit, draw, a, b, vbeta, what: str) -> float:
     return max(_max_abs_err(got, want), _max_abs_err(*outs))
 
 
-def sweep_commit_bound_ms(tok_f_t, K: int) -> list:
+def sweep_commit_bound_ms(tok_f_t, K: int, chains: int = 1) -> list:
     """Bound (ms) of each commit launch of one sweep of a bucket (the
     position's decrements and the previous position's increments, and a
     last commit of the final increments), by bytes: per live slot its row
-    index, table row, topic and frequency read and its table element read
-    and written (28 bytes), and n_k read and written once; two adds a slot."""
+    index, table row and frequency read (shared by the chains) and, per
+    chain, its topic read and its table element read and written (28 bytes
+    at one chain), and each chain's n_k read and written once; two adds a
+    slot and chain."""
     live = (tok_f_t > 0).sum(dim=1).tolist() + [0]
     slots = [live[p] + (live[p - 1] if p else 0) for p in range(len(live))]
-    return [1e3 * 4 * (7 * n + 2 * K) / HBM_BYTES_PER_S for n in slots if n]
+    return [1e3 * 4 * (4 * n + chains * (3 * n + 2 * K)) / HBM_BYTES_PER_S
+            for n in slots if n]
 
 
-def sweep_bound_ms(tok_f_t, K: int) -> list:
-    """Bound (ms) of each draw launch of one sweep of a bucket: 12·K bytes
-    per live row and the (D,) and (K,) vectors (``draw_bound``)."""
+def sweep_bound_ms(tok_f_t, K: int, chains: int = 1) -> list:
+    """Bound (ms) of each draw launch of one sweep of a bucket for
+    ``chains`` chains: per live row its labs row (shared) and each chain's
+    n_dk and table rows, 12·K bytes at one chain, and the (D,) and (K,)
+    vectors (``draw_bound``)."""
     U, D = tok_f_t.shape
+    C = chains
     out = []
     for live in (tok_f_t > 0).sum(dim=1).tolist():
         if live:
-            by_bytes = 4 * (3 * live * K + 2 * live + 4 * D + 2 * K) / HBM_BYTES_PER_S
-            by_ops = OPS_PER_TOPIC_DRAW * K * live / FP32_FLOP_PER_S
+            by_bytes = 4 * ((2 * C + 1) * live * K + 2 * C * live + (3 * C + 1) * D
+                            + 2 * C * K) / HBM_BYTES_PER_S
+            by_ops = OPS_PER_TOPIC_DRAW * K * live * C / FP32_FLOP_PER_S
             out.append(1e3 * max(by_bytes, by_ops))
     return out
 
@@ -995,6 +1011,115 @@ def _compare_draw(args, a, b, what: str) -> float:
     _check(_bitwise(got, want), f"draw-update kernel == plain version, {what}")
     _check(bool(torch.isfinite(got[0]).all()), f"finite n_dk, {what}")
     return _max_abs_err(got, want)
+
+
+def chain_step_inputs(device, seed: int, C: int, D: int, K: int, V: int) -> dict:
+    """One position of a C-chain exact sweep on synthetic state: shared
+    frequencies ``f`` (a third zero), words, label mask and a ragged live
+    list that also holds one row with f = 0; per chain, topics and uniforms
+    (``z_all``, ``u_all`` ``(C, 2, D)``: the previous position and this
+    one, strided across chains as a sweep's are), ``n_dk (C, D, K)``, a
+    table ``(C, V, K)`` and its totals.  The previous position's slots
+    (``inc_*``) are the same documents in reverse order."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    f = rng.integers(1, 4, size=D).astype(np.float32)
+    f[rng.random(D) < 0.33] = 0.0
+    f[1] = 0.0
+    live = np.sort(np.concatenate([np.nonzero(f > 0)[0], [1]])).astype(np.int32)
+    rows = rng.integers(0, V, size=D)
+    labs = (rng.random((D, K)) < 0.3).astype(np.float32)
+    labs[:, 0] = 1.0
+    z_all = rng.integers(0, K, size=(C, 2, D)).astype(np.int32)
+    n_dk = rng.integers(0, 20, size=(C, D, K)).astype(np.float32)
+    for c in range(C):
+        n_dk[c, np.arange(D), z_all[c, 1]] += f
+    table = rng.integers(0, 300, size=(C, V, K)).astype(np.float32)
+    # the decrements leave every count >= 0
+    np.add.at(table, (np.arange(C)[:, None], rows[None, :], z_all[:, 1]), f[None, :])
+    t = dict(f=f, live=live, rows=rows, labs=labs, z_all=z_all, n_dk=n_dk, table=table,
+             n_k=table.sum(axis=1), u_all=rng.random((C, 2, D)).astype(np.float32),
+             inc_rows=rows[::-1].copy(), inc_f=f[::-1].copy(),
+             inc_live=np.nonzero(f[::-1] > 0)[0].astype(np.int32))
+    t = {k: torch.from_numpy(np.ascontiguousarray(x)).to(device) for k, x in t.items()}
+    t["words"] = t["rows"][t["live"].long()]
+    return t
+
+
+def chain_position_inputs(tok_v_t, tok_f_t, z_t, n_dk, n_vk, n_k, labs, p: int, C: int,
+                          gen) -> dict:
+    """:func:`chain_step_inputs`' form at position ``p`` of a sweep of the
+    first ``C`` chains of the state ``z_t (L, U, D)``, ``n_dk (L, D, K)``,
+    ``n_vk (L, V, K)``, ``n_k (L, K)`` over ``tok_v_t``, ``tok_f_t (U, D)``,
+    with fresh uniforms from ``gen``; at p = 0 nothing is incremented."""
+    import torch
+
+    from lda_thesis_tpu_torch.ops.gibbs import live_rows
+
+    def live(q):
+        return live_rows(tok_v_t[q:q + 1], tok_f_t[q:q + 1])[0][0]
+
+    q = max(p - 1, 0)
+    cur = live(p)
+    inc_live = live(q) if p else cur[:0]
+    D = tok_v_t.shape[1]
+    return dict(f=tok_f_t[p], live=cur, rows=tok_v_t[p], labs=labs,
+                z_all=torch.stack([z_t[:C, q], z_t[:C, p]], dim=1), n_dk=n_dk[:C].clone(),
+                table=n_vk[:C].clone(), n_k=n_k[:C].clone(),
+                u_all=torch.rand((C, 2, D), generator=gen, device=tok_v_t.device),
+                inc_rows=tok_v_t[q], inc_f=tok_f_t[q], inc_live=inc_live,
+                words=tok_v_t[p][cur.long()])
+
+
+def chain_step(t: dict, draw, commit, a: float, b: float, vbeta: float, c=None) -> list:
+    """One sweep position as ``exact_sweep`` makes it, on copies of chain
+    ``c``'s state (every chain, batched, when ``c`` is None): ``commit``
+    lands the previous position's increments and this one's decrements,
+    then ``draw`` draws the live rows against the committed table.
+    Returns ``[z, n_dk, table, n_k]``."""
+    from lda_thesis_tpu_torch.ops import draw_update_cuda as duc
+
+    one = (lambda x: x.clone()) if c is None else (lambda x: x[c].clone())
+    z_all, u_all, n_dk, table, n_k = (one(t[k]) for k in ("z_all", "u_all", "n_dk",
+                                                         "table", "n_k"))
+    z_prev, z, u = z_all[..., 0, :], z_all[..., 1, :], u_all[..., 1, :]
+    commit(table, n_k, duc.Slots(t["rows"], z, t["f"], t["live"]),
+           duc.Slots(t["inc_rows"], z_prev, t["inc_f"], t["inc_live"]))
+    draw(u, t["f"], z, t["labs"], n_dk, table, t["words"], n_k, t["live"], a, b, vbeta)
+    return [z, n_dk, table, n_k]
+
+
+def chain_step_check(t: dict, a: float, b: float, vbeta: float, what: str) -> float:
+    """The chain-batched commit and draw kernels (one launch each for every
+    chain) against their plain versions on the same inputs and against one
+    single-chain launch per chain, bitwise; the counters read 1 and 1 for
+    the batch, and are restored (these launches are comparisons).  Returns
+    the largest difference from the plain version."""
+    import torch
+
+    from lda_thesis_tpu_torch.ops import draw_update_cuda as duc
+
+    before = (duc.launches, duc.commit_launches)
+    got = chain_step(t, duc.draw_rows, duc.commit_counts, a, b, vbeta)
+    batch = (duc.launches - before[0], duc.commit_launches - before[1])
+    plain = chain_step(t, duc.draw_rows_torch, duc.commit_counts_torch, a, b, vbeta)
+    C = t["z_all"].shape[0]
+    singles = [chain_step(t, duc.draw_rows, duc.commit_counts, a, b, vbeta, c)
+               for c in range(C)]
+    single = (duc.launches - before[0] - batch[0],
+              duc.commit_launches - before[1] - batch[1])
+    duc.launches, duc.commit_launches = before
+    torch.cuda.synchronize()
+    want = (int(t["live"].numel() > 0), int(t["live"].numel() + t["inc_live"].numel() > 0))
+    _check(batch == want and single == (C * want[0], C * want[1]),
+           f"{what}: launches {batch} for {C} chains batched, {single} single-chain")
+    _check(_bitwise(got[2:], plain[2:]), f"batched commit kernel == plain version, {what}")
+    _check(_bitwise(got[:2], plain[:2]), f"batched draw kernel == plain version, {what}")
+    for c, one in enumerate(singles):
+        _check(_bitwise([g[c] for g in got], one),
+               f"chain {c} of the batched launches == its single-chain launches, {what}")
+    return _max_abs_err(got, plain)
 
 
 def draw_kernel_phase(corpus, dicti, jel, jel_dicti, seed: int) -> dict:
@@ -2233,6 +2358,8 @@ MD_SHORT = (10, 5)  # (iters, thinning) of the dense and spawned-rank runs
 MD_CLI = (200, 25)
 MD_CLI_SHORT = (50, 25)  # the torchrun and kill-and-resume CLI runs
 MD_TIMED_CALLS = 3
+MD_DENSE_CHAINS = (1, 2, 4, 8, 16)  # chains in one dense sweep graph, timed
+MD_DENSE_REPLAYS = 5
 
 
 def _recorded(fn):
@@ -2358,9 +2485,10 @@ def md_timing(model, card: str) -> dict:
 
 
 def md_dense_case(corpus, dicti, seed: int, mesh) -> dict:
-    """Dense AD-LDA, two chains, (10; 5): a run whose sweeps replay CUDA
-    graphs against one whose sweeps all run eagerly, bitwise; kernel-2
-    draws and commits as planned."""
+    """Dense AD-LDA, two chains, (10; 5): a run whose sweeps replay the
+    rank's one CUDA graph (both chains in each launch) against one whose
+    sweeps all run eagerly, bitwise; kernel-2 draws and commits as planned,
+    ``iters`` × a sweep's, whatever the chains."""
     import torch
 
     from lda_thesis_tpu_torch.ops import draw_update_cuda as duc
@@ -2370,8 +2498,7 @@ def md_dense_case(corpus, dicti, seed: int, mesh) -> dict:
     eager = _md_model(corpus, dicti, seed, mesh, 2, sweep="dense")
     eager._loop = eager._make_loop()
     eager._loop._bind(eager.state, eager.corpus)
-    for run in eager._loop._runners:
-        run._graphed = False
+    eager._loop._sweep._graphed = False
     duc.launches = duc.commit_launches = 0
     t0 = time.perf_counter()
     graphed.run_training(iters, thinning)
@@ -2380,15 +2507,16 @@ def md_dense_case(corpus, dicti, seed: int, mesh) -> dict:
     launches = (duc.launches, duc.commit_launches)
     eager.run_training(iters, thinning)
     duc.launches, duc.commit_launches = launches
-    _check(all(r._graph is not None for r in graphed._loop._runners),
-           "dense: each chain's sweep was captured as a CUDA graph")
+    _check(graphed._loop._sweep._graph is not None
+           and graphed._loop._sweep.z_t.shape[0] == 2,
+           "dense: the rank's sweep of both chains was captured as one CUDA graph")
     _check(_bitwise([getattr(graphed.state, f) for f in ("z", "n_dk", "n_vk", "n_k",
                                                           "ph_hat", "th_hat")],
                     [getattr(eager.state, f) for f in ("z", "n_dk", "n_vk", "n_k",
                                                         "ph_hat", "th_hat")]),
            "dense AD-LDA: replayed sweeps equal eager ones bitwise")
     draws, commits = planned_sweep_launches(graphed.corpus.tok_f.T.to(torch.float32))
-    planned = (iters * 2 * draws, iters * 2 * commits)
+    planned = (iters * draws, iters * commits)
     _check(launches == planned, f"dense AD-LDA launches {launches} == planned {planned}")
 
     # one step of both chains on the card (kernel 2) against the same step on
@@ -2416,6 +2544,129 @@ def md_dense_case(corpus, dicti, seed: int, mesh) -> dict:
     return dict(launches=launches[0], commit_launches=launches[1], planned=list(planned),
                 wall_s=wall, tokens_per_s=2 * graphed.n_tokens * iters / wall,
                 cpu_step_s=cpu_s)
+
+
+def md_dense_chains_case(corpus, dicti, seed: int, mesh, card: str) -> dict:
+    """Kernel 2 over a chain axis at the dense AD-LDA shape of the first
+    cell (the planted corpus unbucketed: D = 4,171, U = 128, Kp = 512, V =
+    8,969; one rank, ``MD_DENSE_CHAINS[-1]`` chains from the trainer's
+    init).  (kernel) the batched commit and draw launches against their
+    plain versions and C single-chain launches at C = 3 and 8 at the first
+    and last positions, a ragged live list with an f = 0 row and K = 1,100
+    (the two-pass draw); (sweep) 4 chains in one ``ExactSweep``, an eager
+    sweep and 5 replays, against 4 single-chain ``ExactSweep``s from the
+    same generators, bitwise, and the node count of a sweep's graph at one
+    chain and at ``MD_DENSE_CHAINS[-1]``; (timing) device ms per replayed
+    sweep at each C of ``MD_DENSE_CHAINS``, one batched graph against C
+    single-chain graphs (CUDA events around ``MD_DENSE_REPLAYS`` replays),
+    the bound of the sweep's launches and peak memory.  Every launch here
+    is a comparison: the counters are restored."""
+    import torch
+
+    from lda_thesis_tpu_torch.ops import draw_update_cuda as duc
+    from lda_thesis_tpu_torch.ops.gibbs import ExactSweep
+
+    before = (duc.launches, duc.commit_launches)
+    L = MD_DENSE_CHAINS[-1]
+    model = _md_model(corpus, dicti, seed, mesh, L, sweep="dense")
+    st, c = model.state, model.corpus
+    tv_t = c.tok_v.T.contiguous()
+    tf_t = c.tok_f.T.to(torch.float32).contiguous()
+    labs = c.labs.contiguous()
+    z_t = st.z.transpose(1, 2).contiguous()
+    U, D = tv_t.shape
+    K, a, b = model.Kp, model.alpha, model.beta
+    vbeta = float(model.V * b)
+    args = (tv_t, tf_t, labs, a, b, vbeta)
+    draws, commits = planned_sweep_launches(tf_t)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed + 21)
+
+    err = 0.0
+    for C in (3, 8):
+        for p in (0, U - 1):
+            t = chain_position_inputs(tv_t, tf_t, z_t, st.n_dk, st.n_vk, st.n_k, labs, p, C,
+                                      gen)
+            err = max(err, chain_step_check(t, a, b, vbeta, f"C = {C}, position {p} of {U} "
+                                                            f"({t['live'].numel()} live rows)"))
+    err = max(err, chain_step_check(chain_step_inputs(DEVICE, seed, 8, 37, 40, 60), a, b,
+                                    0.6, "C = 8, D = 37, K = 40, ragged, a live row f = 0"))
+    err = max(err, chain_step_check(chain_step_inputs(DEVICE, seed + 1, 3, 300, 1100, 60), a,
+                                    b, 0.6, "C = 3, K = 1,100 (the two-pass draw)"))
+    print(f"13c: kernel 2 over chains (D={D}, U={U}, K={K}): the batched commit and draw "
+          f"launches equal their plain versions and single-chain launches bitwise at C = 3 "
+          f"and 8, positions 0 and {U - 1}, ragged (C = 8, K = 40) and K = 1,100 (C = 3)")
+
+    def work(c0: int, n: int, chained: bool = True):
+        w = tuple(x[c0:c0 + n].clone() for x in (z_t, st.n_dk, st.n_vk, st.n_k))
+        return w if chained else tuple(x[0] for x in w)
+
+    def gens(n: int, base: int = 0):
+        out = []
+        for j in range(n):
+            g = torch.Generator(device=DEVICE)
+            g.manual_seed(seed * 1000 + 700 + base + j)
+            out.append(g)
+        return out
+
+    wb, ws = work(0, 4), [work(j, 1, False) for j in range(4)]
+    batched = ExactSweep(*wb, *args)
+    singles = [ExactSweep(*w, *args) for w in ws]
+    g_b, g_s = gens(4), gens(4)
+    for _ in range(1 + MD_DENSE_REPLAYS):  # eager, then capture and replays
+        batched(g_b)
+        for run, g in zip(singles, g_s):
+            run(g)
+    torch.cuda.synchronize()
+    _check(batched._graph is not None and all(r._graph is not None for r in singles),
+           "the batched and single-chain sweeps replay CUDA graphs")
+    for j, w in enumerate(ws):
+        _check(_bitwise([x[j] for x in wb], list(w)),
+               f"chain {j} of the 4-chain replayed sweep equals its single-chain replayed "
+               f"sweep bitwise (z, n_dk, n_vk, n_k), {MD_DENSE_REPLAYS} replays")
+    wide = ExactSweep(*work(0, L), *args)
+    wide(gens(L))
+    nodes = (_captured_nodes(singles[0]._sweep), _captured_nodes(wide._sweep))
+    _check(nodes[0] == nodes[1] == draws + commits,
+           f"a sweep's graph holds {nodes} nodes at 1 and {L} chains, its planned "
+           f"{draws} + {commits} launches")
+    del batched, singles, wide, wb, ws
+    print(f"13c: 4 chains in one replayed sweep == 4 single-chain replayed sweeps bitwise "
+          f"({MD_DENSE_REPLAYS} replays); {nodes[0]} graph nodes at 1 chain and at {L}")
+
+    timing = []
+    for C in MD_DENSE_CHAINS:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        run = ExactSweep(*work(0, C), *args)
+        g = gens(C, 100)
+        run(g)
+        run(g)  # eager, then the capture and a first replay
+        batched_ms = _batch_ms(run._graph.replay, MD_DENSE_REPLAYS)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        runs = [ExactSweep(*work(j, 1, False), *args) for j in range(C)]
+        for r, gj in zip(runs, gens(C, 100)):
+            r(gj)
+            r(gj)
+        single_ms = _batch_ms(lambda: [r._graph.replay() for r in runs], MD_DENSE_REPLAYS)
+        bound = sum(sweep_bound_ms(tf_t, K, C)) + sum(sweep_commit_bound_ms(tf_t, K, C))
+        timing.append(dict(chains=C, batched_ms=batched_ms, single_ms=single_ms,
+                           batched_ms_per_chain=batched_ms / C,
+                           single_ms_per_chain=single_ms / C,
+                           speedup=single_ms / batched_ms, bound_ms=bound,
+                           bound_ms_per_chain=bound / C, peak_gb=peak))
+        t = timing[-1]
+        print(f"  C={C:2d}: a replayed sweep {batched_ms:.4f} ms batched "
+              f"({t['batched_ms_per_chain']:.4f} per chain) against {single_ms:.4f} ms for {C} single-chain graphs "
+              f"({t['speedup']:.2f}x); bound {bound:.4f} ms ({t['bound_ms_per_chain']:.4f} per "
+              f"chain, bytes); peak {peak:.2f} GB ({card})")
+        del run, runs
+    V = int(st.n_vk.shape[1])
+    del model, st, c, z_t
+    torch.cuda.empty_cache()
+    duc.launches, duc.commit_launches = before
+    return dict(card=card, D=D, U=U, K=K, V=V, kernel_max_abs_err=err, sweep_bitwise=True, graph_nodes=list(nodes),
+                draws_per_sweep=draws, commits_per_sweep=commits, timing=timing)
 
 
 def md_ranks(corpus, dicti, seed: int) -> dict:
@@ -2469,11 +2720,15 @@ def md_ranks(corpus, dicti, seed: int) -> dict:
 
 
 def md_cli(corpus, tmp: str) -> dict:
-    """The CLI's multi-device flags: ``--n-chains 8`` in this process,
-    ``--n-data 2 --table-shard vocab`` under ``torch.distributed.run`` with
-    gloo, and a ``--n-chains 4`` run killed after its first checkpoint and
-    resumed in a fresh process."""
+    """The CLI's multi-device flags: ``--n-chains 8`` in this process, fused
+    and with ``--sweep dense`` (the rank's eight chains in one dense sweep
+    graph), ``--n-data 2 --table-shard vocab`` under
+    ``torch.distributed.run`` with gloo, and a ``--n-chains 4`` run killed
+    after its first checkpoint and resumed in a fresh process."""
+    import torch
+
     from lda_thesis_tpu_torch.cli import evaluate_labeled_lda
+    from lda_thesis_tpu_torch.ops import draw_update_cuda as duc
     from lda_thesis_tpu_torch.ops import fused_block_cuda as fbc
     from lda_thesis_tpu_torch.parallel.launch import free_port
     from lda_thesis_tpu_torch.utils.checkpoint import load_checkpoint
@@ -2494,6 +2749,30 @@ def md_cli(corpus, tmp: str) -> dict:
            f"CLI --n-chains 8 AUC {res['metrics']['auc_roc']} > {MIN_AUC}")
     out = dict(n_chains_launches=launches, n_chains_auc=res["metrics"]["auc_roc"],
                n_chains_wall_s=_steps(res), n_chains_tokens_per_s=res["tokens_per_s"])
+    del res, m
+
+    duc.launches = duc.commit_launches = 0
+    res, text = _cli(evaluate_labeled_lda.main,
+                     flags + ["-i", str(it), "-s", str(s), "--n-chains", "8", "--sweep",
+                              "dense"])
+    got = (duc.launches, duc.commit_launches)
+    m = res["model"]
+    draws, commits = planned_sweep_launches(m.corpus.tok_f.T.to(torch.float32))
+    _check(m.n_chains == 8 and m._loop._sweep.z_t.shape[0] == 8
+           and m._loop._sweep._graph is not None,
+           "CLI --sweep dense --n-chains 8: the eight chains sweep in one graph")
+    _check(got == (it * draws, it * commits),
+           f"CLI --sweep dense --n-chains 8: kernel-2 launches {got} == {it} x a sweep's "
+           f"({draws}, {commits}), not x 8 chains")
+    _check(res["metrics"]["auc_roc"] > MIN_AUC,
+           f"CLI --sweep dense --n-chains 8 AUC {res['metrics']['auc_roc']} > {MIN_AUC}")
+    out.update(dense_n_chains_launches=got[0], dense_n_chains_commit_launches=got[1],
+               dense_n_chains_auc=res["metrics"]["auc_roc"],
+               dense_n_chains_wall_s=_steps(res),
+               dense_n_chains_tokens_per_s=res["tokens_per_s"])
+    print(f"  CLI: --sweep dense --n-chains 8 ({it}; {s}): {got[0]} draws and {got[1]} "
+          f"commits, AUC {out['dense_n_chains_auc']:.4f}, wall by step "
+          f"{json.dumps(out['dense_n_chains_wall_s'])}")
     del res, m
 
     it, s = MD_CLI_SHORT
@@ -2632,12 +2911,13 @@ def multi_device_phase(seed: int, card: str) -> dict:
           f"and to the plain version ({w['plain_s']:.2f} s); every timed model's count "
           f"invariants hold")
 
-    # (c) dense AD-LDA, replayed against eager
+    # (c) dense AD-LDA, replayed against eager; kernel 2 over chains
     rec["dense"] = md_dense_case(corpus, dicti, seed, mesh)
-    shutdown()
-    print(f"13c: dense AD-LDA, 2 chains, (10; 5): replay == eager bitwise; "
+    print(f"13c: dense AD-LDA, 2 chains in one graph, (10; 5): replay == eager bitwise; "
           f"{rec['dense']['launches']} draws, {rec['dense']['commit_launches']} commits; "
           f"one step on the card == on the CPU bitwise")
+    rec["dense_chains"] = md_dense_chains_case(corpus, dicti, seed, mesh, card)
+    shutdown()
 
     # (d) several ranks on the one card over gloo; (e) the CLI
     rec["ranks"] = md_ranks(corpus, dicti, seed)
@@ -3569,6 +3849,12 @@ def main(argv=None) -> int:
         "cli_cascade_auc_by_depth": product["cascade"]["aucs"],
         "cli_cascade_s": product["cascade"]["seconds"],
         "launches_multi_device_dense": md["dense"]["launches"],
+        "launches_multi_device_dense_cli_n_chains_8": md["cli"]["dense_n_chains_launches"],
+        "batched_launch": "a rank's chains in one launch per position "
+                          "(draw_update_chains_kernel and count_commit_chains_kernel, grid "
+                          "y = chain) and one sweep graph per rank; multi_device_dense_chains "
+                          "holds its device ms per replayed sweep against single-chain graphs",
+        "multi_device_dense_chains": md["dense_chains"],
     }, warp_record(rec, local, warp_ptxas), {
         "name": "count_commit",
         "route": "cuda",
@@ -3588,6 +3874,8 @@ def main(argv=None) -> int:
         "launches_cascade": cascade["commit_launches"],
         "cli_dense_launches": product["dense"]["commit_launches"],
         "launches_multi_device_dense": md["dense"]["commit_launches"],
+        "launches_multi_device_dense_cli_n_chains_8":
+            md["cli"]["dense_n_chains_commit_launches"],
     }]
     print(json.dumps({"phase_seconds": seconds}))
     print(json.dumps({"vi": vi}))

@@ -34,6 +34,15 @@
 // Design.  One warp per live row, 8 rows per CTA; the grid spans only the
 // position's live rows (lists built once per sweep state, with each live
 // row's word beside it, so the table row's address does not wait on d).
+// A chain axis is the grid's y (the *_chains_kernel variants, launched for
+// C > 1): CTA (x, c) draws live rows of chain c, whose u, z, n_dk, table and
+// n_k sit at c times their chain strides; f, labs, the live list and the
+// rows' words are shared by every chain (every chain sweeps the same
+// documents).  A CTA never holds two chains, so each chain's draw is its
+// single-chain draw, bit for bit.  C = 1 launches the single-chain kernels,
+// which compute no chain offsets: computed at c = 0, they made a replayed
+// single-chain sweep 5% slower on an H100
+// (tools/probe_single_chain_sweep.py).
 // Each warp-wide load of labs, n_dk and the table row is 128 contiguous
 // bytes.  For K <= 1024 (NC chunks, a template argument) the code is
 // straight-line: every chunk's loads are issued at once into registers
@@ -53,7 +62,10 @@
 // 50 MB L2 across a sweep, so a launch can run under that bound.  At small
 // positions a launch costs its latency: the CTA's start and two dependent
 // loads (the live list, then the row).  The commit moves a few bytes per
-// live slot; its time is launch latency and the atomics on n_k.
+// live slot; its time is launch latency and the atomics on n_k.  C chains
+// in one launch move (8*C + 4)*live*K bytes (labs is shared) in the
+// latency of one launch; from C = 2 on, their tables and n_dk (about 27 MB a
+// chain at the depth-3 shape) no longer stay in L2 across a sweep.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -81,6 +93,25 @@ struct DrawArgs {
   int n, K;
   float alpha, beta, vbeta;
 };
+
+// Chain strides in elements: chain c's u, z_old and z_new, ndk, table and
+// nk sit at c times these from chain 0's.
+struct ChainStrides {
+  long long u, z, ndk, table, nk;
+};
+
+// The arguments of chain c: its own state, the shared inputs unchanged.
+__device__ __forceinline__ DrawArgs chain_args(const DrawArgs& in, const ChainStrides& s,
+                                               size_t c) {
+  DrawArgs a = in;
+  a.u += c * s.u;
+  a.z_old += c * s.z;
+  a.z_new += c * s.z;
+  a.ndk += c * s.ndk;
+  a.table += c * s.table;
+  if (a.nk) a.nk += c * s.nk;
+  return a;
+}
 
 __device__ __forceinline__ float recip_at(const DrawArgs& a, int k) {
   return a.recip ? a.recip[k] : 1.0f / (a.nk[k] + a.vbeta);
@@ -212,8 +243,7 @@ __device__ __forceinline__ void draw_row(const DrawArgs& a, const RowLoads<NC>& 
 }
 
 template <int NC>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-draw_update_kernel(const DrawArgs a) {
+__device__ __forceinline__ void draw_update_body(const DrawArgs& a) {
   __shared__ float s_recip[NC > 0 ? 32 * NC : 1];
   const int lane = threadIdx.x & 31;
   const int i = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
@@ -269,16 +299,31 @@ draw_update_kernel(const DrawArgs a) {
   draw_row<NC>(a, ld, s_recip, i, d, fd, zo, u, lane);
 }
 
+template <int NC>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+draw_update_kernel(const DrawArgs a) {
+  draw_update_body<NC>(a);
+}
+
+// blockIdx.y = chain c.
+template <int NC>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+draw_update_chains_kernel(const DrawArgs a, const ChainStrides s) {
+  draw_update_body<NC>(chain_args(a, s, blockIdx.y));
+}
+
 struct Slots {
   const long long* rows;  // (D,) table row of each document
-  const int* z;           // (D,) topic of each document's slot
+  const int* z;           // (D,) topic of each document's slot (chain 0's)
   const float* f;         // (D,) frequency
   const int* live;        // (n,) rows with f > 0
   int n;
 };
 
-__global__ void __launch_bounds__(kCommitThreads)
-count_commit_kernel(float* table, float* nk, int K, const Slots dec, const Slots inc) {
+// The slots' topics are read at z_off + d (z_off: the chain's offset).
+__device__ __forceinline__ void count_commit_body(float* table, float* nk, int K,
+                                                  const Slots& dec, const Slots& inc,
+                                                  size_t z_off) {
   int j = blockIdx.x * kCommitThreads + threadIdx.x;
   const bool is_dec = j < dec.n;
   if (!is_dec) j -= dec.n;
@@ -286,56 +331,86 @@ count_commit_kernel(float* table, float* nk, int K, const Slots dec, const Slots
   // fields picked one by one: a reference to either parameter would copy
   // both to the stack
   const int d = (is_dec ? dec.live : inc.live)[j];
-  const int z = (is_dec ? dec.z : inc.z)[d];
+  const int z = (is_dec ? dec.z : inc.z)[z_off + d];
   const float f = is_dec ? -dec.f[d] : inc.f[d];
   atomicAdd(table + (size_t)(is_dec ? dec.rows : inc.rows)[d] * K + z, f);
   atomicAdd(nk + z, f);
 }
 
+__global__ void __launch_bounds__(kCommitThreads)
+count_commit_kernel(float* table, float* nk, int K, const Slots dec, const Slots inc) {
+  count_commit_body(table, nk, K, dec, inc, 0);
+}
+
+// blockIdx.y = chain c: its topics at c * s_z, its table and totals at
+// c * s_table and c * s_nk.
+__global__ void __launch_bounds__(kCommitThreads)
+count_commit_chains_kernel(float* table, float* nk, int K, const Slots dec,
+                           const Slots inc, long long s_z, long long s_table,
+                           long long s_nk) {
+  const size_t c = blockIdx.y;
+  count_commit_body(table + c * s_table, nk + c * s_nk, K, dec, inc, c * s_z);
+}
+
 template <int NC>
-int launch_draw(const DrawArgs& a, cudaStream_t stream) {
+int launch_draw(const DrawArgs& a, int chains, const ChainStrides& s, cudaStream_t stream) {
   const int blocks = (a.n + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  draw_update_kernel<NC><<<blocks, kWarpsPerBlock * 32, 0, stream>>>(a);
+  if (chains == 1)
+    draw_update_kernel<NC><<<blocks, kWarpsPerBlock * 32, 0, stream>>>(a);
+  else
+    draw_update_chains_kernel<NC>
+        <<<dim3(blocks, chains), kWarpsPerBlock * 32, 0, stream>>>(a, s);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Launches the draw kernel on `stream` for n rows (n >= 1); returns
-// cudaGetLastError() as an int.
+// Launches the draw kernel on `stream` for n rows (n >= 1) of each of
+// `chains` chains (>= 1; chain strides in elements, see ChainStrides);
+// returns cudaGetLastError() as an int.
 extern "C" int draw_update_launch(const float* u, const float* f, const int* z_old,
                                   int* z_new, const float* labs, float* ndk,
                                   const float* table, const long long* rows,
                                   const float* nk, const float* recip, float* dnk,
                                   const int* live, int n, int K, float alpha,
-                                  float beta, float vbeta, void* stream) {
+                                  float beta, float vbeta, int chains, long long s_u,
+                                  long long s_z, long long s_ndk, long long s_table,
+                                  long long s_nk, void* stream) {
   const DrawArgs a{u, f, z_old, z_new, labs, ndk, table, rows, nk, recip, dnk, live,
                    n, K, alpha, beta, vbeta};
+  const ChainStrides c{s_u, s_z, s_ndk, s_table, s_nk};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int chunks = (K + 31) / 32;
-  if (chunks <= 1) return launch_draw<1>(a, s);
-  if (chunks <= 2) return launch_draw<2>(a, s);
-  if (chunks <= 4) return launch_draw<4>(a, s);
-  if (chunks <= 6) return launch_draw<6>(a, s);
-  if (chunks <= 8) return launch_draw<8>(a, s);
-  if (chunks <= 12) return launch_draw<12>(a, s);
-  if (chunks <= 16) return launch_draw<16>(a, s);
-  if (chunks <= 24) return launch_draw<24>(a, s);
-  if (chunks <= kMaxChunks) return launch_draw<kMaxChunks>(a, s);
-  return launch_draw<0>(a, s);
+  if (chunks <= 1) return launch_draw<1>(a, chains, c, s);
+  if (chunks <= 2) return launch_draw<2>(a, chains, c, s);
+  if (chunks <= 4) return launch_draw<4>(a, chains, c, s);
+  if (chunks <= 6) return launch_draw<6>(a, chains, c, s);
+  if (chunks <= 8) return launch_draw<8>(a, chains, c, s);
+  if (chunks <= 12) return launch_draw<12>(a, chains, c, s);
+  if (chunks <= 16) return launch_draw<16>(a, chains, c, s);
+  if (chunks <= 24) return launch_draw<24>(a, chains, c, s);
+  if (chunks <= kMaxChunks) return launch_draw<kMaxChunks>(a, chains, c, s);
+  return launch_draw<0>(a, chains, c, s);
 }
 
-// Launches the commit kernel on `stream` for n_dec + n_inc >= 1 slots.
+// Launches the commit kernel on `stream` for n_dec + n_inc >= 1 slots of each
+// of `chains` chains (>= 1): chain c's topics at c * s_z, its table and
+// totals at c * s_table and c * s_nk (elements).
 extern "C" int count_commit_launch(float* table, float* nk, int K,
                                    const long long* dec_rows, const int* dec_z,
                                    const float* dec_f, const int* dec_live, int n_dec,
                                    const long long* inc_rows, const int* inc_z,
                                    const float* inc_f, const int* inc_live, int n_inc,
-                                   void* stream) {
+                                   int chains, long long s_z, long long s_table,
+                                   long long s_nk, void* stream) {
   const Slots dec{dec_rows, dec_z, dec_f, dec_live, n_dec};
   const Slots inc{inc_rows, inc_z, inc_f, inc_live, n_inc};
   const int blocks = (n_dec + n_inc + kCommitThreads - 1) / kCommitThreads;
-  count_commit_kernel<<<blocks, kCommitThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      table, nk, K, dec, inc);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (chains == 1)
+    count_commit_kernel<<<blocks, kCommitThreads, 0, s>>>(table, nk, K, dec, inc);
+  else
+    count_commit_chains_kernel<<<dim3(blocks, chains), kCommitThreads, 0, s>>>(
+        table, nk, K, dec, inc, s_z, s_table, s_nk);
   return (int)cudaGetLastError();
 }

@@ -10,6 +10,12 @@ row's topic, reading its word's table row in place, and updates ``n_dk`` and
 ``_build`` the draw kernel replaces: given the gathered rows ``cv`` and
 ``recip`` it returns ``(n_dk, z_new, Δn_k)``.
 
+:func:`draw_rows` and :func:`commit_counts` take an optional leading chain
+axis on the state (``u``, ``z``, ``n_dk``, the table and ``n_k``): the
+chains share the position's frequencies, label mask, live rows and their
+words, and one launch covers every chain, each drawing against its own
+table exactly as a single-chain launch would.
+
 On a CUDA tensor each wrapper launches its kernel; on a CPU tensor it runs
 its plain PyTorch version, which repeats the kernel's floating-point
 operations in the same order, so the two agree bit for bit.  Counts are
@@ -41,8 +47,9 @@ commit_launches = 0
 
 class Slots(NamedTuple):
     """One type position's slots: ``rows (D,)`` int64 table row (word) of each
-    document, ``z (D,)`` int32 topic, ``f (D,)`` float32 frequency, and
-    ``live (n,)`` int32 the rows with f > 0."""
+    document, ``z (D,)`` int32 topic (``(C, D)``, each chain's, with a chain
+    axis), ``f (D,)`` float32 frequency, and ``live (n,)`` int32 the rows with
+    f > 0."""
 
     rows: torch.Tensor
     z: torch.Tensor
@@ -59,9 +66,12 @@ def build() -> Tuple[Path, float, str]:
 def _library() -> ctypes.CDLL:
     lib = _nvcc.load(SOURCE)
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.draw_update_launch.argtypes = [ptr] * 12 + [i32, i32, f32, f32, f32, ptr]
+    i64 = ctypes.c_longlong
+    lib.draw_update_launch.argtypes = ([ptr] * 12 + [i32, i32, f32, f32, f32, i32]
+                                       + [i64] * 5 + [ptr])
     lib.draw_update_launch.restype = ctypes.c_int
-    lib.count_commit_launch.argtypes = [ptr, ptr, i32] + ([ptr] * 4 + [i32]) * 2 + [ptr]
+    lib.count_commit_launch.argtypes = ([ptr, ptr, i32] + ([ptr] * 4 + [i32]) * 2
+                                        + [i32] + [i64] * 3 + [ptr])
     lib.count_commit_launch.restype = ctypes.c_int
     return lib
 
@@ -77,12 +87,31 @@ def _check(device, **tensors) -> None:
             raise ValueError(f"{name} is on {t.device}, expected {device}")
 
 
-def _kernel_device(device: torch.device, tensors) -> None:
-    """Raise unless the kernel can take these tensors: CUDA and contiguous."""
+def _kernel_device(device: torch.device, tensors, chained=()) -> None:
+    """Raise unless the kernel can take these tensors: CUDA, and contiguous
+    (``chained``: each chain's slice contiguous, any chain stride)."""
     if device.type != "cuda":
         raise ValueError(f"no kernel for device {device}")
-    if not all(t.is_contiguous() for t in tensors):
+    if not all(t.is_contiguous() for t in tensors) or not all(
+            t[0].is_contiguous() for t in chained):
         raise ValueError("kernel inputs must be contiguous")
+
+
+def _stride(t: torch.Tensor, chains: Optional[int]) -> int:
+    """Chain stride (elements) of ``t`` for the kernels; 0 without a chain
+    axis or with one chain."""
+    return t.stride(0) if chains is not None and chains > 1 else 0
+
+
+def _chains(x: torch.Tensor, dims: int) -> Optional[int]:
+    """Length of the leading chain axis of ``x``, whose single-chain form has
+    ``dims`` dimensions; None without one."""
+    if x.dim() == dims:
+        return None
+    if x.dim() != dims + 1:
+        raise ValueError(f"expected {dims} or {dims + 1} dimensions, got shape "
+                         f"{tuple(x.shape)}")
+    return x.shape[0]
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -90,14 +119,19 @@ def _ptr(t: Optional[torch.Tensor]):
 
 
 def _launch_draw(u, f, z_old, z_new, labs, n_dk, table, rows, n_k, recip, dnk, live,
-                 n: int, alpha: float, beta: float, vbeta: float) -> None:
+                 n: int, alpha: float, beta: float, vbeta: float,
+                 chains: Optional[int] = None) -> None:
+    """One launch; given ``chains``, the state tensors carry a leading chain
+    axis of that length (``z_old`` is ``z_new``)."""
     global launches
+    strides = [_stride(t, chains) for t in (u, z_old, n_dk, table, n_k)]
     with torch.cuda.device(n_dk.device):
         stream = torch.cuda.current_stream(n_dk.device).cuda_stream
         err = _library().draw_update_launch(
             *(_ptr(t) for t in (u, f, z_old, z_new, labs, n_dk, table, rows, n_k, recip,
                                 dnk, live)),
-            n, n_dk.shape[1], float(alpha), float(beta), float(vbeta), stream)
+            n, n_dk.shape[-1], float(alpha), float(beta), float(vbeta), chains or 1,
+            *strides, stream)
     if err != 0:
         raise RuntimeError(f"draw_update kernel launch failed: CUDA error {err}")
     launches += 1
@@ -145,43 +179,69 @@ def draw_rows(u, f, z, labs, n_dk, table, rows, n_k, live, alpha: float, beta: f
     (K,)`` the topic totals after the decrement, ``live (n,)`` int32 rows
     with f > 0 and ``rows (n,)`` int64 their words: row ``live[i]`` reads
     table row ``rows[i]`` in place.  The other rows are left as they are.
-    CPU tensors take :func:`draw_rows_torch`; CUDA tensors launch the draw
-    kernel, and nothing when ``live`` is empty.
+    With a leading chain axis of C on ``u (C, D)``, ``z (C, D)``, ``n_dk
+    (C, D, K)``, ``table (C, V, K)`` and ``n_k (C, K)``, chain c draws its
+    live rows against its own table and totals, exactly as a single-chain
+    call on its slices would; ``f``, ``labs``, ``live`` and ``rows`` are
+    shared.  ``u`` and ``z`` may be strided across chains (each chain's
+    slice contiguous).  CPU tensors take :func:`draw_rows_torch`; CUDA
+    tensors launch the draw kernel, once for all chains, and nothing when
+    ``live`` is empty.
     """
-    D, K = n_dk.shape
-    V = table.shape[0]
+    C = _chains(n_dk, 2)
+    lead = () if C is None else (C,)
+    D, K = n_dk.shape[-2:]
+    V = table.shape[-2]
     f32 = torch.float32
-    _check(n_dk.device, u=(u, (D,), f32), f=(f, (D,), f32), z=(z, (D,), torch.int32),
-           labs=(labs, (D, K), f32), table=(table, (V, K), f32),
-           live=(live, live.shape[:1], torch.int32),
-           rows=(rows, live.shape[:1], torch.int64), n_k=(n_k, (K,), f32))
+    _check(n_dk.device, u=(u, lead + (D,), f32), f=(f, (D,), f32),
+           z=(z, lead + (D,), torch.int32), labs=(labs, (D, K), f32),
+           table=(table, lead + (V, K), f32), live=(live, live.shape[:1], torch.int32),
+           rows=(rows, live.shape[:1], torch.int64), n_k=(n_k, lead + (K,), f32))
     if n_dk.device.type == "cpu":
         return draw_rows_torch(u, f, z, labs, n_dk, table, rows, n_k, live, alpha, beta,
                                vbeta)
-    _kernel_device(n_dk.device, (u, f, z, labs, n_dk, table, rows, n_k, live))
+    if C is None:
+        _kernel_device(n_dk.device, (u, f, z, labs, n_dk, table, rows, n_k, live))
+    else:
+        _kernel_device(n_dk.device, (f, labs, n_dk, table, rows, n_k, live), (u, z))
     if live.numel():
         _launch_draw(u, f, z, z, labs, n_dk, table, rows, n_k, None, None, live,
-                     live.numel(), alpha, beta, vbeta)
+                     live.numel(), alpha, beta, vbeta, C)
 
 
 def commit_counts(table, n_k, dec: Optional[Slots], inc: Optional[Slots]) -> None:
     """``table[rows, z] += ±f`` and ``n_k[z] += ±f`` over the live slots of
-    ``dec`` (−f) and ``inc`` (+f), in place.  CPU tensors take
-    :func:`commit_counts_torch`; CUDA tensors launch the commit kernel, and
-    nothing when there is no live slot."""
+    ``dec`` (−f) and ``inc`` (+f), in place.  With a leading chain axis of C
+    on ``table (C, V, K)``, ``n_k (C, K)`` and each slot set's ``z (C, D)``
+    (chain c's topics; its slice contiguous, any chain stride, the same
+    stride in ``dec`` and ``inc``), chain c's slots land on its own table
+    and totals; rows, f and live are shared.  CPU tensors take
+    :func:`commit_counts_torch`; CUDA tensors launch the commit kernel, once
+    for all chains, and nothing when there is no live slot."""
     global commit_launches
-    V, K = table.shape
+    C = _chains(table, 2)
+    lead = () if C is None else (C,)
+    V, K = table.shape[-2:]
     parts = [s for s in (dec, inc) if s is not None]
     for i, s in enumerate(parts):
         D = s.rows.shape[0]
         _check(table.device, **{f"rows{i}": (s.rows, (D,), torch.int64),
-                                f"z{i}": (s.z, (D,), torch.int32),
+                                f"z{i}": (s.z, lead + (D,), torch.int32),
                                 f"f{i}": (s.f, (D,), torch.float32),
                                 f"live{i}": (s.live, s.live.shape[:1], torch.int32)})
-    _check(table.device, n_k=(n_k, (K,), torch.float32), table=(table, (V, K), torch.float32))
+    _check(table.device, n_k=(n_k, lead + (K,), torch.float32),
+           table=(table, lead + (V, K), torch.float32))
     if table.device.type == "cpu":
         return commit_counts_torch(table, n_k, dec, inc)
-    _kernel_device(table.device, [table, n_k] + [t for s in parts for t in s])
+    if C is None:
+        _kernel_device(table.device, [table, n_k] + [t for s in parts for t in s])
+    else:
+        _kernel_device(table.device, [table, n_k] + [t for s in parts
+                                                     for t in (s.rows, s.f, s.live)],
+                       [s.z for s in parts])
+    z_strides = {_stride(s.z, C) for s in parts}
+    if len(z_strides) > 1:
+        raise ValueError(f"dec.z and inc.z must share one chain stride, got {z_strides}")
     n_dec = 0 if dec is None else dec.live.numel()
     n_inc = 0 if inc is None else inc.live.numel()
     if n_dec + n_inc == 0:
@@ -190,11 +250,13 @@ def commit_counts(table, n_k, dec: Optional[Slots], inc: Optional[Slots]) -> Non
     def slot_args(s, n):
         return [None] * 4 + [0] if not n else [t.data_ptr() for t in s] + [n]
 
+    strides = (z_strides.pop(), _stride(table, C), _stride(n_k, C))
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream(table.device).cuda_stream
         err = _library().count_commit_launch(table.data_ptr(), n_k.data_ptr(), K,
                                              *slot_args(dec, n_dec),
-                                             *slot_args(inc, n_inc), stream)
+                                             *slot_args(inc, n_inc), C or 1, *strides,
+                                             stream)
     if err != 0:
         raise RuntimeError(f"count_commit kernel launch failed: CUDA error {err}")
     commit_launches += 1
@@ -204,11 +266,13 @@ def commit_counts(table, n_k, dec: Optional[Slots], inc: Optional[Slots]) -> Non
 
 
 def _chunk_cumsum(w: torch.Tensor) -> torch.Tensor:
-    """Inclusive cumsum over dim 1 in the kernel's order: topic k is lane
-    k % 32 of chunk k // 32; each chunk is scanned Hillis–Steele across its
-    lanes (zero-padded past K), and chunk i adds the carry of the chunks
+    """Inclusive cumsum over the last dim in the kernel's order: topic k is
+    lane k % 32 of chunk k // 32; each chunk is scanned Hillis–Steele across
+    its lanes (zero-padded past K), and chunk i adds the carry of the chunks
     before it, ``carry_{i+1} = carry_i + s_i[31]`` from ``carry_0 = 0``."""
-    D, K = w.shape
+    lead, K = w.shape[:-1], w.shape[-1]
+    w = w.reshape(-1, K)
+    D = w.shape[0]
     n_chunks = -(-K // LANES)
     s = torch.nn.functional.pad(w, (0, n_chunks * LANES - K)).view(D, n_chunks, LANES)
     off = 1
@@ -219,24 +283,28 @@ def _chunk_cumsum(w: torch.Tensor) -> torch.Tensor:
     for i in range(n_chunks - 1):
         carry.append(carry[-1] + s[:, i, LANES - 1])
     c = torch.stack(carry, dim=1)[:, :, None] + s
-    return c.reshape(D, n_chunks * LANES)[:, :K]
+    return c.reshape(D, n_chunks * LANES)[:, :K].reshape(*lead, K)
 
 
 def _draw_torch(u, f, z_old, labs, n_dk, cv, recip, alpha: float,
                 beta: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernel's draw on every row: ``(n_dk after the update, z_new)``,
     new tensors.  Rows with ``f == 0`` are computed and their draw
-    discarded, which leaves the same bits as the kernel's skip."""
-    D, K = n_dk.shape
-    topic = torch.arange(K, device=n_dk.device)[None, :]
-    fo = torch.where(topic == z_old[:, None], f[:, None], 0.0)
+    discarded, which leaves the same bits as the kernel's skip.  Rows are
+    the last dim but one; the inputs broadcast, so a chain axis in front
+    (``n_dk``, ``cv`` ``(C, n, K)``, ``u``, ``z_old`` ``(C, n)``, ``recip``
+    ``(C, 1, K)``) with shared ``f (n,)`` and ``labs (n, K)`` gives each
+    chain its own rows' bits."""
+    K = n_dk.shape[-1]
+    topic = torch.arange(K, device=n_dk.device)
+    fo = torch.where(topic == z_old[..., None], f[..., None], 0.0)
     n_m = n_dk - fo
     w = ((labs * (n_m + alpha)) * (cv + beta)) * recip
     c = _chunk_cumsum(w)
-    r = u * c[:, K - 1]
-    z_new = (c < r[:, None]).sum(dim=1, dtype=torch.int32).clamp_(max=K - 1)
+    r = u * c[..., K - 1]
+    z_new = (c < r[..., None]).sum(dim=-1, dtype=torch.int32).clamp_(max=K - 1)
     z_new = torch.where(f > 0, z_new, z_old)
-    fn = torch.where(topic == z_new[:, None], f[:, None], 0.0)
+    fn = torch.where(topic == z_new[..., None], f[..., None], 0.0)
     return n_m + fn, z_new
 
 
@@ -259,27 +327,34 @@ def draw_update_torch(u, f, z_old, labs, n_dk, cv, recip, alpha: float,
 def draw_rows_torch(u, f, z, labs, n_dk, table, rows, n_k, live, alpha: float,
                     beta: float, vbeta: float) -> None:
     """Plain PyTorch version of :func:`draw_rows`: the live rows' table rows
-    are gathered, ``recip = 1/(n_k + V·β)``, and :func:`_draw_torch` draws."""
+    are gathered, ``recip = 1/(n_k + V·β)``, and :func:`_draw_torch` draws,
+    every chain at once where the state has a chain axis."""
     if not live.numel():
         return
     idx = live.long()
-    recip = 1.0 / (n_k + vbeta)
-    cv = table.index_select(0, rows)
-    n_new, z_new = _draw_torch(u[idx], f[idx], z[idx], labs[idx], n_dk[idx], cv, recip,
-                               alpha, beta)
-    n_dk.index_copy_(0, idx, n_new)
-    z.index_copy_(0, idx, z_new)
+    ax = n_dk.dim() - 2  # the rows' axis: 1 behind a chain axis
+    recip = (1.0 / (n_k + vbeta)).unsqueeze(-2)
+    cv = table.index_select(ax, rows)
+    n_new, z_new = _draw_torch(u.index_select(ax, idx), f[idx], z.index_select(ax, idx),
+                               labs[idx], n_dk.index_select(ax, idx), cv, recip, alpha, beta)
+    n_dk.index_copy_(ax, idx, n_new)
+    z.index_copy_(ax, idx, z_new)
 
 
 def commit_counts_torch(table, n_k, dec: Optional[Slots], inc: Optional[Slots]) -> None:
     """Plain PyTorch version of :func:`commit_counts`: ``index_add_`` on the
-    flat table and on ``n_k``."""
-    K = table.shape[1]
+    flat table and on the flat ``n_k``, chain c's elements offset by c·V·K
+    and c·K where there is a chain axis."""
+    V, K = table.shape[-2:]
+    chain = torch.arange(table.numel() // (V * K), device=table.device)[:, None]
     for s, sign in ((dec, -1.0), (inc, 1.0)):
         if s is None or not s.live.numel():
             continue
         idx = s.live.long()
-        z = s.z.index_select(0, idx).long()
-        f = sign * s.f.index_select(0, idx)
-        table.view(-1).index_add_(0, s.rows.index_select(0, idx) * K + z, f)
-        n_k.index_add_(0, z, f)
+        z = s.z.index_select(-1, idx).long()
+        if z.dim() == 1:
+            z = z[None]
+        f = (sign * s.f.index_select(0, idx)).expand(z.shape).reshape(-1)
+        words = s.rows.index_select(0, idx)
+        table.view(-1).index_add_(0, (chain * (V * K) + words * K + z).reshape(-1), f)
+        n_k.view(-1).index_add_(0, (chain * K + z).reshape(-1), f)

@@ -245,17 +245,17 @@ def live_rows(tok_v_t: torch.Tensor,
 
 
 def exact_sweep(
-    z_t: torch.Tensor,  # (U, D) int32, position-major, updated in place
-    n_dk: torch.Tensor,  # (D, K), updated in place
-    n_vk: torch.Tensor,  # (V, K), updated in place
-    n_k: torch.Tensor,  # (K,), updated in place
+    z_t: torch.Tensor,  # (U, D) or (L, U, D) int32, position-major, updated in place
+    n_dk: torch.Tensor,  # (D, K) or (L, D, K), updated in place
+    n_vk: torch.Tensor,  # (V, K) or (L, V, K), updated in place
+    n_k: torch.Tensor,  # (K,) or (L, K), updated in place
     tok_v_t: torch.Tensor,  # (U, D) int64
     tok_f_t: torch.Tensor,  # (U, D) float32
     labs: torch.Tensor,  # (D, K) float32
     alpha: float,
     beta: float,
     vbeta: float,
-    uniforms: torch.Tensor,  # (U, D)
+    uniforms: torch.Tensor,  # (U, D) or (L, U, D)
     live: Optional[Sequence[Tuple[torch.Tensor, torch.Tensor]]] = None,  # live_rows
 ) -> torch.Tensor:
     """One exact dense sweep in the position-major layout; updates ``z_t``
@@ -268,16 +268,23 @@ def exact_sweep(
     and updates ``n_dk`` and ``z_t[p]``.  A last commit lands the final
     increments.  On a card each step is one kernel launch
     (:mod:`.draw_update_cuda`), skipped where a position has no live row.
+
+    With a leading chain axis of L on the state and the uniforms, the L
+    chains sweep the same corpus, each against its own table: each step is
+    still one launch, for every chain, and chain c ends as a single-chain
+    sweep of its slices would, bit for bit.
     """
     if live is None:
         live = live_rows(tok_v_t, tok_f_t)
+    chained = n_dk.dim() == 3
     prev = None
     for p in range(tok_v_t.shape[0]):
         rows, words = live[p]
-        cur = Slots(tok_v_t[p], z_t[p], tok_f_t[p], rows)
+        z_p, u_p = (z_t[:, p], uniforms[:, p]) if chained else (z_t[p], uniforms[p])
+        cur = Slots(tok_v_t[p], z_p, tok_f_t[p], rows)
         commit_counts(n_vk, n_k, dec=cur, inc=prev)
-        draw_rows(uniforms[p], tok_f_t[p], z_t[p], labs, n_dk, n_vk, words, n_k, rows,
-                  alpha, beta, vbeta)
+        draw_rows(u_p, tok_f_t[p], z_p, labs, n_dk, n_vk, words, n_k, rows, alpha, beta,
+                  vbeta)
         prev = cur
     if prev is not None:
         commit_counts(n_vk, n_k, dec=None, inc=prev)
@@ -314,6 +321,13 @@ class ExactSweep:
     it: ``2·U + 1`` launches at most, with no host work per position.  The
     replay adds its captured launches to the wrappers' counters.  On the CPU
     every call runs eagerly.
+
+    State with a leading chain axis (``z_t (L, U, D)``, ``n_dk (L, D, K)``,
+    ``n_vk (L, V, K)``, ``n_k (L, K)``) sweeps L chains over the one corpus
+    and live lists: still ``2·U + 1`` launches at most, one graph.  A call
+    then takes one generator per chain, chain c's uniforms ``u[c]`` drawn
+    from generator c in chain order as a single-chain ``ExactSweep`` draws
+    them, or uniforms ``(L, U, D)``.
     """
 
     def __init__(self, z_t, n_dk, n_vk, n_k, tok_v_t, tok_f_t, labs, alpha: float,
@@ -321,8 +335,7 @@ class ExactSweep:
         self.z_t = z_t
         self._args = (z_t, n_dk, n_vk, n_k, tok_v_t, tok_f_t, labs, alpha, beta, vbeta)
         self.live = live_rows(tok_v_t, tok_f_t)
-        self.u = torch.empty(tuple(tok_v_t.shape), dtype=torch.float32,
-                             device=tok_v_t.device)
+        self.u = torch.empty(tuple(z_t.shape), dtype=torch.float32, device=tok_v_t.device)
         self._graphed = n_dk.device.type == "cuda"
         self._graph = None
         self._replay_launches = (0, 0)
@@ -340,13 +353,19 @@ class ExactSweep:
         self._replay_launches = (duc.launches - before[0], duc.commit_launches - before[1])
         duc.launches, duc.commit_launches = before
 
-    def __call__(self, generator: Optional[torch.Generator] = None,
-                 uniforms: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """One sweep; returns ``z_t``."""
-        if uniforms is None:
-            torch.rand(tuple(self.u.shape), generator=generator, out=self.u)
-        else:
+    def __call__(self, generator=None, uniforms: Optional[torch.Tensor] = None
+                 ) -> torch.Tensor:
+        """One sweep; returns ``z_t``.  ``generator``: a ``torch.Generator``,
+        or one per chain where the state has a chain axis."""
+        if uniforms is not None:
             self.u.copy_(uniforms)
+        elif self.z_t.dim() == 3:
+            if len(generator) != self.u.shape[0]:
+                raise ValueError(f"{len(generator)} generators for {self.u.shape[0]} chains")
+            for u, gen in zip(self.u, generator):
+                torch.rand(tuple(u.shape), generator=gen, out=u)
+        else:
+            torch.rand(tuple(self.u.shape), generator=generator, out=self.u)
         if not self._graphed or self.sweeps == 0:
             self._sweep()
         else:

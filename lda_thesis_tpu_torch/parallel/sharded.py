@@ -10,10 +10,12 @@ cell ``(ci, di) = divmod(r, n_data)`` (:class:`.bootstrap.Mesh`) and holds:
 * ``n_vk (L, V, K)`` / ``n_k (L, K)``: each local chain's full replica of
   its topic-word table.
 
-One training step: each local chain runs the port's exact sweep
-(:class:`..ops.gibbs.ExactSweep`, the draw-update kernels, one CUDA graph
-per chain on a card) over the rank's shard against its replica, then the
-shards' table deltas are summed over the data row (``all_reduce``), which
+One training step: the rank's local chains run the port's exact sweep
+together (one :class:`..ops.gibbs.ExactSweep` over a leading chain axis:
+one draw-update and one commit launch per position for all chains, one
+CUDA graph per rank on a card), each chain over the rank's shard against
+its own replica, then the shards' table deltas are summed over the data
+row (``all_reduce``), which
 restores the exact global table (AD-LDA, Newman et al. 2009).  Counts are
 float32 holding integers below 2^24, so the sum is exact in any order and
 on any backend, and every replica of a row stays bitwise identical.
@@ -185,12 +187,14 @@ class ShardedTrainStep:
     """The dense AD-LDA training step: sweep, merge, thinned means.
 
     ``step(state, corpus, save, generators=None, uniforms=None)`` returns the
-    next state (the input is not modified).  Each local chain sweeps through
-    its own :class:`..ops.gibbs.ExactSweep`, built at the first call over
-    work buffers that every call refills, so on a card the sweep is one
-    CUDA graph per chain from the third call on.  ``uniforms`` (one ``(U,
-    D_s)`` per local chain) replace the generators' draws.  ``on_merge``
-    callables see each merged state.
+    next state (the input is not modified).  The L local chains sweep
+    through one :class:`..ops.gibbs.ExactSweep` over ``(L, …)`` work
+    buffers, built at the first call and refilled from ``state`` by every
+    call, so on a card the sweep is one CUDA graph per rank from the third
+    call on, whatever L is.  Chain j draws from ``generators[j]``;
+    ``uniforms`` (one ``(U, D_s)`` per local chain, or ``(L, U, D_s)``)
+    replace the generators' draws.  ``on_merge`` callables see each merged
+    state.
     """
 
     def __init__(self, mesh: Mesh, n_chains: int, alpha: float, beta: float,
@@ -199,45 +203,38 @@ class ShardedTrainStep:
         self.n_chains = int(n_chains)
         self.alpha, self.beta = float(alpha), float(beta)
         self.topic_mask = topic_mask
-        self._runners = None
+        self._sweep = None
         self.on_merge = []
 
     def _bind(self, state: ShardedLDAState, corpus: ShardedCorpus) -> None:
         tv_t = corpus.tok_v.T.contiguous()
         tf_t = corpus.tok_f.T.to(torch.float32).contiguous()
-        labs = corpus.labs.contiguous()
         vbeta = float(state.n_vk.shape[1] * self.beta)
-        self._runners, self._work = [], []
-        for j in range(state.z.shape[0]):
-            work = (state.z[j].T.clone(memory_format=torch.contiguous_format),
-                    state.n_dk[j].clone(), state.n_vk[j].clone(), state.n_k[j].clone())
-            self._work.append(work)
-            self._runners.append(ExactSweep(*work, tv_t, tf_t, labs, self.alpha, self.beta,
-                                            vbeta))
+        self._work = (state.z.transpose(1, 2).contiguous(), state.n_dk.clone(),
+                      state.n_vk.clone(), state.n_k.clone())
+        self._sweep = ExactSweep(*self._work, tv_t, tf_t, corpus.labs.contiguous(),
+                                 self.alpha, self.beta, vbeta)
 
     def __call__(self, state: ShardedLDAState, corpus: ShardedCorpus, save: bool,
                  generators: Optional[Sequence[torch.Generator]] = None,
-                 uniforms: Optional[Sequence[torch.Tensor]] = None) -> ShardedLDAState:
-        if self._runners is None:
+                 uniforms=None) -> ShardedLDAState:
+        if self._sweep is None:
             self._bind(state, corpus)
-        zs, ndks, d_vk, d_k = [], [], [], []
-        for j, (run, (z_t, n_dk, n_vk, n_k)) in enumerate(zip(self._runners, self._work)):
-            z_t.copy_(state.z[j].T)
-            n_dk.copy_(state.n_dk[j])
-            n_vk.copy_(state.n_vk[j])
-            n_k.copy_(state.n_k[j])
-            if uniforms is None:
-                run(generator=generators[j])
-            else:
-                run(uniforms=uniforms[j])
-            zs.append(z_t.T.contiguous())
-            ndks.append(n_dk.clone())
-            d_vk.append(n_vk - state.n_vk[j])
-            d_k.append(n_k - state.n_k[j])
+        z_t, n_dk, n_vk, n_k = self._work
+        # refill the work buffers: the graph reads and writes only these
+        z_t.copy_(state.z.transpose(1, 2))
+        n_dk.copy_(state.n_dk)
+        n_vk.copy_(state.n_vk)
+        n_k.copy_(state.n_k)
+        if uniforms is None:
+            self._sweep(generator=generators)
+        else:
+            self._sweep(uniforms=torch.stack(list(uniforms)))
         # AD-LDA merge: every shard's deltas onto the chain's global table
-        n_vk = state.n_vk + self.mesh.data_sum_(torch.stack(d_vk))
-        n_k = state.n_k + self.mesh.data_sum_(torch.stack(d_k))
-        nxt = state._replace(z=torch.stack(zs), n_dk=torch.stack(ndks), n_vk=n_vk, n_k=n_k)
+        n_vk = state.n_vk + self.mesh.data_sum_(n_vk - state.n_vk)
+        n_k = state.n_k + self.mesh.data_sum_(n_k - state.n_k)
+        nxt = state._replace(z=z_t.transpose(1, 2).contiguous(), n_dk=n_dk.clone(),
+                             n_vk=n_vk, n_k=n_k)
         for fn in self.on_merge:
             fn(nxt)
         if not save:

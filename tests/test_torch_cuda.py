@@ -434,6 +434,60 @@ def test_batched_chains_equal_single_chain_launches():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("C,D,K", [(3, 37, 40), (8, 300, 512), (3, 50, 1100), (1, 64, 24)],
+                         ids=lambda x: str(x))
+def test_batched_draw_and_commit_kernels_equal_plain_and_single_chain(C, D, K):
+    """One sweep position over a chain axis: the commit and draw kernels,
+    one launch each for all C chains, equal their plain versions on the
+    same inputs and one single-chain launch per chain, bitwise (a ragged
+    live list with an f = 0 row; K = 1,100 takes the two-pass draw)."""
+    _needs_card()
+    t = chip_smoke.chain_step_inputs("cuda", C + D + K, C, D, K, 60)
+    chip_smoke.chain_step_check(t, ALPHA, BETA, 0.6, f"C={C}, D={D}, K={K}")
+
+
+@pytest.mark.cuda
+def test_batched_exact_sweep_replays_equal_single_chain_replays():
+    """Three chains in one ExactSweep against three single-chain
+    ExactSweeps from the same generators, four sweeps (eager, capture, two
+    replays): z and every count bitwise; each batched sweep counts one
+    sweep's launches, not three."""
+    _needs_card()
+    rng = np.random.default_rng(4)
+    D, U, V, K, L = 300, 16, 80, 128, 3
+    tok_v = torch.from_numpy(rng.integers(0, V, size=(D, U))).cuda()
+    tok_f = torch.from_numpy(rng.integers(0, 4, size=(D, U))).cuda()
+    tok_f[:, -1] = 0
+    labs = torch.from_numpy((rng.random((D, K)) < 0.1).astype(np.float32)).cuda()
+    labs[:, 0] = 1.0
+    states = []
+    for c in range(L):
+        s = tgibbs.init_counts(tok_v, tok_f, labs, V,
+                               generator=torch.Generator("cuda").manual_seed(c))
+        states.append((s.z.T.contiguous(), s.n_dk, s.n_vk, s.n_k))
+    batched = [torch.stack([st[i] for st in states]) for i in range(4)]
+    singles = [[x.clone() for x in st] for st in states]
+    args = (tok_v.T.contiguous(), tok_f.T.to(torch.float32).contiguous(), labs, ALPHA, BETA,
+            V * BETA)
+    run = tgibbs.ExactSweep(*batched, *args)
+    runs = [tgibbs.ExactSweep(*st, *args) for st in singles]
+    plan = chip_smoke.planned_sweep_launches(args[1])
+    g_b = [torch.Generator("cuda").manual_seed(10 + c) for c in range(L)]
+    g_s = [torch.Generator("cuda").manual_seed(10 + c) for c in range(L)]
+    for _ in range(4):
+        d0, c0 = duc.launches, duc.commit_launches
+        run(g_b)
+        assert (duc.launches - d0, duc.commit_launches - c0) == plan
+        for r, g in zip(runs, g_s):
+            r(g)
+    torch.cuda.synchronize()
+    assert run._graph is not None and all(r._graph is not None for r in runs)
+    for c in range(L):
+        assert all(_same_bits(b[c], s) for b, s in zip(batched, singles[c])), c
+    assert torch.equal(batched[3], batched[2].sum(dim=1))
+
+
+@pytest.mark.cuda
 def test_hslda_batched_sweep_equals_single_chain_sweeps():
     """Three HSLDA chains in one z-sweep (their documents side by side, one
     CUDA graph) against three single-chain sweeps with the same generators,
