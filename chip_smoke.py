@@ -152,7 +152,21 @@ made from ``--seed``.  Phases:
     saves' estimates (``loglik_case``); a ``run_test`` after more training
     against an eager fold-in with the new φ̂; each graph's node count and
     the device ms per sweep of eager sweeps, graphed calls and replays;
-16. one JSON line of kernel records, the card's line, and the result line.
+16. the training loops as replayed CUDA graphs, at full width: three
+    merge blocks of ``FusedBlocks`` on each route of kernel 1 (staged, warp
+    and general, at ``edge_cases`` shapes) against eager blocks; then
+    ``run_training`` calls of the Labeled-LDA fused path (50; 25) with
+    perplexity off and on, of LocalLDA at K = 20 and K = 50 (20; 10), of
+    one rank of 8 chains with 4 buckets (50; 25) and of the compact path
+    (10; 5), each held to its eager loop of functional calls
+    (``eager_training``, ``eager_chains_training``: ``fused_train_block_buckets``
+    or ``compact_sweep`` in a loop, from the same state and generator
+    state), bitwise in z, n_dk, n_vk, n_k, φ̂, θ̂, perplexities and the
+    generators; kernel-1 launches per call equal to blocks × buckets; each
+    block's (or compact sweep's) graph nodes, device ms per block eager,
+    per runner call and per replay, tokens/s and the device's idle share of
+    a profiled call, and peak device memory;
+17. one JSON line of kernel records, the card's line, and the result line.
 
 Every check raises; the script exits non-zero without a CUDA device.
 """
@@ -3591,6 +3605,554 @@ def compiled_loops_phase(seed: int, corpus, dicti, cascade_model, jel) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------- training graphs
+
+TG_CALLS = 2  # run_training calls of each setting held to the eager loop
+TG_LOCAL = (20, 10)  # LocalLDA (iters; thinning) of the phase, M = 1: 20 blocks a call
+TG_CHAINS = 8  # a rank's chains, with 4 buckets
+TG_TIMED = 5  # merge blocks or sweeps timed back to back
+TG_ROUTES = ("interior gaps", "A=56", f"A={32 * 8 + 8}")  # edge_cases of each route
+ALPHA_TG, BETA_TG = 0.1, 0.01
+
+
+def _copy_generator(gen):
+    import torch
+
+    twin = torch.Generator(device=gen.device)
+    twin.set_state(gen.get_state())
+    return twin
+
+
+def _state_copy(state):
+    """A copy of a state tuple whose fields are tensors or tuples of them."""
+    return type(state)(*(tuple(t.clone() for t in part) if isinstance(part, tuple)
+                         else part.clone() for part in state))
+
+
+def _flat(state) -> list:
+    return [*state.z, *state.n_dk, state.n_vk, state.n_k]
+
+
+def eager_training(model, iters: int, thinning: int, total_iters=None,
+                   perplexity: bool = False) -> dict:
+    """``run_training`` of a ``LabeledLDA`` (fused or compact) or a
+    ``LocalLDA`` (fused) from its current state, without ``continue_avg``,
+    as eager calls of the functional sweeps: each merge block one
+    ``fused_train_block_buckets``, each compact sweep one ``compact_sweep``,
+    drawing from a copy of the model's generator; the saves and the
+    perplexity sums as ``run_training`` makes them.  The reference of the
+    replayed training loops; the model is left as it was.  Returns the state,
+    the thinned means ``ph (V, Kp)`` and ``th`` (per bucket), the positive
+    perplexities and the generator's state after."""
+    import torch
+
+    from lda_thesis_tpu_torch.models.state import phi_from_counts, running_average
+    from lda_thesis_tpu_torch.ops.gibbs import compact_sweep, log_likelihood, theta_from_compact
+    from lda_thesis_tpu_torch.ops.gibbs_fused import (
+        fused_train_block_buckets,
+        select_merge_block,
+        theta_from_fused,
+    )
+
+    alpha, beta = (model.alpha, model.beta) if hasattr(model, "alpha") else (model.a, model.b)
+    gen = _copy_generator(model._gen)
+    st = _state_copy(model.counts)
+    G, dev = model.buckets.n_buckets, model.device
+    z_t = None
+    if model.sweep == "fused":
+        merge = select_merge_block(model.merge_every, thinning, total_iters or iters)
+        theta = theta_from_fused
+
+        def block(st, m):
+            return fused_train_block_buckets(st, model._toks_v_t, model._toks_f_t,
+                                             model.lab_ids_t, model._lab_valid_tt, alpha, beta,
+                                             m, generator=gen)
+    else:
+        _check(model.sweep == "compact", f"eager_training runs no {model.sweep!r} sweep")
+        merge, theta = 1, theta_from_compact
+        z_t = [z.T.clone(memory_format=torch.contiguous_format) for z in st.z]
+        vbeta = float(model.V * beta)
+
+        def block(st, m):
+            for _ in range(m):
+                for g in range(G):
+                    tv, tf = model._toks_v_t[g], model._toks_f_t[g]
+                    u = torch.rand(tuple(tv.shape), generator=gen, device=dev)
+                    z_t[g] = compact_sweep(z_t[g], st.n_dk[g], st.n_vk, st.n_k, tv, tf,
+                                           model.lab_ids_t[g], model.lab_valid_t[g], alpha,
+                                           beta, vbeta, u)
+            return st
+    ph = torch.zeros((model.V, model.Kp), dtype=torch.float32, device=dev)
+    th = [torch.zeros((len(ix), model.Kp), dtype=torch.float32, device=dev)
+          for ix in model.buckets.doc_idx]
+    perps = []
+    n_save = iters // thinning
+    for s in range(1, n_save + 1):
+        for _ in range(thinning // merge):
+            st = block(st, merge)
+        cur_ph = phi_from_counts(st.n_vk, st.n_k, beta, model.topic_mask)
+        cur_th = [theta(st.n_dk[g], model.lab_ids_t[g], model.lab_valid_t[g], alpha, model.Kp)
+                  for g in range(G)]
+        ph = running_average(ph, cur_ph, s)
+        th = [running_average(t, c, s) for t, c in zip(th, cur_th)]
+        if perplexity:
+            ll = torch.zeros((), dtype=torch.float32, device=dev)
+            n = torch.zeros((), dtype=torch.float32, device=dev)
+            for g in range(G):
+                llg, ng = log_likelihood(cur_th[g], cur_ph, model.toks_v[g], model.toks_f[g])
+                ll, n = ll + llg, n + ng.to(torch.float32)
+            perps.append(float(torch.exp(-ll / torch.clamp(n, min=1.0))))
+    left = iters - n_save * thinning
+    while left > 0:
+        st = block(st, min(merge, left))
+        left -= min(merge, left)
+    if z_t is not None:
+        st = st._replace(z=tuple(z.T.contiguous() for z in z_t))
+    return dict(state=st, ph=ph, th=th, perplexities=[p for p in perps if p > 0],
+                generator=gen.get_state())
+
+
+def training_equal(model, want: dict, perps_before: int = 0) -> bool:
+    """Whether ``model`` after a ``run_training`` call holds ``want``
+    (``eager_training`` from the state before it) bit for bit: z, n_dk,
+    n_vk, n_k, φ̂, θ̂, the call's perplexities and the generator's state."""
+    import torch
+
+    same = (_bitwise(_flat(model.counts), _flat(want["state"]))
+            and torch.equal(model._gen.get_state(), want["generator"]))
+    if hasattr(model, "_th_hat_t"):  # LabeledLDA: the means on the device
+        return (same and _bitwise([model.ph_hat, *model._th_hat_t], [want["ph"], *want["th"]])
+                and model.cur_perplx[perps_before:] == want["perplexities"])
+    ph = want["ph"][:, : model.K].T.cpu().numpy()
+    th = model.buckets.scatter_rows([t.cpu().numpy() for t in want["th"]])[:, : model.K]
+    return (same and model.ph_hat.dtype == ph.dtype and np.array_equal(model.ph_hat, ph)
+            and np.array_equal(model.th_hat, th))
+
+
+def eager_chains_training(model, iters: int, thinning: int, total_iters=None) -> dict:
+    """``DistributedLabeledLDA.run_training`` of one rank in the replicated
+    bucketed layout as eager calls of ``fused_train_block_buckets`` over the
+    chain axis (no data row to merge over), from copies of its state and
+    generators, the saves as the trainer's loop makes them.  The model is
+    left as it was; returns the state fields and the generators' states."""
+    from lda_thesis_tpu_torch.models.state import running_average
+    from lda_thesis_tpu_torch.ops.gibbs_fused import (
+        FusedBucketState,
+        fused_train_block_buckets,
+        select_merge_block,
+    )
+    from lda_thesis_tpu_torch.parallel._util import dispatch_chunks
+    from lda_thesis_tpu_torch.parallel.fused_sharded import theta_chains, train_blocks
+    from lda_thesis_tpu_torch.parallel.sharded import phi_chains
+
+    _check(model.mesh.shape["data"] == 1 and model.n_buckets > 1,
+           "eager_chains_training: one data shard, buckets")
+    s, corpora = model.state, model.corpus
+    gens = [_copy_generator(g) for g in model._gens]
+    M = select_merge_block(model.merge_every, thinning, total_iters or iters)
+    V, K = s.n_vk.shape[1:]
+    vbeta = float(V) * float(model.beta)
+    inputs = ([c.tok_v_t for c in corpora], [c.tok_f_t for c in corpora],
+              [c.lab_ids for c in corpora], [c.lab_valid_t for c in corpora])
+    box = [_state_copy(FusedBucketState(s.z, s.n_dk, s.n_vk, s.n_k)),
+           s.ph_hat.clone(), tuple(t.clone() for t in s.th_hat), s.s]
+
+    def block(m):
+        box[0] = fused_train_block_buckets(box[0], *inputs, model.alpha, model.beta, m,
+                                           generator=gens, vbeta=vbeta)
+
+    def save():
+        st, n = box[0], box[3] + 1
+        cur_ph = phi_chains(st.n_vk, st.n_k, model.beta, vbeta, model.topic_mask)
+        box[2] = tuple(running_average(t, theta_chains(nd, c, model.alpha, K), n)
+                       for t, nd, c in zip(box[2], st.n_dk, corpora))
+        box[1], box[3] = running_average(box[1], cur_ph, n), n
+
+    for step in dispatch_chunks(int(iters), int(thinning)):
+        train_blocks(block, save, step, int(thinning), M)
+    st = box[0]
+    return dict(tensors=[*st.z, *st.n_dk, st.n_vk, st.n_k, box[1], *box[2]], s=box[3],
+                generators=[g.get_state() for g in gens])
+
+
+def chains_equal(model, want: dict) -> bool:
+    import torch
+
+    s = model.state
+    return (_bitwise([*s.z, *s.n_dk, s.n_vk, s.n_k, s.ph_hat, *s.th_hat], want["tensors"])
+            and s.s == want["s"]
+            and all(torch.equal(g.get_state(), w)
+                    for g, w in zip(model._gens, want["generators"], strict=True)))
+
+
+def fused_problem(device, seed: int, D: int, U: int, A: int, n_buckets: int = 2):
+    """A merge-block problem of ``n_buckets`` buckets of ``D`` documents
+    (``U`` type positions, a share of them f = 0) and ``A`` label slots
+    over ``A + 8`` topics, every slot valid; the state drawn from ``seed``.
+    Returns ``(state, toks_v_t, toks_f_t, lab_ids_t, lab_valid_tt)``."""
+    import torch
+
+    from lda_thesis_tpu_torch.ops.gibbs_fused import init_fused_buckets
+
+    rng = np.random.default_rng(seed)
+    K, V = A + 8, 3 * U + 40
+    parts = []
+    for g in range(n_buckets):
+        tok_v = rng.integers(0, V, size=(D, U))
+        tok_f = rng.integers(1, 4, size=(D, U)) * (rng.random((D, U)) > 0.3)
+        lab_ids = np.sort(np.stack([rng.choice(K, A, replace=False) for _ in range(D)]), axis=1)
+        parts.append([torch.from_numpy(np.ascontiguousarray(x)).to(device)
+                      for x in (tok_v, tok_f, lab_ids, np.ones((D, A), np.float32))])
+    tv, tf, li, lv = (list(x) for x in zip(*parts))
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    state = init_fused_buckets(tv, tf, li, lv, V, K, generator=gen)
+    return (state, [t.T.contiguous() for t in tv], [t.T.to(torch.float32).contiguous()
+                                                    for t in tf],
+            li, [t.T.contiguous() for t in lv])
+
+
+def replayed_blocks_case(device, seed: int, name: str, calls: int = 3, chains: int = 0,
+                         M: int = 2) -> dict:
+    """``calls`` merge blocks of ``FusedBlocks`` (on a card: eager, capture
+    and replay, replays) over a problem at the ``(D, U, A)`` of
+    ``edge_cases()[name]`` against as many chained eager
+    ``fused_train_block_buckets`` calls from one seed, bitwise after each;
+    with ``chains``, that many chains, one generator each.  Returns the
+    runner, the route of its launches (by the counters) and the launches
+    the calls counted."""
+    import torch
+
+    from lda_thesis_tpu_torch.ops import fused_block_cuda as fbc
+    from lda_thesis_tpu_torch.ops.gibbs_fused import FusedBlocks, fused_train_block_buckets
+
+    D, U, A = edge_cases()[name][:3]
+    state, *inputs = fused_problem(device, seed, D, U, A)
+    if chains:
+        state = type(state)(*(tuple(t.expand(chains, *t.shape).clone() for t in part)
+                              if isinstance(part, tuple)
+                              else part.expand(chains, *part.shape).clone()
+                              for part in state))
+
+    def generators():
+        gens = [torch.Generator(device=device) for _ in range(max(chains, 1))]
+        for j, g in enumerate(gens):
+            g.manual_seed(seed + 100 + j)
+        return gens if chains else gens[0]
+
+    run = FusedBlocks(state, *inputs, ALPHA_TG, BETA_TG)
+    gen, twin = generators(), generators()
+    before = _route_counts(fbc)
+    for i in range(calls):
+        got = run(M, generator=gen)
+        counted = _route_counts(fbc)
+        state = fused_train_block_buckets(state, *inputs, ALPHA_TG, BETA_TG, M, generator=twin)
+        fbc.launches, fbc.warp_launches, fbc.general_launches = counted  # eager: not counted
+        _check(got is run.state and _bitwise(_flat(got), _flat(state)),
+               f"replayed merge block {name}, chains {chains}, call {i + 1}: FusedBlocks == "
+               f"fused_train_block_buckets, bitwise")
+    n, w, g = (a - b for a, b in zip(_route_counts(fbc), before))
+    route = "warp" if w else "general" if g else "staged"
+    return dict(run=run, route=route, launches=(n, w, g), shape=(D, U, A))
+
+
+
+def _tg_call(model, train, eager, what: str, launches: int) -> dict:
+    """One ``run_training`` call (``train``) held to its eager loop
+    (``eager``, run first from the same state): bitwise, with ``launches``
+    kernel-1 launches counted in the call; the seconds of both (host clock,
+    synchronized) and the call's launches by route (all, warp, general)."""
+    from lda_thesis_tpu_torch.ops import fused_block_cuda as fbc
+
+    perps = len(getattr(model, "cur_perplx", ()))
+    _sync()
+    t0 = time.perf_counter()
+    want = eager()
+    _sync()
+    eager_s = time.perf_counter() - t0
+    before = _route_counts(fbc)
+    t0 = time.perf_counter()
+    train()
+    _sync()
+    train_s = time.perf_counter() - t0
+    counted = [a - b for a, b in zip(_route_counts(fbc), before)]
+    _check(counted[0] == launches, f"{what}: kernel-1 launches {counted[0]} == {launches}")
+    same = (chains_equal(model, want) if hasattr(model, "mesh")
+            else training_equal(model, want, perps))
+    _check(same, f"{what}: the replayed run == the eager loop, bitwise (z, n_dk, n_vk, n_k, "
+                 f"φ̂, θ̂, perplexities, generator)")
+    return dict(train_s=train_s, eager_s=eager_s, launches=counted)
+
+
+def _host_ms(fn, reps: int) -> float:
+    """Host-clock ms per call of ``fn`` over ``reps`` calls made back to
+    back, each returning before the device finishes: the host's time to
+    enqueue one call, where the device keeps up."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e3 * host / reps
+
+
+def _tg_block_timing(run, eager_block, M: int, gen) -> dict:
+    """Device ms per merge block from CUDA events around ``TG_TIMED`` blocks
+    made back to back: eager ``fused_train_block_buckets`` calls, runner
+    calls (uniforms drawn, then the replay) and replays alone; the host's
+    ms to enqueue an eager block and a runner call (``_host_ms``); and the
+    nodes of the block's graph.  The kernel counters are left as they
+    were."""
+    from lda_thesis_tpu_torch.ops import fused_block_cuda as fbc
+
+    _check(M in run._graphs, f"the merge block of M = {M} replays a captured graph")
+    counts = _route_counts(fbc)
+    out = dict(graph_nodes=_captured_nodes(lambda: run._body(run._u[M])),
+               eager_ms=_batch_ms(eager_block, TG_TIMED),
+               call_ms=_batch_ms(lambda: run(M, generator=gen), TG_TIMED),
+               replay_ms=_batch_ms(run._graphs[M][0].replay, TG_TIMED),
+               eager_host_ms=_host_ms(eager_block, TG_TIMED),
+               call_host_ms=_host_ms(lambda: run(M, generator=gen), TG_TIMED))
+    fbc.launches, fbc.warp_launches, fbc.general_launches = counts
+    buckets = len(run._inputs[0])
+    _check(out["graph_nodes"] >= buckets,
+           f"a merge block's graph holds {out['graph_nodes']} nodes, at least its {buckets} "
+           f"kernel-1 launches")
+    return out
+
+
+def _tg_profile(train, tokens: int) -> dict:
+    """One training call under torch.profiler: wall, busy, idle share and
+    tokens/s (``tokens`` resampled by the call)."""
+    prof = _profile(train)
+    return dict(wall_ms=prof["wall_ms"], busy_ms=prof["busy_ms"],
+                idle_share=prof["idle_share"], tokens_per_s=tokens / (prof["wall_ms"] / 1e3))
+
+
+def _tg_print(name: str, r: dict) -> None:
+    t = r["block"]
+    print(f"training graphs, {name}: {len(r['calls'])} calls replayed == eager loop, bitwise; "
+          f"{t['graph_nodes']} graph nodes a block; device ms per block eager "
+          f"{t['eager_ms']:.4f}, runner call {t['call_ms']:.4f} (replay alone "
+          f"{t['replay_ms']:.4f}); host ms to enqueue a block eager {t['eager_host_ms']:.4f}, "
+          f"a runner call {t['call_host_ms']:.4f}; peak {r['peak_gb']:.2f} GB")
+    if "save_ms" in r:
+        print(f"  a save's estimates (phi, theta of every bucket): device ms {r['save_ms']:.4f}, "
+              f"host ms to enqueue {r['save_host_ms']:.4f}")
+    for key, p in r.items():
+        if key.startswith("profile"):
+            print(f"  {key}: {p['tokens_per_s']:.4g} tokens/s, wall {p['wall_ms']:.3f} ms, "
+                  f"busy {p['busy_ms']:.3f} ms, idle share {p['idle_share']:.4f}")
+
+
+def compact_sweeps_case(model, seed: int) -> list:
+    """Per bucket of ``model`` (a compact ``LabeledLDA``): 3 ``CompactSweep``
+    calls (eager, capture and replay, replay) over a copy of its state
+    against 3 ``compact_sweep`` calls from one seed, bitwise after each; then
+    the sweep graph's nodes and device ms per sweep, eager, runner call and
+    replay alone (CUDA events around ``TG_TIMED`` sweeps)."""
+    import torch
+
+    from lda_thesis_tpu_torch.ops.gibbs import CompactSweep, compact_sweep
+
+    out = []
+    for g in range(model.buckets.n_buckets):
+        st = model.counts
+        z_t = st.z[g].T.clone(memory_format=torch.contiguous_format)
+        args = (model._toks_v_t[g], model._toks_f_t[g], model.lab_ids_t[g],
+                model.lab_valid_t[g], model.alpha, model.beta, float(model.V * model.beta))
+        mine = [st.n_dk[g].clone(), st.n_vk.clone(), st.n_k.clone()]
+        ref = [x.clone() for x in mine]
+        run = CompactSweep(z_t.clone(), *mine, *args)
+        gens = [torch.Generator(device=DEVICE) for _ in range(2)]
+        for gen in gens:
+            gen.manual_seed(seed + g)
+        for i in range(3):
+            run(gens[0])
+            u = torch.rand(tuple(z_t.shape), generator=gens[1], device=DEVICE)
+            z_t = compact_sweep(z_t, *ref, *args, u)
+            _check(_bitwise([run.z_t, *mine], [z_t, *ref]),
+                   f"compact sweep, bucket {g}, call {i + 1}: CompactSweep == compact_sweep, "
+                   f"bitwise")
+        _check(run._graph is not None, f"compact sweep, bucket {g}: the sweep replays a graph")
+        U = int(z_t.shape[0])
+        box = [z_t]
+
+        def eager():  # chained, so z and the counts stay consistent
+            box[0] = compact_sweep(box[0], *ref, *args, u)
+
+        out.append(dict(
+            shape=tuple(z_t.shape), graph_nodes=_captured_nodes(run._sweep),
+            eager_ms=_batch_ms(eager, TG_TIMED),
+            call_ms=_batch_ms(lambda: run(gens[0]), TG_TIMED),
+            replay_ms=_batch_ms(run._graph.replay, TG_TIMED), positions=U))
+    return out
+
+
+def training_graphs_phase(seed: int, corpus, dicti, card: str) -> dict:
+    """The training loops as replayed CUDA graphs (phase 16), each at full
+    width against its eager loop of functional calls, bit for bit: a
+    replayed block on each of kernel 1's routes (``replayed_blocks_case``
+    at ``TG_ROUTES``' edge shapes); ``LabeledLDA`` fused (50; 25) with
+    perplexity off and on; ``LocalLDA`` at K = 20 (staged route) and K = 50
+    (warp route), (20; 10); one rank of ``TG_CHAINS`` chains with 4 buckets;
+    ``LabeledLDA`` compact (10; 5).  For each: the block's (or sweep's)
+    graph nodes, device ms per block eager and replayed, tokens/s and the
+    device's idle share of a profiled call, and peak device memory."""
+    import torch
+
+    from lda_thesis_tpu_torch.data.synthetic import planted_corpus
+    from lda_thesis_tpu_torch.models.labeled_lda import LabeledLDA
+    from lda_thesis_tpu_torch.models.local_lda import LocalLDA
+    from lda_thesis_tpu_torch.ops import fused_block_cuda as fbc
+    from lda_thesis_tpu_torch.ops.gibbs_fused import fused_train_block_buckets
+    from lda_thesis_tpu_torch.parallel import make_mesh
+
+    rec = {"card": card, "routes": {}}
+    want_route = dict(zip(TG_ROUTES, ("staged", "warp", "general")))
+    for name in TG_ROUTES:
+        r = replayed_blocks_case(DEVICE, seed, name)
+        _check(r["route"] == want_route[name] and r["launches"][0] == 3 * 2
+               and r["run"]._graphs,
+               f"replayed blocks {name}: 6 launches on the {want_route[name]} route "
+               f"({r['route']}, {r['launches']})")
+        rec["routes"][name] = dict(route=r["route"], launches=r["launches"], shape=r["shape"])
+    print(f"training graphs: 3 replayed merge blocks == eager on each route of kernel 1: "
+          f"{json.dumps(rec['routes'])}")
+
+    def gen_of(chains=0):
+        gens = [torch.Generator(device=DEVICE) for _ in range(max(chains, 1))]
+        for j, g in enumerate(gens):
+            g.manual_seed(seed + 7 + j)
+        return gens if chains else gens[0]
+
+    # Labeled LDA, fused (50; 25), perplexity off and on
+    torch.cuda.reset_peak_memory_stats()
+    model = LabeledLDA(corpus.train_docs, corpus.train_labs, corpus.labelset, dicti,
+                       alpha=0.1, beta=0.01, seed=seed, n_buckets=4, device=DEVICE)
+    G, blocks = model.buckets.n_buckets, TRAIN_ITERS // 25
+    calls = [_tg_call(model,
+                      lambda p=p: model.run_training(TRAIN_ITERS, THINNING, perplexity=p,
+                                                     total_iters=TOTAL_ITERS),
+                      lambda p=p: eager_training(model, TRAIN_ITERS, THINNING, TOTAL_ITERS, p),
+                      f"Labeled-LDA fused (50; 25), perplexity {p}, call {n + 1}", blocks * G)
+             for p in (False, True) for n in range(TG_CALLS)]
+    run, M, st = model._fused, model._merge_M, _state_copy(model.counts)
+    eager_gen = gen_of()
+    r = dict(calls=calls, block=_tg_block_timing(
+        run, lambda: fused_train_block_buckets(st, model._toks_v_t, model._toks_f_t,
+                                               model.lab_ids_t, model._lab_valid_tt,
+                                               model.alpha, model.beta, M,
+                                               generator=eager_gen), M, gen_of()))
+    r["save_ms"] = _batch_ms(model._cur_estimates, TG_TIMED)
+    r["save_host_ms"] = _host_ms(model._cur_estimates, TG_TIMED)
+    tokens = model.n_tokens * TRAIN_ITERS
+    for p in (False, True):
+        r[f"profile_perplexity_{'on' if p else 'off'}"] = _tg_profile(
+            lambda p=p: model.run_training(TRAIN_ITERS, THINNING, perplexity=p,
+                                           total_iters=TOTAL_ITERS), tokens)
+    r["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    r["graphs"] = sorted(run._graphs)
+    _check_counts(model.counts, float(model.n_tokens), "training graphs, Labeled-LDA fused")
+    _tg_print("Labeled-LDA fused (50; 25)", r)
+    rec["labeled_fused"] = r
+    del model, run, st
+    torch.cuda.empty_cache()
+
+    # LocalLDA at K = 20 (staged route) and K = 50 (warp route), (20; 10), M = 1
+    local = planted_corpus(seed, V=LOCAL_V)
+    texts = [" ".join(csv_word(int(w[1:])) for w in d)
+             for d in local.train_docs + local.test_docs]
+    iters, thinning = TG_LOCAL
+    for K in (20, 50):
+        torch.cuda.reset_peak_memory_stats()
+        m = LocalLDA(texts, alpha=0.1, beta=0.01, K=K, seed=seed, device=DEVICE)
+        calls = [_tg_call(m, lambda: m.run_training(iters, thinning),
+                          lambda: eager_training(m, iters, thinning),
+                          f"LocalLDA K = {K} ({iters}; {thinning}), call {n + 1}",
+                          iters * m.buckets.n_buckets)
+                 for n in range(TG_CALLS)]
+        warp = sum(c["launches"][1] for c in calls)
+        _check(warp == (TG_CALLS * iters if K > 32 else 0),
+               f"LocalLDA K = {K}: {warp} warp-route launches")
+        run, st = m._fused, _state_copy(m.counts)
+        eager_gen = gen_of()
+        r = dict(calls=calls, warp_launches=warp, block=_tg_block_timing(
+            run, lambda: fused_train_block_buckets(st, m._toks_v_t, m._toks_f_t, m.lab_ids_t,
+                                                   m._lab_valid_tt, m.a, m.b, 1,
+                                                   generator=eager_gen), 1, gen_of()))
+        r["profile"] = _tg_profile(lambda: m.run_training(iters, thinning),
+                                   m.n_tokens * iters)
+        r["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        _check_counts(m.counts, float(m.n_tokens), f"training graphs, LocalLDA K = {K}")
+        _tg_print(f"LocalLDA K = {K} (D={m.D}, A={m.A}, M = 1, ({iters}; {thinning}))", r)
+        rec[f"local_k{K}"] = r
+        del m, run, st
+        torch.cuda.empty_cache()
+
+    # one rank of TG_CHAINS chains, 4 buckets, (50; 25)
+    torch.cuda.reset_peak_memory_stats()
+    cm = _md_model(corpus, dicti, seed, make_mesh(device=DEVICE), TG_CHAINS, n_buckets=4)
+    calls = [_tg_call(cm, lambda: cm.run_training(TRAIN_ITERS, THINNING,
+                                                  total_iters=TOTAL_ITERS),
+                      lambda: eager_chains_training(cm, TRAIN_ITERS, THINNING, TOTAL_ITERS),
+                      f"{TG_CHAINS} chains, 4 buckets, (50; 25), call {n + 1}",
+                      blocks * cm.n_buckets)
+             for n in range(TG_CALLS)]
+    run, s, M = cm._loop.blocks.run, cm.state, cm._merge_M
+    st = _state_copy(type(run.state)(s.z, s.n_dk, s.n_vk, s.n_k))
+    eager_gens = gen_of(TG_CHAINS)
+    vbeta = float(cm.V * cm.beta)
+    r = dict(calls=calls, block=_tg_block_timing(
+        run, lambda: fused_train_block_buckets(st, *run._inputs, cm.alpha, cm.beta, M,
+                                               generator=eager_gens, vbeta=vbeta),
+        M, gen_of(TG_CHAINS)))
+    r["profile"] = _tg_profile(
+        lambda: cm.run_training(TRAIN_ITERS, THINNING, total_iters=TOTAL_ITERS),
+        TG_CHAINS * cm.n_tokens * TRAIN_ITERS)
+    r["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    _tg_print(f"{TG_CHAINS} chains, 4 buckets, (50; 25)", r)
+    rec[f"chains_{TG_CHAINS}"] = r
+    del cm, run, st
+    torch.cuda.empty_cache()
+
+    # Labeled LDA, compact (10; 5)
+    torch.cuda.reset_peak_memory_stats()
+    model = LabeledLDA(corpus.train_docs, corpus.train_labs, corpus.labelset, dicti,
+                       alpha=0.1, beta=0.01, seed=seed, sweep="compact", device=DEVICE)
+    calls = [_tg_call(model, lambda: model.run_training(COMPACT_ITERS, COMPACT_THINNING),
+                      lambda: eager_training(model, COMPACT_ITERS, COMPACT_THINNING,
+                                             perplexity=True),
+                      f"Labeled-LDA compact ({COMPACT_ITERS}; {COMPACT_THINNING}), call "
+                      f"{n + 1}", 0)
+             for n in range(TG_CALLS)]
+    sweeps = compact_sweeps_case(model, seed)
+    prof = _tg_profile(lambda: model.run_training(COMPACT_ITERS, COMPACT_THINNING,
+                                                  perplexity=False),
+                       model.n_tokens * COMPACT_ITERS)
+    r = dict(calls=calls, sweeps=sweeps, profile_perplexity_off=prof,
+             peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    positions = sum(t["positions"] for t in sweeps)
+    nodes = sum(t["graph_nodes"] for t in sweeps)
+    _check(all(t["graph_nodes"] >= t["positions"] for t in sweeps),
+           f"each compact sweep's graph holds a node or more a position ({nodes} for "
+           f"{positions})")
+    print(f"training graphs, Labeled-LDA compact ({COMPACT_ITERS}; {COMPACT_THINNING}): "
+          f"{len(calls)} calls replayed == eager loop, bitwise; {nodes} graph nodes a sweep "
+          f"over the buckets ({nodes / positions:.2f} per position); device ms per sweep "
+          f"eager {sum(t['eager_ms'] for t in sweeps):.4f}, runner calls "
+          f"{sum(t['call_ms'] for t in sweeps):.4f} (replays alone "
+          f"{sum(t['replay_ms'] for t in sweeps):.4f}); {prof['tokens_per_s']:.4g} tokens/s "
+          f"with perplexity off, idle share {prof['idle_share']:.4f}; peak "
+          f"{r['peak_gb']:.2f} GB")
+    rec["compact"] = r
+    return rec
+
+
 def warp_record(rec: dict, local: dict, ptxas: dict) -> dict:
     """The warp route's line of the kernel records: its launches on its
     main path (LocalLDA ``-k 50``, phase 10), its time, bound and plain
@@ -3753,7 +4315,12 @@ def main(argv=None) -> int:
     del cascade_model
     phase_done("compiled loops")
 
-    # 16. records
+    # 16. the training loops as replayed CUDA graphs, each against its eager
+    # loop of functional calls
+    graphs = training_graphs_phase(args.seed, corpus, dicti, card)
+    phase_done("training graphs")
+
+    # 17. records
     kernels = [{
         "name": "fused_block",
         "route": "cuda",
@@ -3883,6 +4450,7 @@ def main(argv=None) -> int:
     print(json.dumps({"multi_device": md}))
     print(json.dumps({"multi_device_hslda": hmd}))
     print(json.dumps({"compiled_loops": loops}))
+    print(json.dumps({"training_graphs": graphs}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

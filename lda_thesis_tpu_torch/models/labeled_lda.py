@@ -9,13 +9,19 @@ its three samplers:
 
 * ``sweep="fused"`` (``"auto"``): merge blocks of M sweeps against a
   block-frozen table (ops/gibbs_fused.py); one launch of the CUDA merge-block
-  kernel per bucket per block on a card;
+  kernel per bucket per block on a card, each block replayed as one CUDA
+  graph by the model's ``ops/gibbs_fused.FusedBlocks``, kept across calls;
 * ``sweep="dense"``: the exact per-position sweep over (D, K) lanes
   (ops/gibbs.exact_sweep); on a card a count commit and a draw kernel per
   type position, each bucket's sweep captured once per ``run_training``
   call as a CUDA graph and replayed (ops/gibbs.ExactSweep);
 * ``sweep="compact"``: the same exact sampler on each document's compact
-  label slots (ops/gibbs.compact_sweep), in plain PyTorch.
+  label slots (ops/gibbs.compact_sweep), in plain PyTorch, each bucket's
+  sweep replayed the same way (ops/gibbs.CompactSweep).
+
+The fused path's state ``counts`` is its runner's static state, updated in
+place by every block; a state assigned to ``counts`` from elsewhere (a
+checkpoint load) is copied into the runner at the next ``run_training``.
 
 The exact samplers keep their state position-major (``z_t (U_g, D_g)``)
 for the whole of a ``run_training`` call and write ``counts.z`` back in the
@@ -37,23 +43,23 @@ import torch
 from ..data.buckets import BucketedDocs, bucket_encode
 from ..data.encode import binarize_labels, build_labelmap, compact_labels, encode_bow_types
 from ..ops.gibbs import (
+    CompactSweep,
     ExactSweep,
     FoldinSweep,
     LogLikelihood,
-    compact_sweep,
     init_bucket_counts,
     init_bucket_counts_compact,
     theta_from_compact,
 )
 from ..ops.gibbs_fused import (
-    fused_train_block_buckets,
+    FusedBlocks,
     init_fused_buckets,
     select_merge_block,
     theta_from_fused,
 )
 from .state import phi_from_counts, running_average, theta_from_counts
 
-__all__ = ["LabeledLDA", "fold_in_test", "check_merge_block"]
+__all__ = ["LabeledLDA", "fold_in_test", "check_merge_block", "fused_blocks"]
 
 
 def check_merge_block(model, merge: int) -> None:
@@ -68,6 +74,22 @@ def check_merge_block(model, merge: int) -> None:
             f"sweep count of the original run) so the resumed chain is "
             f"bit-identical")
     model._merge_M = int(merge)
+
+
+def fused_blocks(model, alpha: float, beta: float) -> FusedBlocks:
+    """The fused merge-block runner of ``model`` (a ``LabeledLDA`` or a
+    ``LocalLDA``), made at its first training call and kept as
+    ``model._fused``, so later calls replay its graphs; ``model.counts``
+    becomes the runner's static state.  A state that replaced
+    ``model.counts`` since (a checkpoint load) is copied into the runner."""
+    run = model._fused
+    if run is None:
+        run = model._fused = FusedBlocks(model.counts, model._toks_v_t, model._toks_f_t,
+                                         model.lab_ids_t, model._lab_valid_tt, alpha, beta)
+    elif not run.holds(model.counts):
+        run.load(model.counts)
+    model.counts = run.state
+    return run
 
 
 def _fold_in_init(phi: torch.Tensor, tok_v: torch.Tensor, tok_f: torch.Tensor,
@@ -200,6 +222,7 @@ class LabeledLDA:
         self._avg_s = 0  # number of thinned saves folded into ph_hat/th_hat
         self.cur_perplx: List[float] = []
         self._ll: Optional[List[LogLikelihood]] = None
+        self._fused: Optional[FusedBlocks] = None  # the fused path's block runner
 
     def _t(self, x, dtype) -> torch.Tensor:
         return torch.as_tensor(np.ascontiguousarray(x)).to(
@@ -228,24 +251,11 @@ class LabeledLDA:
     def _block(self, M: int) -> None:
         """``M`` sweeps: one merge block (fused) or ``M`` exact sweeps."""
         if self.sweep == "fused":
-            self.counts = fused_train_block_buckets(
-                self.counts, self._toks_v_t, self._toks_f_t, self.lab_ids_t,
-                self._lab_valid_tt, self.alpha, self.beta, M, generator=self._gen)
+            self._fused(M, generator=self._gen)
             return
-        st = self.counts
-        vbeta = float(self.V * self.beta)
         for _ in range(M):
-            for g in range(self.buckets.n_buckets):
-                if self.sweep == "dense":
-                    self._sweeps[g](self._gen)
-                else:
-                    tv, tf = self._toks_v_t[g], self._toks_f_t[g]
-                    u = torch.rand(tuple(tv.shape), generator=self._gen,
-                                   device=self.device)
-                    self._z_t[g] = compact_sweep(
-                        self._z_t[g], st.n_dk[g], st.n_vk, st.n_k, tv, tf,
-                        self.lab_ids_t[g], self.lab_valid_t[g], self.alpha, self.beta,
-                        vbeta, u)
+            for run in self._sweeps:
+                run(self._gen)
 
     def run_training(
         self,
@@ -264,13 +274,16 @@ class LabeledLDA:
         and the last block is cut short; ``total_iters`` is the full planned
         sweep count of a chunked run, so its merge block matches the
         uninterrupted run's.  The exact samplers run sweep by sweep.
-        ``continue_avg=True`` carries the running means across calls.
+        ``continue_avg=True`` carries the running means across calls.  The
+        perplexities of the saves stay on the device until the call's end,
+        where the positive ones are appended to ``cur_perplx`` in order.
         """
         iters, thinning = int(iters), int(thinning)
         if self.sweep == "fused":
             budget = int(total_iters) if total_iters else iters
             merge = select_merge_block(self.merge_every, thinning, budget)
             check_merge_block(self, merge)
+            fused_blocks(self, self.alpha, self.beta)
         else:
             merge = 1
             # position-major z and private copies of the counts, which the
@@ -279,19 +292,22 @@ class LabeledLDA:
             self._z_t = [z.T.clone(memory_format=torch.contiguous_format) for z in st.z]
             self.counts = st = type(st)(z=st.z, n_dk=tuple(x.clone() for x in st.n_dk),
                                         n_vk=st.n_vk.clone(), n_k=st.n_k.clone())
-            if self.sweep == "dense":
-                # one sweep runner per bucket over this call's state: on a
-                # card the bucket's sweep becomes one CUDA graph, replayed
-                vbeta = float(self.V * self.beta)
-                self._sweeps = [
-                    ExactSweep(self._z_t[g], st.n_dk[g], st.n_vk, st.n_k,
-                               self._toks_v_t[g], self._toks_f_t[g], self.labs_t[g],
-                               self.alpha, self.beta, vbeta)
-                    for g in range(self.buckets.n_buckets)]
+            # one sweep runner per bucket over this call's state: on a card
+            # the bucket's sweep becomes one CUDA graph, replayed
+            vbeta = float(self.V * self.beta)
+            self._sweeps = [
+                ExactSweep(self._z_t[g], st.n_dk[g], st.n_vk, st.n_k, self._toks_v_t[g],
+                           self._toks_f_t[g], self.labs_t[g], self.alpha, self.beta, vbeta)
+                if self.sweep == "dense" else
+                CompactSweep(self._z_t[g], st.n_dk[g], st.n_vk, st.n_k, self._toks_v_t[g],
+                             self._toks_f_t[g], self.lab_ids_t[g], self.lab_valid_t[g],
+                             self.alpha, self.beta, vbeta)
+                for g in range(self.buckets.n_buckets)]
         if not (continue_avg and self._avg_s > 0):
             self.ph_hat = torch.zeros_like(self.ph_hat)
             self._th_hat_t = self._zeros_th()
             self._avg_s = 0
+        perps = []
         n_save_blocks = iters // thinning
         for _ in range(n_save_blocks):
             for _ in range(thinning // merge):
@@ -303,9 +319,7 @@ class LabeledLDA:
             self._th_hat_t = tuple(
                 running_average(t, c, s) for t, c in zip(self._th_hat_t, cur_th))
             if perplexity:
-                perp = self._perplexity_of(cur_ph, cur_th)
-                if perp > 0:
-                    self.cur_perplx.append(perp)
+                perps.append(self._perplexity_of(cur_ph, cur_th))
         left = iters - n_save_blocks * thinning
         while left > 0:
             m = min(merge, left)
@@ -316,6 +330,8 @@ class LabeledLDA:
                 z=tuple(z.T.contiguous() for z in self._z_t))
             del self._z_t
             self._sweeps = None
+        if perps:
+            self.cur_perplx.extend(p for p in torch.stack(perps).tolist() if p > 0)
         self._check_ph_hat()
 
     def _log_likelihoods(self, phi, thetas):
@@ -325,13 +341,14 @@ class LabeledLDA:
             self._ll = [LogLikelihood(tv, tf) for tv, tf in zip(self.toks_v, self.toks_f)]
         return [ll(th, phi) for ll, th in zip(self._ll, thetas)]
 
-    def _perplexity_of(self, phi, thetas) -> float:
+    def _perplexity_of(self, phi, thetas) -> torch.Tensor:
+        """The training perplexity of a save, a float32 scalar on the device."""
         ll = torch.zeros((), dtype=torch.float32, device=self.device)
         n = torch.zeros((), dtype=torch.float32, device=self.device)
         for llg, ng in self._log_likelihoods(phi, thetas):
             ll = ll + llg
             n = n + ng.to(torch.float32)
-        return float(torch.exp(-ll / torch.clamp(n, min=1.0)))
+        return torch.exp(-ll / torch.clamp(n, min=1.0))
 
     @property
     def th_hat(self) -> np.ndarray:

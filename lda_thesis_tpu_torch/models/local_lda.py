@@ -10,7 +10,9 @@ with every topic admissible:
   to 8, ``lab_ids[d, a] = a`` on valid slots and 0 on pad slots.  The
   port's ``gather_cv`` is an exact element gather, so these identity slots
   need no gather of their own.  One kernel-1 launch per bucket per block on
-  a card; A > 32 (K > 32) takes the kernel's warp route up to A = 256.
+  a card, each block replayed as one CUDA graph by the model's
+  ``ops/gibbs_fused.FusedBlocks`` (``models/labeled_lda.fused_blocks``);
+  A > 32 (K > 32) takes the kernel's warp route up to A = 256.
 * ``sweep="dense"``: the exact per-position sweep (ops/gibbs.ExactSweep:
   the commit and draw kernels under a CUDA graph on a card) with an
   all-ones mask over K and zeros up to Kp.
@@ -34,12 +36,12 @@ from ..data.textproc import prep_docs, split_sentences
 from ..data.vocab import Dictionary
 from ..ops.gibbs import ExactSweep, LogLikelihood, init_bucket_counts
 from ..ops.gibbs_fused import (
-    fused_train_block_buckets,
+    FusedBlocks,
     init_fused_buckets,
     select_merge_block,
     theta_from_fused,
 )
-from .labeled_lda import check_merge_block
+from .labeled_lda import check_merge_block, fused_blocks
 from .state import phi_from_counts, running_average, theta_from_counts
 
 __all__ = ["LocalLDA"]
@@ -130,6 +132,7 @@ class LocalLDA:
         # one LogLikelihood per bucket (on a card a replayed CUDA graph),
         # made at the first perplexity
         self._ll: Optional[List[LogLikelihood]] = None
+        self._fused: Optional[FusedBlocks] = None  # the fused path's block runner
 
     def _t(self, x, dtype) -> torch.Tensor:
         return torch.as_tensor(np.ascontiguousarray(x)).to(device=self.device, dtype=dtype)
@@ -150,9 +153,7 @@ class LocalLDA:
     def _block(self, M: int) -> None:
         """``M`` sweeps: one merge block (fused) or ``M`` exact sweeps."""
         if self.sweep == "fused":
-            self.counts = fused_train_block_buckets(
-                self.counts, self._toks_v_t, self._toks_f_t, self.lab_ids_t,
-                self._lab_valid_tt, self.a, self.b, M, generator=self._gen)
+            self._fused(M, generator=self._gen)
             return
         for _ in range(M):
             for run in self._sweeps:
@@ -171,6 +172,7 @@ class LocalLDA:
             budget = int(total_iters) if total_iters else iters
             merge = select_merge_block(self.merge_every, thinning, budget)
             check_merge_block(self, merge)
+            fused_blocks(self, self.a, self.b)
         else:
             merge = 1
             # position-major z and private copies of the counts, which the

@@ -3,13 +3,15 @@
 Counterpart of ``lda_thesis_tpu/ops/gibbs.py``: the dense and compact-support
 inits, the exact per-position sweeps (dense through the CUDA draw and
 count-commit kernels, :mod:`.draw_update_cuda`, replayed as one CUDA graph
-per sweep state by :class:`ExactSweep`; compact in plain PyTorch) and their
-bucket variants, the compact → dense doc-topic helpers, the frozen-φ fold-in
-sweep, CascadeLDA's batched node-level fold-in and the training
-log-likelihood.  The last three are JAX scans that a model runs again and
-again: :class:`FoldinSweep`, :class:`CascadeSweep` and
-:class:`LogLikelihood` replay each as one CUDA graph per sweep (or sum) on
-a card, with the bits of the eager function.
+per sweep state by :class:`ExactSweep`; compact in plain PyTorch, replayed
+the same way by :class:`CompactSweep`) and their bucket variants, the
+compact → dense doc-topic helpers, the frozen-φ fold-in sweep, CascadeLDA's
+batched node-level fold-in and the training log-likelihood.  The last three
+are JAX scans that a model runs again and again: :class:`FoldinSweep`,
+:class:`CascadeSweep` and :class:`LogLikelihood` replay each as one CUDA
+graph per sweep (or sum) on a card, with the bits of the eager function.
+Every runner follows one replay rule (``_Replayed``), which the fused
+merge block's runner (``ops/gibbs_fused.FusedBlocks``) shares.
 Counts are float32 tensors holding integers below 2^24, so every count
 update is exact in any order.
 
@@ -54,6 +56,8 @@ __all__ = [
     "ExactSweep",
     "live_rows",
     "compact_sweep",
+    "CompactSweep",
+    "fill_uniforms",
     "densify_ndk",
     "theta_from_compact",
     "capture_graph",
@@ -291,6 +295,26 @@ def exact_sweep(
     return z_t
 
 
+def fill_uniforms(u: torch.Tensor, generator=None,
+                  uniforms: Optional[torch.Tensor] = None) -> None:
+    """Fill a runner's static uniforms buffer ``u`` in place: with
+    ``uniforms``, or from ``generator`` as ``torch.rand`` of ``u``'s shape
+    draws, or, given one generator per leading index (a chain), ``u[c]``
+    from generator c in chain order, as ``c`` single-chain draws would."""
+    if uniforms is not None:
+        if tuple(uniforms.shape) != tuple(u.shape):
+            raise ValueError(f"uniforms must have shape {tuple(u.shape)}, "
+                             f"got {tuple(uniforms.shape)}")
+        u.copy_(uniforms)
+    elif isinstance(generator, (list, tuple)):
+        if len(generator) != u.shape[0]:
+            raise ValueError(f"{len(generator)} generators for {u.shape[0]} chains")
+        for uc, gen in zip(u, generator):
+            torch.rand(tuple(uc.shape), generator=gen, out=uc)
+    else:
+        torch.rand(tuple(u.shape), generator=generator, out=u)
+
+
 def capture_graph(fn, device) -> "torch.cuda.CUDAGraph":
     """One CUDA graph of the work ``fn()`` launches on ``device``, captured
     on a side stream.  Capture runs nothing: the caller replays the graph.
@@ -309,18 +333,85 @@ def capture_graph(fn, device) -> "torch.cuda.CUDAGraph":
     return graph
 
 
-class ExactSweep:
+class _Replayed:
+    """The replay rule of the training and test-time loops (:class:`ExactSweep`,
+    :class:`CompactSweep`, :class:`FoldinSweep`, :class:`CascadeSweep`,
+    :class:`LogLikelihood`, ``ops/gibbs_fused.FusedBlocks``): on a card the
+    first call of each key runs its body eagerly (it loads what the body
+    needs), the second captures the body as one CUDA graph and every call of
+    that key from then on replays it; on the CPU every call runs eagerly.  A
+    subclass fills its static inputs, then ``_run``s its body (by default
+    ``_sweep``) under a key, the default ``None`` where it has one body; a
+    runner whose body has several shapes keeps one graph per shape.
+
+    The kernel wrappers count their launches in module counters, which a
+    subclass names in ``_counters``: the launches counted while capturing
+    are taken back, and each replay adds them again.  A captured graph does
+    not pickle: a pickled instance captures again."""
+
+    _counters: Tuple[Tuple[object, Tuple[str, ...]], ...] = ()
+
+    def __init__(self, device):
+        self._device = torch.device(device)
+        self._graphed = self._device.type == "cuda"
+        self._graphs = {}  # key -> (graph, the counter increments of one replay)
+        self._key_calls = {}
+        self.calls = 0
+
+    @property
+    def _graph(self) -> Optional["torch.cuda.CUDAGraph"]:
+        """The graph of the body under key ``None``, once captured."""
+        entry = self._graphs.get(None)
+        return None if entry is None else entry[0]
+
+    def _sweep(self) -> None:
+        raise NotImplementedError
+
+    def _read_counters(self) -> List[int]:
+        return [getattr(mod, name) for mod, names in self._counters for name in names]
+
+    def _write_counters(self, values: Sequence[int]) -> None:
+        it = iter(values)
+        for mod, names in self._counters:
+            for name in names:
+                setattr(mod, name, next(it))
+
+    def _run(self, key=None, body=None) -> None:
+        body = self._sweep if body is None else body
+        seen = self._key_calls.get(key, 0)
+        if not self._graphed or seen == 0:
+            body()
+        else:
+            if key not in self._graphs:
+                before = self._read_counters()
+                graph = capture_graph(body, self._device)
+                added = [n - b for n, b in zip(self._read_counters(), before)]
+                self._write_counters(before)
+                self._graphs[key] = (graph, added)
+            graph, added = self._graphs[key]
+            graph.replay()
+            self._write_counters([n + a for n, a in zip(self._read_counters(), added)])
+        self._key_calls[key] = seen + 1
+        self.calls += 1
+
+    def __getstate__(self):
+        state = self.__dict__.copy()
+        state["_graphs"], state["_key_calls"], state["calls"] = {}, {}, 0
+        return state
+
+
+class ExactSweep(_Replayed):
     """Repeated exact dense sweeps (:func:`exact_sweep`) over one set of
     state tensors, which every call updates in place.
 
     The live rows of each position are listed once.  Each call fills a
     static uniforms buffer, from ``generator`` as ``torch.rand`` would
-    (``out=``) or from the given ``uniforms (U, D)``, then sweeps.  On a card
-    the first call runs eagerly (it also loads the kernels), the second
-    captures the sweep as one CUDA graph and every call from then on replays
-    it: ``2·U + 1`` launches at most, with no host work per position.  The
-    replay adds its captured launches to the wrappers' counters.  On the CPU
-    every call runs eagerly.
+    (``out=``) or from the given ``uniforms (U, D)``, then sweeps under
+    :class:`_Replayed`'s rule: on a card the first call runs eagerly (it
+    also loads the kernels), the second captures the sweep as one CUDA graph
+    and every call from then on replays it: ``2·U + 1`` launches at most,
+    with no host work per position.  The replay adds its captured launches
+    to the wrappers' counters.  On the CPU every call runs eagerly.
 
     State with a leading chain axis (``z_t (L, U, D)``, ``n_dk (L, D, K)``,
     ``n_vk (L, V, K)``, ``n_k (L, K)``) sweeps L chains over the one corpus
@@ -330,51 +421,29 @@ class ExactSweep:
     them, or uniforms ``(L, U, D)``.
     """
 
+    _counters = ((duc, ("launches", "commit_launches")),)
+
     def __init__(self, z_t, n_dk, n_vk, n_k, tok_v_t, tok_f_t, labs, alpha: float,
                  beta: float, vbeta: float):
+        super().__init__(tok_v_t.device)
         self.z_t = z_t
         self._args = (z_t, n_dk, n_vk, n_k, tok_v_t, tok_f_t, labs, alpha, beta, vbeta)
         self.live = live_rows(tok_v_t, tok_f_t)
         self.u = torch.empty(tuple(z_t.shape), dtype=torch.float32, device=tok_v_t.device)
-        self._graphed = n_dk.device.type == "cuda"
-        self._graph = None
-        self._replay_launches = (0, 0)
-        self.sweeps = 0
+
+    @property
+    def sweeps(self) -> int:
+        return self.calls
 
     def _sweep(self) -> None:
         exact_sweep(*self._args, self.u, live=self.live)
-
-    def _capture(self) -> None:
-        """Capture one sweep; capture runs nothing, and the launches the
-        wrappers counted while capturing are taken back and counted per
-        replay instead."""
-        before = (duc.launches, duc.commit_launches)
-        self._graph = capture_graph(self._sweep, self.u.device)
-        self._replay_launches = (duc.launches - before[0], duc.commit_launches - before[1])
-        duc.launches, duc.commit_launches = before
 
     def __call__(self, generator=None, uniforms: Optional[torch.Tensor] = None
                  ) -> torch.Tensor:
         """One sweep; returns ``z_t``.  ``generator``: a ``torch.Generator``,
         or one per chain where the state has a chain axis."""
-        if uniforms is not None:
-            self.u.copy_(uniforms)
-        elif self.z_t.dim() == 3:
-            if len(generator) != self.u.shape[0]:
-                raise ValueError(f"{len(generator)} generators for {self.u.shape[0]} chains")
-            for u, gen in zip(self.u, generator):
-                torch.rand(tuple(u.shape), generator=gen, out=u)
-        else:
-            torch.rand(tuple(self.u.shape), generator=generator, out=self.u)
-        if not self._graphed or self.sweeps == 0:
-            self._sweep()
-        else:
-            if self._graph is None:
-                self._capture()
-            self._graph.replay()
-            duc.launches += self._replay_launches[0]
-            duc.commit_launches += self._replay_launches[1]
-        self.sweeps += 1
+        fill_uniforms(self.u, generator, uniforms)
+        self._run()
         return self.z_t
 
 
@@ -437,34 +506,15 @@ def train_sweep_buckets(state: BucketLDAState, toks_v, toks_f, labs_t, alpha: fl
     return BucketLDAState(z=tuple(zs), n_dk=tuple(ndks), n_vk=n_vk, n_k=n_k)
 
 
-def compact_sweep(
-    z_t: torch.Tensor,  # (U, D) int32 slot indices, position-major
-    n_dk: torch.Tensor,  # (D, A), updated in place
-    n_vk: torch.Tensor,  # (V, K), updated in place
-    n_k: torch.Tensor,  # (K,), updated in place
-    tok_v_t: torch.Tensor,  # (U, D) int64
-    tok_f_t: torch.Tensor,  # (U, D) float32
-    lab_ids: torch.Tensor,  # (D, A) int
-    lab_valid: torch.Tensor,  # (D, A) float32
-    alpha: float,
-    beta: float,
-    vbeta: float,
-    uniforms: torch.Tensor,  # (U, D)
-) -> torch.Tensor:
-    """One exact sweep on the compact label support, position-major, in
-    plain PyTorch; returns ``z_t`` and updates the counts in place.
-
-    The same sampler as :func:`exact_sweep` with the zero lanes removed
-    (``lda_thesis_tpu/ops/gibbs.py:465-524``): with ascending slot ids the
-    draw lands on the same global topic as the dense sweep's.
-    """
-    U = tok_v_t.shape[0]
+def _compact_positions(z_t, n_dk, n_vk, n_k, tok_v_t, tok_f_t, lab_ids, lab_valid,
+                       alpha: float, beta: float, vbeta: float, uniforms) -> None:
+    """:func:`compact_sweep`'s positions, in order, on ``z_t`` and the
+    counts in place: position p reads ``z_t[p]`` before it writes it."""
     K = n_vk.shape[1]
     flat = n_vk.view(-1)
     ids = lab_ids.long()
     neg_f = -tok_f_t
-    zs = []
-    for p in range(U):
+    for p in range(tok_v_t.shape[0]):
         v, f = tok_v_t[p], tok_f_t[p]
         zc_old = z_t[p].long()
         zg_old = ids.gather(1, zc_old[:, None])[:, 0]
@@ -481,8 +531,66 @@ def compact_sweep(
         n_dk.scatter_add_(1, zc_new[:, None], f[:, None])
         flat.index_add_(0, v * K + zg_new, f)
         n_k.index_add_(0, zg_new, f)
-        zs.append(zc_new)
-    return torch.stack(zs).to(torch.int32) if zs else z_t.clone()
+        z_t[p] = zc_new
+
+
+def compact_sweep(
+    z_t: torch.Tensor,  # (U, D) int32 slot indices, position-major
+    n_dk: torch.Tensor,  # (D, A), updated in place
+    n_vk: torch.Tensor,  # (V, K), updated in place
+    n_k: torch.Tensor,  # (K,), updated in place
+    tok_v_t: torch.Tensor,  # (U, D) int64
+    tok_f_t: torch.Tensor,  # (U, D) float32
+    lab_ids: torch.Tensor,  # (D, A) int
+    lab_valid: torch.Tensor,  # (D, A) float32
+    alpha: float,
+    beta: float,
+    vbeta: float,
+    uniforms: torch.Tensor,  # (U, D)
+) -> torch.Tensor:
+    """One exact sweep on the compact label support, position-major, in
+    plain PyTorch; returns the new ``z_t`` (the input's is left as it was)
+    and updates the counts in place.
+
+    The same sampler as :func:`exact_sweep` with the zero lanes removed
+    (``lda_thesis_tpu/ops/gibbs.py:465-524``): with ascending slot ids the
+    draw lands on the same global topic as the dense sweep's.
+    """
+    z_t = z_t.to(torch.int32).clone(memory_format=torch.contiguous_format)
+    _compact_positions(z_t, n_dk, n_vk, n_k, tok_v_t, tok_f_t, lab_ids, lab_valid, alpha,
+                       beta, vbeta, uniforms)
+    return z_t
+
+
+class CompactSweep(_Replayed):
+    """Repeated compact sweeps (:func:`compact_sweep`) of one bucket over
+    one set of state tensors, which every call updates in place: ``z_t (U,
+    D)`` int32, ``n_dk (D, A)``, and the tables ``n_vk``/``n_k`` that the
+    buckets' runners share.
+
+    Each call fills a static uniforms buffer ``(U, D)``, from ``generator``
+    as ``torch.rand`` would or from ``uniforms``, then runs
+    :func:`compact_sweep`'s positions in its order, writing ``z_t`` in place
+    (:class:`_Replayed`: on a card one replayed CUDA graph per sweep from
+    the second call on), so each call has the eager sweep's bits."""
+
+    def __init__(self, z_t, n_dk, n_vk, n_k, tok_v_t, tok_f_t, lab_ids, lab_valid,
+                 alpha: float, beta: float, vbeta: float):
+        super().__init__(tok_v_t.device)
+        self.z_t = z_t
+        self.u = torch.empty(tuple(z_t.shape), dtype=torch.float32, device=tok_v_t.device)
+        self._args = (z_t, n_dk, n_vk, n_k, tok_v_t.long(), tok_f_t.to(torch.float32),
+                      lab_ids, lab_valid, alpha, beta, vbeta, self.u)
+
+    def _sweep(self) -> None:
+        _compact_positions(*self._args)
+
+    def __call__(self, generator: Optional[torch.Generator] = None,
+                 uniforms: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """One sweep; returns ``z_t``."""
+        fill_uniforms(self.u, generator, uniforms)
+        self._run()
+        return self.z_t
 
 
 def train_sweep_compact(
@@ -542,38 +650,6 @@ def theta_from_compact(n_dk_c, lab_ids, lab_valid, alpha: float, K: int) -> torc
     num = n_dk_c + lab_valid * alpha
     den = num.sum(dim=1, keepdim=True)
     return densify_ndk(num / torch.clamp(den, min=1e-38), lab_ids, K)
-
-
-class _Replayed:
-    """The replay rule of :class:`FoldinSweep`, :class:`CascadeSweep` and
-    :class:`LogLikelihood`: on a card the first call runs ``_sweep``
-    eagerly (it loads what the body needs), the second captures it as one
-    CUDA graph and every call from then on replays it; on the CPU every
-    call runs eagerly.  A subclass fills its static inputs, then ``_run``s.
-    A captured graph does not pickle: a pickled instance captures again."""
-
-    def __init__(self, device):
-        self._device = torch.device(device)
-        self._graphed = self._device.type == "cuda"
-        self._graph = None
-        self.calls = 0
-
-    def _sweep(self) -> None:
-        raise NotImplementedError
-
-    def _run(self) -> None:
-        if not self._graphed or self.calls == 0:
-            self._sweep()
-        else:
-            if self._graph is None:
-                self._graph = capture_graph(self._sweep, self._device)
-            self._graph.replay()
-        self.calls += 1
-
-    def __getstate__(self):
-        state = self.__dict__.copy()
-        state["_graph"], state["calls"] = None, 0
-        return state
 
 
 def _foldin_positions(z, n_dk, tv, ff, phi, alpha, u) -> None:

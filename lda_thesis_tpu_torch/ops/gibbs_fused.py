@@ -25,6 +25,13 @@ so one launch runs every chain; the kernel computes each document alone
 and every count update is an exact integer sum, so the result is bitwise
 that of ``L`` single-chain calls with the same uniforms.  The distributed
 trainer (parallel/) runs its local chains this way.
+
+**Replayed blocks.**  A training loop runs its merge blocks through
+:class:`FusedBlocks`, which keeps the state in static tensors and, on a
+card, replays each block as one CUDA graph (kernel 1 inside it), as the
+JAX package runs its blocks inside one jitted program
+(``lda_thesis_tpu/models/labeled_lda.py:248-349``).  Its body is
+:func:`fused_train_block_buckets` itself, so a replay has the eager bits.
 """
 
 from __future__ import annotations
@@ -33,8 +40,16 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from . import fused_block_cuda as fbc
 from .fused_block_cuda import fused_block
-from .gibbs import _uniforms, densify_ndk, init_counts_compact, theta_from_compact
+from .gibbs import (
+    _Replayed,
+    _uniforms,
+    densify_ndk,
+    fill_uniforms,
+    init_counts_compact,
+    theta_from_compact,
+)
 
 # Bumped whenever the port's fused sampler changes its floating-point
 # operation order (in fused_block.cu and fused_block_torch together).
@@ -58,6 +73,7 @@ __all__ = [
     "init_fused_buckets",
     "fused_train_block",
     "fused_train_block_buckets",
+    "FusedBlocks",
     "gather_cv",
     "slot_totals",
     "block_uniforms",
@@ -296,6 +312,90 @@ def fused_train_block_buckets(
         zs.append(st.z)
         ndks.append(st.n_dk)
     return FusedBucketState(z=tuple(zs), n_dk=tuple(ndks), n_vk=n_vk, n_k=n_k)
+
+
+def _tensors(state) -> Tuple[torch.Tensor, ...]:
+    return (*state.z, *state.n_dk, state.n_vk, state.n_k)
+
+
+class FusedBlocks(_Replayed):
+    """Repeated merge blocks (:func:`fused_train_block_buckets`) over one
+    static state, which every call updates in place: the runner of a
+    training loop's blocks (JAX: the merge-block scan of
+    ``lda_thesis_tpu/models/labeled_lda.py:248-349``).
+
+    ``state`` (a :class:`FusedBucketState`, with or without a leading chain
+    axis) is copied into the runner's own tensors, ``self.state``.  A call
+    ``run(M, generator)`` fills one static uniforms buffer per bucket,
+    ``(M, U_g, D_g)`` or ``(L, M, U_g, D_g)``, outside any graph and in the
+    eager order (bucket by bucket, and within a bucket chain by chain, each
+    chain from its own generator, as :func:`block_uniforms` draws them),
+    then runs the body: :func:`fused_train_block_buckets` on the static
+    state and uniforms, its outputs copied into the static state.  So a call
+    has the bits of the eager block by construction.  Under
+    :class:`_Replayed`'s rule the body of each M (a call's trailing block
+    may be shorter) is captured once as a CUDA graph on a card and replayed,
+    kernel 1's launches inside it; the replay adds them to the wrappers'
+    counters.  Nothing outside the runner may keep the body's outputs: they
+    live in the graph's pool.  A state set from elsewhere is taken in by
+    :meth:`load`.
+    """
+
+    _counters = ((fbc, ("launches", "warp_launches", "general_launches")),)
+
+    def __init__(self, state: FusedBucketState, toks_v_t, toks_f_t, lab_ids_t, lab_valid_tt,
+                 alpha: float, beta: float, vbeta: Optional[float] = None):
+        super().__init__(state.n_vk.device)
+        self.state = FusedBucketState(*(tuple(x.clone() for x in part)
+                                        if isinstance(part, (tuple, list)) else part.clone()
+                                        for part in state))
+        self._inputs = tuple(tuple(x) for x in (toks_v_t, toks_f_t, lab_ids_t, lab_valid_tt))
+        self._consts = (float(alpha), float(beta))
+        self._vbeta = vbeta
+        self._u = {}  # M -> per-bucket static uniforms
+
+    def holds(self, state) -> bool:
+        """Whether ``state``'s tensors (a :class:`FusedBucketState`'s
+        fields) are this runner's static ones."""
+        return all(a is b for a, b in zip(_tensors(state), _tensors(self.state)))
+
+    def load(self, state) -> None:
+        """Copy ``state`` into the static state in place, so a captured
+        graph stays valid; every tensor must keep its shape."""
+        for dst, src in zip(_tensors(self.state), _tensors(state), strict=True):
+            if src.shape != dst.shape:
+                raise ValueError(f"a loaded state must keep the shape {tuple(dst.shape)}, "
+                                 f"got {tuple(src.shape)}")
+            dst.copy_(src)
+
+    def _body(self, u) -> None:
+        M = u[0].shape[-3]
+        out = fused_train_block_buckets(self.state, *self._inputs, *self._consts, M,
+                                        uniforms=u, vbeta=self._vbeta)
+        for dst, src in zip(_tensors(self.state), _tensors(out)):
+            dst.copy_(src)
+
+    def __call__(self, M: int, generator=None,
+                 uniforms: Optional[Sequence[torch.Tensor]] = None) -> FusedBucketState:
+        """One ``M``-sweep merge block; returns the static state.
+        ``generator``: a ``torch.Generator``, or one per chain; or
+        ``uniforms`` per bucket."""
+        M = int(M)
+        u = self._u.get(M)
+        if u is None:
+            lead = tuple(self.state.n_vk.shape[:-2])
+            u = self._u[M] = tuple(
+                torch.empty(lead + (M, *tv.shape), dtype=torch.float32, device=tv.device)
+                for tv in self._inputs[0])
+        for g, ug in enumerate(u):
+            fill_uniforms(ug, generator, None if uniforms is None else uniforms[g])
+        self._run(M, lambda: self._body(u))
+        return self.state
+
+    def __getstate__(self):
+        state = super().__getstate__()
+        state["_u"] = {}  # scratch, drawn anew every call
+        return state
 
 
 def densify_ndk_fused(n_dk_t: torch.Tensor, lab_ids: torch.Tensor, K: int) -> torch.Tensor:

@@ -20,24 +20,26 @@ ops/gibbs_fused.py) and across data shards (AD-LDA) at once:
 The state holds ``z (L, U, D_s)`` / ``n_dk (L, A, D_s)`` and each chain's
 table replica ``n_vk (L, V, K)``.  The bucketed layout
 (parallel/fused_sharded_buckets.py) and the vocab-sharded one
-(parallel/vocab_sharded.py) run the same block.
+(parallel/vocab_sharded.py) run the same block.  The replicated layouts run
+it through :class:`RankBlocks`: on a card each block replays one CUDA graph
+of the rank's chains, the data row's all-reduce outside it.
 """
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Sequence
+from typing import Callable, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..models.state import running_average
 from ..ops.gibbs import init_counts_compact
-from ..ops.gibbs_fused import FusedLDAState, fused_train_block, theta_from_fused
+from ..ops.gibbs_fused import FusedBlocks, FusedBucketState, theta_from_fused
 from .bootstrap import Mesh
 from .sharded import phi_chains, shard_rows
 
 __all__ = ["FusedShardedState", "FusedShardCorpus", "shard_fused_corpus",
-           "init_fused_sharded", "train_blocks", "make_fused_train_loop"]
+           "init_fused_sharded", "train_blocks", "RankBlocks", "make_fused_train_loop"]
 
 
 class FusedShardedState(NamedTuple):
@@ -128,6 +130,47 @@ def merge_replicated(mesh: Mesh, table: torch.Tensor, n_k: torch.Tensor,
     return table + d_vk, n_k + d_k
 
 
+class RankBlocks:
+    """A rank's merge blocks over the buckets ``corpora``, all local chains
+    at once, through one ``ops/gibbs_fused.FusedBlocks`` that a training
+    loop keeps across its calls (on a card, one replayed CUDA graph per
+    block, kernel 1 inside it), then the AD-LDA merge of the tables over the
+    data row (:func:`merge_replicated`), outside the graph, its result
+    copied into the runner's static tables before the next block.
+
+    ``blocks(z, n_dk, n_vk, n_k, M, generators)`` takes per-bucket ``z`` and
+    ``n_dk`` and returns the merged state as the runner's static tensors; a
+    state that is not the runner's (the first call, a restored checkpoint)
+    is copied in first.  The denominator's V·β counts the table's rows,
+    padding included, as the trainer's loops do."""
+
+    def __init__(self, mesh: Mesh, corpora: Sequence[FusedShardCorpus], alpha: float,
+                 beta: float):
+        self.mesh = mesh
+        self._inputs = ([c.tok_v_t for c in corpora], [c.tok_f_t for c in corpora],
+                        [c.lab_ids for c in corpora], [c.lab_valid_t for c in corpora])
+        self._alpha, self._beta = alpha, beta
+        self.run: Optional[FusedBlocks] = None
+
+    def __call__(self, z, n_dk, n_vk, n_k, M: int, generators) -> FusedBucketState:
+        st = FusedBucketState(tuple(z), tuple(n_dk), n_vk, n_k)
+        if self.run is None:
+            vbeta = float(n_vk.shape[-2]) * float(self._beta)
+            self.run = FusedBlocks(st, *self._inputs, self._alpha, self._beta, vbeta=vbeta)
+        elif not self.run.holds(st):
+            self.run.load(st)
+        out = self.run.state
+        merged = self.mesh.shape["data"] > 1
+        if merged:
+            table, totals = out.n_vk.clone(), out.n_k.clone()  # the block-start tables
+        self.run(M, generator=generators)
+        if merged:
+            n_vk, n_k = merge_replicated(self.mesh, table, totals, out.n_vk, out.n_k)
+            out.n_vk.copy_(n_vk)
+            out.n_k.copy_(n_k)
+        return out
+
+
 def theta_chains(n_dk: torch.Tensor, corpus: FusedShardCorpus, alpha: float,
                  K: int) -> torch.Tensor:
     """(L, D_s, K) label-masked θ of every local chain, the chains' rows
@@ -163,7 +206,10 @@ def make_fused_train_loop(mesh: Mesh, alpha: float, beta: float, topic_mask,
                           corpus: FusedShardCorpus, on_merge=()):
     """Training loop of the unbucketed layout: returns ``loop(state, iters,
     thinning, M, generators) -> state``, one kernel launch per merge block
-    for all local chains."""
+    for all local chains, each block replayed by the loop's
+    :class:`RankBlocks` (``loop.blocks``, kept across calls)."""
+    blocks = RankBlocks(mesh, [corpus], alpha, beta)
+
     def loop(state: FusedShardedState, iters: int, thinning: int, M: int,
              generators) -> FusedShardedState:
         st = [state]
@@ -172,11 +218,8 @@ def make_fused_train_loop(mesh: Mesh, alpha: float, beta: float, topic_mask,
 
         def block(m):
             s = st[0]
-            out = fused_train_block(FusedLDAState(s.z, s.n_dk, s.n_vk, s.n_k), corpus.tok_v_t,
-                                    corpus.tok_f_t, corpus.lab_ids, corpus.lab_valid_t, alpha,
-                                    beta, m, generator=generators, vbeta=vbeta)
-            n_vk, n_k = merge_replicated(mesh, s.n_vk, s.n_k, out.n_vk, out.n_k)
-            st[0] = s._replace(z=out.z, n_dk=out.n_dk, n_vk=n_vk, n_k=n_k)
+            out = blocks((s.z,), (s.n_dk,), s.n_vk, s.n_k, m, generators)
+            st[0] = s._replace(z=out.z[0], n_dk=out.n_dk[0], n_vk=out.n_vk, n_k=out.n_k)
             for fn in on_merge:
                 fn(st[0])
 
@@ -191,4 +234,5 @@ def make_fused_train_loop(mesh: Mesh, alpha: float, beta: float, topic_mask,
         train_blocks(block, save, int(iters), int(thinning), int(M))
         return st[0]
 
+    loop.blocks = blocks
     return loop

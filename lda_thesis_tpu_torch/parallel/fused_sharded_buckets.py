@@ -8,8 +8,9 @@ unbucketed layout.  A merge block runs the buckets one after another, each
 bucket's commits landing in the chain's working table before the next
 bucket gathers (as on one device, ops/gibbs_fused.fused_train_block_buckets),
 with one kernel launch per bucket for all local chains (the leading chain
-axis of that function); the block's deltas are summed over the data row
-once.  Opt-in (``DistributedLabeledLDA(n_buckets=...)``): the
+axis of that function), each block replayed as one CUDA graph on a card
+(``fused_sharded.RankBlocks``); the block's deltas are summed over the data
+row once, outside the graph.  Opt-in (``DistributedLabeledLDA(n_buckets=...)``): the
 bucket layout is part of the draw stream.
 """
 
@@ -21,12 +22,11 @@ import numpy as np
 import torch
 
 from ..models.state import running_average
-from ..ops.gibbs_fused import FusedBucketState, fused_train_block_buckets
 from .bootstrap import Mesh
 from .fused_sharded import (
     FusedShardCorpus,
+    RankBlocks,
     init_chains,
-    merge_replicated,
     shard_fused_corpus,
     theta_chains,
     train_blocks,
@@ -77,9 +77,9 @@ def make_bucketed_train_loop(mesh: Mesh, alpha: float, beta: float, topic_mask,
                              corpora: Sequence[FusedShardCorpus], on_merge=()):
     """Training loop of the bucketed layout: ``loop(state, iters, thinning,
     M, generators) -> state``, one kernel launch per bucket per merge
-    block for all local chains."""
-    inputs = ([c.tok_v_t for c in corpora], [c.tok_f_t for c in corpora],
-              [c.lab_ids for c in corpora], [c.lab_valid_t for c in corpora])
+    block for all local chains, each block replayed by the loop's
+    ``RankBlocks`` (``loop.blocks``, kept across calls)."""
+    blocks = RankBlocks(mesh, corpora, alpha, beta)
 
     def loop(state: BucketedShardedState, iters: int, thinning: int, M: int,
              generators) -> BucketedShardedState:
@@ -89,11 +89,8 @@ def make_bucketed_train_loop(mesh: Mesh, alpha: float, beta: float, topic_mask,
 
         def block(m):
             s = st[0]
-            out = fused_train_block_buckets(FusedBucketState(s.z, s.n_dk, s.n_vk, s.n_k),
-                                            *inputs, alpha, beta, m, generator=generators,
-                                            vbeta=vbeta)
-            n_vk, n_k = merge_replicated(mesh, s.n_vk, s.n_k, out.n_vk, out.n_k)
-            st[0] = s._replace(z=out.z, n_dk=out.n_dk, n_vk=n_vk, n_k=n_k)
+            out = blocks(s.z, s.n_dk, s.n_vk, s.n_k, m, generators)
+            st[0] = s._replace(z=out.z, n_dk=out.n_dk, n_vk=out.n_vk, n_k=out.n_k)
             for fn in on_merge:
                 fn(st[0])
 
@@ -108,4 +105,5 @@ def make_bucketed_train_loop(mesh: Mesh, alpha: float, beta: float, topic_mask,
         train_blocks(block, save, int(iters), int(thinning), int(M))
         return st[0]
 
+    loop.blocks = blocks
     return loop

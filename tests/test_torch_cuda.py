@@ -599,3 +599,69 @@ def test_run_test_sees_new_phi():
     for n, call in enumerate(calls):
         chip_smoke._same_as_eager(chip_smoke.eager_fold_in, call, f"run_test {n + 1}")
     assert calls[1][0][0] is model.ph_hat and not np.array_equal(first, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name, route, chains", [
+    ("interior gaps", "staged", 0), ("interior gaps", "staged", 3), ("A=56", "warp", 0),
+    (f"A={32 * fbc.WARP_ROWS_MAX + 8}", "general", 0)])
+def test_fused_blocks_replay_equal_eager_blocks(name, route, chains):
+    """Four merge blocks of ``FusedBlocks`` (eager, capture and replay,
+    replays) at an ``edge_cases`` shape of each route of kernel 1 against
+    four eager ``fused_train_block_buckets`` calls from one seed, bitwise
+    after each (``chip_smoke.replayed_blocks_case``); the counters count
+    every replayed launch, on its route: one per bucket per block."""
+    _needs_card()
+    r = chip_smoke.replayed_blocks_case("cuda", 0, name, calls=4, chains=chains)
+    torch.cuda.synchronize()
+    n = 4 * 2
+    want = {"staged": (n, 0, 0), "warp": (n, n, 0), "general": (n, 0, n)}[route]
+    assert r["route"] == route and r["launches"] == want
+    assert sorted(r["run"]._graphs) == [2] and r["run"].calls == 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["labeled-fused", "labeled-compact", "local", "chains"])
+def test_training_replays_equal_eager_loop(kind):
+    """Two training calls of each model on the card (the second replays
+    every block or sweep) equal ``chip_smoke``'s eager loop of functional
+    calls from the state before each, bitwise (phase 16 at full width)."""
+    _needs_card()
+    from lda_thesis_tpu_torch.data.synthetic import planted_corpus
+    from lda_thesis_tpu_torch.data.vocab import Dictionary
+    from lda_thesis_tpu_torch.models.labeled_lda import LabeledLDA
+    from lda_thesis_tpu_torch.models.local_lda import LocalLDA
+    from lda_thesis_tpu_torch.parallel import make_mesh
+    from lda_thesis_tpu_torch.parallel.trainer import DistributedLabeledLDA
+
+    c = planted_corpus(0, n_train=300, n_test=20, V=400, n_labels=30)
+    dicti = Dictionary(c.train_docs)
+    if kind == "chains":
+        m = DistributedLabeledLDA(c.train_docs, c.train_labs, c.labelset, dicti, ALPHA, BETA,
+                                  mesh=make_mesh(device="cuda"), n_chains=3, n_buckets=2)
+        for _ in range(2):
+            want = chip_smoke.eager_chains_training(m, 10, 4, 64)
+            m.run_training(10, 4, total_iters=64)
+            assert chip_smoke.chains_equal(m, want)
+        assert sorted(m._loop.blocks.run._graphs) == [2, 4]
+        return
+    if kind == "local":
+        texts = [" ".join(chip_smoke.csv_word(int(w[1:])) for w in d) for d in c.train_docs]
+        m = LocalLDA(texts, alpha=ALPHA, beta=BETA, K=50, seed=0, device="cuda")
+    else:
+        m = LabeledLDA(c.train_docs, c.train_labs, c.labelset, dicti, ALPHA, BETA, seed=0,
+                       sweep=kind.split("-")[1], device="cuda")
+    for _ in range(2):
+        before = len(getattr(m, "cur_perplx", ()))
+        if kind == "labeled-fused":
+            want = chip_smoke.eager_training(m, 10, 4, 64, True)
+            m.run_training(10, 4, perplexity=True, total_iters=64)
+        elif kind == "labeled-compact":
+            want = chip_smoke.eager_training(m, 5, 2, None, True)
+            m.run_training(5, 2)
+        else:
+            want = chip_smoke.eager_training(m, 6, 3)
+            m.run_training(6, 3)
+        assert chip_smoke.training_equal(m, want, before)
+    if kind != "labeled-compact":
+        assert sorted(m._fused._graphs) == ([1] if kind == "local" else [2, 4])
