@@ -152,20 +152,30 @@ made from ``--seed``.  Phases:
     saves' estimates (``loglik_case``); a ``run_test`` after more training
     against an eager fold-in with the new φ̂; each graph's node count and
     the device ms per sweep of eager sweeps, graphed calls and replays;
-16. the training loops as replayed CUDA graphs, at full width: three
-    merge blocks of ``FusedBlocks`` on each route of kernel 1 (staged, warp
-    and general, at ``edge_cases`` shapes) against eager blocks; then
+16. the training loops as replayed CUDA graphs, at full width, the saves
+    (``ops/gibbs.SaveStep``) replayed too: three merge blocks of
+    ``FusedBlocks`` on each route of kernel 1 (staged, warp and general, at
+    ``edge_cases`` shapes) against eager blocks; the divisor check (the
+    thinned mean with its weights in device scalars against the division
+    by a host number, bitwise, s = 1..50 on φ̂ and θ̂); then
     ``run_training`` calls of the Labeled-LDA fused path (50; 25) with
-    perplexity off and on, of LocalLDA at K = 20 and K = 50 (20; 10), of
-    one rank of 8 chains with 4 buckets (50; 25) and of the compact path
-    (10; 5), each held to its eager loop of functional calls
-    (``eager_training``, ``eager_chains_training``: ``fused_train_block_buckets``
-    or ``compact_sweep`` in a loop, from the same state and generator
-    state), bitwise in z, n_dk, n_vk, n_k, φ̂, θ̂, perplexities and the
-    generators; kernel-1 launches per call equal to blocks × buckets; each
-    block's (or compact sweep's) graph nodes, device ms per block eager,
-    per runner call and per replay, tokens/s and the device's idle share of
-    a profiled call, and peak device memory;
+    perplexity off and on and with ``continue_avg``, of LocalLDA at K = 20
+    and K = 50 (20; 10) and dense, of one rank of 8 chains with 4 buckets
+    (50; 25) and of 8 dense AD-LDA chains (10; 5), of the Labeled-LDA
+    dense (10; 5) and compact (10; 5) paths, each held to its eager loop of
+    functional calls (``eager_training``, ``eager_chains_training``,
+    ``eager_dense_chains_training``: ``fused_train_block_buckets``,
+    ``exact_sweep`` or ``compact_sweep`` and the saves' functions in a loop,
+    from the same state and generator state), bitwise in z, n_dk, n_vk,
+    n_k, φ̂, θ̂, perplexities and the generators; kernel-1 launches per call
+    equal to blocks × buckets, kernel-2 launches as planned; a model's
+    later call of one setting captures no graph and runs no body eagerly
+    (``replay_counts``); each block's (or compact sweep's) graph nodes,
+    device ms per block eager, per runner call and per replay, a save's
+    graph nodes, device and host ms eager and replayed (``save_timing``),
+    a replayed merge block's device time by step (``merge_block_split``),
+    tokens/s and the device's idle share of a profiled call, and peak
+    device memory;
 17. one JSON line of kernel records, the card's line, and the result line.
 
 Every check raises; the script exits non-zero without a CUDA device.
@@ -3259,17 +3269,25 @@ LOOP_CYCLES = 2  # HSLDA cycles trained before its fold-ins
 def _recording(module, name: str):
     """Inside, every call of ``module.name`` runs as before and is recorded
     as ``(args, kwargs, its generator's states before and after the call,
-    its output, its seconds)``."""
+    its output, its seconds)``.  Tensor arguments are recorded as copies
+    taken at the call: a model's means are its save runner's buffers, which
+    its next training call overwrites."""
+    import torch
+
     calls, real = [], getattr(module, name)
+
+    def snap(x):
+        return x.clone() if torch.is_tensor(x) else x
 
     def record(*args, **kw):
         gen = _generator_of(args, kw)
         before = gen.get_state()
+        inputs = (tuple(snap(a) for a in args), {k: snap(v) for k, v in kw.items()})
         _sync()
         t0 = time.perf_counter()
         out = real(*args, **kw)
         _sync()
-        calls.append((args, kw, (before, gen.get_state()), out, time.perf_counter() - t0))
+        calls.append((*inputs, (before, gen.get_state()), out, time.perf_counter() - t0))
         return out
 
     setattr(module, name, record)
@@ -3528,7 +3546,9 @@ def compiled_loops_phase(seed: int, corpus, dicti, cascade_model, jel) -> dict:
         second = model.run_test(corpus.test_docs, it, thinning)
     loop_s = [_same_as_eager(eager_fold_in, call, f"Labeled-LDA fold-in, run_test {n + 1}")
               for n, call in enumerate(calls)]
-    _check(calls[1][0][0] is model.ph_hat and not np.array_equal(first, second),
+    _check(torch.equal(calls[1][0][0], model.ph_hat)
+           and not torch.equal(calls[0][0][0], calls[1][0][0])
+           and not np.array_equal(first, second),
            "the second run_test folds in against the new φ̂ (another θ̂)")
     phi, tv, tf, mask, alpha = calls[1][0][:5]
     D, U = tv.shape
@@ -3612,6 +3632,8 @@ TG_LOCAL = (20, 10)  # LocalLDA (iters; thinning) of the phase, M = 1: 20 blocks
 TG_CHAINS = 8  # a rank's chains, with 4 buckets
 TG_TIMED = 5  # merge blocks or sweeps timed back to back
 TG_ROUTES = ("interior gaps", "A=56", f"A={32 * 8 + 8}")  # edge_cases of each route
+TG_DENSE = (10, 5)  # (iters; thinning) of the dense Labeled-LDA and AD-LDA calls
+DIVISOR_SAVES = 50  # saves of the divisor check
 ALPHA_TG, BETA_TG = 0.1, 0.01
 
 
@@ -3634,20 +3656,32 @@ def _flat(state) -> list:
 
 
 def eager_training(model, iters: int, thinning: int, total_iters=None,
-                   perplexity: bool = False) -> dict:
-    """``run_training`` of a ``LabeledLDA`` (fused or compact) or a
-    ``LocalLDA`` (fused) from its current state, without ``continue_avg``,
-    as eager calls of the functional sweeps: each merge block one
-    ``fused_train_block_buckets``, each compact sweep one ``compact_sweep``,
-    drawing from a copy of the model's generator; the saves and the
-    perplexity sums as ``run_training`` makes them.  The reference of the
-    replayed training loops; the model is left as it was.  Returns the state,
-    the thinned means ``ph (V, Kp)`` and ``th`` (per bucket), the positive
-    perplexities and the generator's state after."""
+                   perplexity: bool = False, continue_avg: bool = False) -> dict:
+    """``run_training`` of a ``LabeledLDA`` (fused, dense or compact) or a
+    ``LocalLDA`` (fused or dense) from its current state as eager calls of
+    the functional sweeps: each merge block one ``fused_train_block_buckets``,
+    each exact sweep of a bucket one ``exact_sweep`` or ``compact_sweep``,
+    drawing from a copy of the model's generator; each save's estimates,
+    thinned means (``running_average``; with ``continue_avg``, a
+    ``LabeledLDA``'s means and save count carried on) and perplexity sums
+    as functional calls.  The reference of the replayed training loops; the
+    model is left as it was.  Returns the state, the thinned means ``ph (V,
+    Kp)`` and ``th`` (per bucket), the positive perplexities and the
+    generator's state after."""
     import torch
 
-    from lda_thesis_tpu_torch.models.state import phi_from_counts, running_average
-    from lda_thesis_tpu_torch.ops.gibbs import compact_sweep, log_likelihood, theta_from_compact
+    from lda_thesis_tpu_torch.models.state import (
+        phi_from_counts,
+        running_average,
+        theta_from_counts,
+    )
+    from lda_thesis_tpu_torch.ops.gibbs import (
+        compact_sweep,
+        exact_sweep,
+        live_rows,
+        log_likelihood,
+        theta_from_compact,
+    )
     from lda_thesis_tpu_torch.ops.gibbs_fused import (
         fused_train_block_buckets,
         select_merge_block,
@@ -3661,38 +3695,56 @@ def eager_training(model, iters: int, thinning: int, total_iters=None,
     z_t = None
     if model.sweep == "fused":
         merge = select_merge_block(model.merge_every, thinning, total_iters or iters)
-        theta = theta_from_fused
+
+        def theta(g):
+            return theta_from_fused(st.n_dk[g], model.lab_ids_t[g], model.lab_valid_t[g],
+                                    alpha, model.Kp)
 
         def block(st, m):
             return fused_train_block_buckets(st, model._toks_v_t, model._toks_f_t,
                                              model.lab_ids_t, model._lab_valid_tt, alpha, beta,
                                              m, generator=gen)
     else:
-        _check(model.sweep == "compact", f"eager_training runs no {model.sweep!r} sweep")
-        merge, theta = 1, theta_from_compact
+        _check(model.sweep in ("dense", "compact"), f"eager_training runs no {model.sweep!r} sweep")
+        merge = 1
         z_t = [z.T.clone(memory_format=torch.contiguous_format) for z in st.z]
         vbeta = float(model.V * beta)
+        live = [live_rows(tv, tf) for tv, tf in zip(model._toks_v_t, model._toks_f_t)]
+
+        def theta(g):
+            if model.sweep == "dense":
+                return theta_from_counts(st.n_dk[g], model.labs_t[g], alpha)
+            return theta_from_compact(st.n_dk[g], model.lab_ids_t[g], model.lab_valid_t[g],
+                                      alpha, model.Kp)
 
         def block(st, m):
             for _ in range(m):
                 for g in range(G):
                     tv, tf = model._toks_v_t[g], model._toks_f_t[g]
                     u = torch.rand(tuple(tv.shape), generator=gen, device=dev)
-                    z_t[g] = compact_sweep(z_t[g], st.n_dk[g], st.n_vk, st.n_k, tv, tf,
-                                           model.lab_ids_t[g], model.lab_valid_t[g], alpha,
-                                           beta, vbeta, u)
+                    if model.sweep == "dense":
+                        exact_sweep(z_t[g], st.n_dk[g], st.n_vk, st.n_k, tv, tf,
+                                    model.labs_t[g], alpha, beta, vbeta, u, live=live[g])
+                    else:
+                        z_t[g] = compact_sweep(z_t[g], st.n_dk[g], st.n_vk, st.n_k, tv, tf,
+                                               model.lab_ids_t[g], model.lab_valid_t[g], alpha,
+                                               beta, vbeta, u)
             return st
-    ph = torch.zeros((model.V, model.Kp), dtype=torch.float32, device=dev)
-    th = [torch.zeros((len(ix), model.Kp), dtype=torch.float32, device=dev)
-          for ix in model.buckets.doc_idx]
+    carried = continue_avg and getattr(model, "_avg_s", 0) > 0
+    if carried:
+        ph, th, s0 = model.ph_hat.clone(), [t.clone() for t in model._th_hat_t], model._avg_s
+    else:
+        ph = torch.zeros((model.V, model.Kp), dtype=torch.float32, device=dev)
+        th = [torch.zeros((len(ix), model.Kp), dtype=torch.float32, device=dev)
+              for ix in model.buckets.doc_idx]
+        s0 = 0
     perps = []
     n_save = iters // thinning
-    for s in range(1, n_save + 1):
+    for s in range(s0 + 1, s0 + n_save + 1):
         for _ in range(thinning // merge):
             st = block(st, merge)
         cur_ph = phi_from_counts(st.n_vk, st.n_k, beta, model.topic_mask)
-        cur_th = [theta(st.n_dk[g], model.lab_ids_t[g], model.lab_valid_t[g], alpha, model.Kp)
-                  for g in range(G)]
+        cur_th = [theta(g) for g in range(G)]
         ph = running_average(ph, cur_ph, s)
         th = [running_average(t, c, s) for t, c in zip(th, cur_th)]
         if perplexity:
@@ -3772,6 +3824,46 @@ def eager_chains_training(model, iters: int, thinning: int, total_iters=None) ->
         train_blocks(block, save, step, int(thinning), M)
     st = box[0]
     return dict(tensors=[*st.z, *st.n_dk, st.n_vk, st.n_k, box[1], *box[2]], s=box[3],
+                generators=[g.get_state() for g in gens])
+
+
+def eager_dense_chains_training(model, iters: int, thinning: int) -> dict:
+    """``DistributedLabeledLDA.run_training`` of one rank in the dense
+    AD-LDA layout (``sweep="dense"``) as eager calls: each sweep one
+    ``exact_sweep`` over the chain axis, chain c's uniforms from a copy of
+    its generator; each save every chain's φ (``phi_chains``) and θ
+    (``theta_from_counts`` over the chain axis) folded in by
+    ``running_average``.  The model is left as it was; returns what
+    :func:`chains_equal` reads."""
+    import torch
+
+    from lda_thesis_tpu_torch.models.state import running_average, theta_from_counts
+    from lda_thesis_tpu_torch.ops.gibbs import exact_sweep, live_rows
+    from lda_thesis_tpu_torch.parallel.sharded import phi_chains
+
+    _check(model.mesh.shape["data"] == 1 and model.sweep == "dense",
+           "eager_dense_chains_training: one data shard, the dense layout")
+    s, c = model.state, model.corpus
+    gens = [_copy_generator(g) for g in model._gens]
+    tv_t = c.tok_v.T.contiguous()
+    tf_t = c.tok_f.T.to(torch.float32).contiguous()
+    live = live_rows(tv_t, tf_t)
+    z_t = s.z.transpose(1, 2).contiguous()
+    n_dk, n_vk, n_k = s.n_dk.clone(), s.n_vk.clone(), s.n_k.clone()
+    ph, th, n = s.ph_hat.clone(), s.th_hat.clone(), s.s
+    vbeta = float(n_vk.shape[1] * model.beta)
+    u = torch.empty(tuple(z_t.shape), dtype=torch.float32, device=z_t.device)
+    for i in range(int(iters)):
+        for uc, gen in zip(u, gens):
+            torch.rand(tuple(uc.shape), generator=gen, out=uc)
+        exact_sweep(z_t, n_dk, n_vk, n_k, tv_t, tf_t, c.labs, model.alpha, model.beta, vbeta,
+                    u, live=live)
+        if (i + 1) % int(thinning) == 0:
+            n += 1
+            ph = running_average(ph, phi_chains(n_vk, n_k, model.beta, vbeta,
+                                                model.topic_mask), n)
+            th = running_average(th, theta_from_counts(n_dk, c.labs, model.alpha), n)
+    return dict(tensors=[*z_t.transpose(1, 2), *n_dk, n_vk, n_k, ph, *th], s=n,
                 generators=[g.get_state() for g in gens])
 
 
@@ -3857,11 +3949,38 @@ def replayed_blocks_case(device, seed: int, name: str, calls: int = 3, chains: i
 
 
 
-def _tg_call(model, train, eager, what: str, launches: int) -> dict:
+def _runners(model) -> list:
+    """The kept training runners (``ops/gibbs._Replayed``) of ``model``: a
+    ``LabeledLDA``'s or ``LocalLDA``'s blocks or sweeps and saves, or one
+    rank's of a ``DistributedLabeledLDA`` (replicated layouts)."""
+    if hasattr(model, "mesh"):
+        loop = model._loop
+        runs = (() if loop is None else (loop._sweep, loop._saves) if model.sweep == "dense"
+                else (loop.blocks.run, loop.blocks.saves))
+    else:
+        runs = (model._fused, *(model._exact.runs if model._exact else ()), model._save)
+    return [r for r in runs if r is not None]
+
+
+def replay_counts(model) -> tuple:
+    """(graphs captured, bodies run eagerly) so far by ``model``'s kept
+    runners: on a card each key's first call runs its body eagerly and its
+    second captures it."""
+    runs = _runners(model)
+    return sum(len(r._graphs) for r in runs), sum(len(r._key_calls) for r in runs)
+
+
+def _tg_call(model, train, eager, what: str, launches: int, kernel2=None,
+             warm: bool = False) -> dict:
     """One ``run_training`` call (``train``) held to its eager loop
     (``eager``, run first from the same state): bitwise, with ``launches``
-    kernel-1 launches counted in the call; the seconds of both (host clock,
-    synchronized) and the call's launches by route (all, warp, general)."""
+    kernel-1 launches counted in the call and, given ``kernel2``, that many
+    (draw, commit) launches of kernel 2; with ``warm`` (a model's call after
+    one of the same settings), no graph captured and no body run eagerly.
+    Returns the seconds of both (host clock, synchronized), the call's
+    kernel-1 launches by route (all, warp, general) and its captures and
+    eager bodies."""
+    from lda_thesis_tpu_torch.ops import draw_update_cuda as duc
     from lda_thesis_tpu_torch.ops import fused_block_cuda as fbc
 
     perps = len(getattr(model, "cur_perplx", ()))
@@ -3870,18 +3989,25 @@ def _tg_call(model, train, eager, what: str, launches: int) -> dict:
     want = eager()
     _sync()
     eager_s = time.perf_counter() - t0
-    before = _route_counts(fbc)
+    before, k2, runs = _route_counts(fbc), (duc.launches, duc.commit_launches), replay_counts(model)
     t0 = time.perf_counter()
     train()
     _sync()
     train_s = time.perf_counter() - t0
     counted = [a - b for a, b in zip(_route_counts(fbc), before)]
     _check(counted[0] == launches, f"{what}: kernel-1 launches {counted[0]} == {launches}")
+    k2 = (duc.launches - k2[0], duc.commit_launches - k2[1])
+    if kernel2 is not None:
+        _check(k2 == tuple(kernel2), f"{what}: kernel-2 launches {k2} == {tuple(kernel2)}")
+    fresh = [a - b for a, b in zip(replay_counts(model), runs)]
+    if warm:
+        _check(fresh == [0, 0], f"{what}: no graph captured and no body run eagerly ({fresh})")
     same = (chains_equal(model, want) if hasattr(model, "mesh")
             else training_equal(model, want, perps))
     _check(same, f"{what}: the replayed run == the eager loop, bitwise (z, n_dk, n_vk, n_k, "
                  f"φ̂, θ̂, perplexities, generator)")
-    return dict(train_s=train_s, eager_s=eager_s, launches=counted)
+    return dict(train_s=train_s, eager_s=eager_s, launches=counted, kernel2=list(k2),
+                captures=fresh[0], eager_bodies=fresh[1], warm=warm)
 
 
 def _host_ms(fn, reps: int) -> float:
@@ -3993,22 +4119,184 @@ def compact_sweeps_case(model, seed: int) -> list:
     return out
 
 
+def _old_average(avg, cur, s: int):
+    """The thinned mean as the port computed it before the save index went
+    on the device: ``keep * avg + cur / float(s)`` with host numbers."""
+    if s <= 1:
+        return cur.clone()
+    s32 = np.float32(s)
+    return float((s32 - np.float32(1.0)) / s32) * avg + cur / float(s32)
+
+
+def divisor_check(model, seed: int) -> dict:
+    """Whether the thinned mean with its weights in device scalars
+    (``running_average``, and ``running_average_`` in place) has the bits
+    of the host-number form (:func:`_old_average`) on the card, at saves
+    s = 1 … ``DIVISOR_SAVES`` of φ̂ (V, Kp) and every bucket's θ̂ of
+    ``model`` (a fused ``LabeledLDA``), one merge block of its runner
+    between saves (the model's chain moves on; its generator does not).
+    Returns the count of elements whose bits differ at each s, by form."""
+    import torch
+
+    from lda_thesis_tpu_torch.models.labeled_lda import fused_blocks
+    from lda_thesis_tpu_torch.models.state import (
+        AverageWeights,
+        running_average,
+        running_average_,
+    )
+
+    run = fused_blocks(model, model.alpha, model.beta)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed + 17)
+    avgs, counts = None, {"functional": [], "in_place": []}
+
+    def differ(a, b) -> int:
+        return int((a.contiguous().view(torch.int32) != b.contiguous().view(torch.int32)).sum())
+
+    for s in range(1, DIVISOR_SAVES + 1):
+        run(THINNING, generator=gen)
+        cur_ph, cur_th = model._cur_estimates()
+        curs = [cur_ph, *cur_th]
+        avgs = [torch.zeros_like(c) for c in curs] if avgs is None else avgs
+        old = [_old_average(a, c, s) for a, c in zip(avgs, curs)]
+        w = AverageWeights(DEVICE, s)
+        counts["functional"].append(sum(differ(running_average(a, c, s), o)
+                                        for a, c, o in zip(avgs, curs, old)))
+        counts["in_place"].append(sum(differ(running_average_(a.clone(), c, w), o)
+                                      for a, c, o in zip(avgs, curs, old)))
+        avgs = old
+    elements = sum(int(a.numel()) for a in avgs)
+    same = not any(counts["functional"]) and not any(counts["in_place"])
+    print(f"divisor check: keep·avg + cur·(1/s) with the weights in device scalars "
+          f"{'==' if same else '!='} keep·avg + cur/float(s) bitwise at s = 1..{DIVISOR_SAVES} "
+          f"on φ̂ and {len(avgs) - 1} buckets' θ̂ ({elements} elements a save); differing "
+          f"elements by save: functional {counts['functional']}, in place "
+          f"{counts['in_place']}")
+    return dict(bitwise=same, saves=DIVISOR_SAVES, elements=elements, **counts)
+
+
+def save_timing(model) -> dict:
+    """The save step of ``model`` (a ``LabeledLDA`` whose saves replay
+    graphs with perplexity off and on), on a copy of its means (a second
+    ``SaveStep`` whose body runs eagerly): per setting, the nodes of the
+    save's body, device ms per save of the eager body and of the model's
+    runner call (weights refilled, then the replay; CUDA events around
+    ``TG_TIMED`` saves made back to back) and the host's ms to issue each
+    (``_host_ms``).  The model's means are the runner's and take the timed
+    saves; a later call without ``continue_avg`` starts them anew."""
+    from lda_thesis_tpu_torch.ops.gibbs import SaveStep
+
+    run = model._save
+    _check(set(run._graphs) == {False, True},
+           "the saves replay a graph with perplexity off and on")
+    probe = SaveStep(run.ph_hat, run.th_hat)
+    probe._graphed = False
+    out = {}
+    for p in (False, True):
+        loglik = model._perplexity_of if p else None
+
+        def eager(loglik=loglik):
+            probe(2, model._cur_estimates, loglik)
+
+        def replayed(loglik=loglik):
+            run(2, model._cur_estimates, loglik)
+
+        out["perplexity_on" if p else "perplexity_off"] = dict(
+            graph_nodes=_captured_nodes(lambda: probe._body(model._cur_estimates, loglik)),
+            eager_ms=_batch_ms(eager, TG_TIMED), replay_ms=_batch_ms(replayed, TG_TIMED),
+            eager_host_ms=_host_ms(eager, TG_TIMED), replay_host_ms=_host_ms(replayed, TG_TIMED))
+    for key, t in out.items():
+        print(f"  a save, {key.replace('_', ' ')}: {t['graph_nodes']} graph nodes; device ms "
+              f"eager {t['eager_ms']:.4f}, replayed {t['replay_ms']:.4f}; host ms to issue "
+              f"eager {t['eager_host_ms']:.4f}, replayed {t['replay_host_ms']:.4f}")
+    return out
+
+
+def merge_block_split(run, M: int) -> dict:
+    """Where a replayed merge block's device time goes, at the runner's
+    shapes: the block's nodes and device ms from one replay's profiler
+    records (``_most_records``), beside the records of each step of
+    ``fused_train_block`` run alone over the four buckets on the runner's
+    static state and uniforms (``gather_cv``, the slot pick
+    ``slot_totals``, kernel 1, ``_scatter_deltas``): records, nodes and
+    device ms each.  The kernel counters are left as they were."""
+    from lda_thesis_tpu_torch.ops import fused_block_cuda as fbc
+    from lda_thesis_tpu_torch.ops.gibbs_fused import (
+        _scatter_deltas,
+        fused_block,
+        gather_cv,
+        slot_totals,
+    )
+
+    st, (tvs, tfs, lis, lvs) = run.state, run._inputs
+    alpha, beta = run._consts
+    vbeta = float(st.n_vk.shape[-2]) * beta if run._vbeta is None else run._vbeta
+    us = run._u[M]
+    cvs = [gather_cv(st.n_vk, tv, li) for tv, li in zip(tvs, lis)]
+    nkgs = [slot_totals(st.n_k, li, vbeta) for li in lis]
+    counts = _route_counts(fbc)
+
+    def kernel():
+        return [fused_block(cv, tf, u, z, nkg, lv, nd, alpha, beta)
+                for cv, tf, u, z, nkg, lv, nd in zip(cvs, tfs, us, st.z, nkgs, lvs, st.n_dk)]
+
+    z1s = [z for z, _ in kernel()]
+    steps = {
+        "gather_cv": lambda: [gather_cv(st.n_vk, tv, li) for tv, li in zip(tvs, lis)],
+        "slot_totals": lambda: [slot_totals(st.n_k, li, vbeta) for li in lis],
+        "kernel 1": kernel,
+        "_scatter_deltas": lambda: [_scatter_deltas(st.n_vk, tv, tf, li, z0, z1)
+                                    for tv, tf, li, z0, z1 in zip(tvs, tfs, lis, st.z, z1s)],
+    }
+    out = {}
+    for name, fn in steps.items():
+        nodes = _captured_nodes(fn)
+        records, ms = _most_records(fn, nodes)[""]
+        out[name] = dict(nodes=nodes, records=records, device_ms=ms)
+    graph = run._graphs[M][0]
+    nodes = _captured_nodes(lambda: run._body(us))
+    records, ms = _most_records(graph.replay, nodes)[""]
+    out["replayed block"] = dict(nodes=nodes, records=records, device_ms=ms)
+    fbc.launches, fbc.warp_launches, fbc.general_launches = counts
+    print("  a replayed merge block's device time by step (profiler records, "
+          f"{len(tvs)} buckets): " + "; ".join(
+              f"{name} {t['device_ms']:.4f} ms ({t['records']} records, {t['nodes']} nodes)"
+              for name, t in out.items()))
+    return out
+
+
+def _tg_warm_line(calls: list) -> str:
+    """The wall of the calls that followed one of the same settings, and
+    their captures and eager bodies (zero each)."""
+    warm = [c for c in calls if c["warm"]]
+    return (f"a later call {min(c['train_s'] for c in warm):.4f} s wall, "
+            f"{sum(c['captures'] for c in warm)} graphs captured and "
+            f"{sum(c['eager_bodies'] for c in warm)} bodies run eagerly in "
+            f"{len(warm)} later calls")
+
+
 def training_graphs_phase(seed: int, corpus, dicti, card: str) -> dict:
     """The training loops as replayed CUDA graphs (phase 16), each at full
-    width against its eager loop of functional calls, bit for bit: a
-    replayed block on each of kernel 1's routes (``replayed_blocks_case``
-    at ``TG_ROUTES``' edge shapes); ``LabeledLDA`` fused (50; 25) with
-    perplexity off and on; ``LocalLDA`` at K = 20 (staged route) and K = 50
-    (warp route), (20; 10); one rank of ``TG_CHAINS`` chains with 4 buckets;
-    ``LabeledLDA`` compact (10; 5).  For each: the block's (or sweep's)
-    graph nodes, device ms per block eager and replayed, tokens/s and the
-    device's idle share of a profiled call, and peak device memory."""
+    width against its eager loop of functional calls, bit for bit, the
+    saves replayed too: a replayed block on each of kernel 1's routes
+    (``replayed_blocks_case`` at ``TG_ROUTES``' edge shapes); the divisor
+    check (``divisor_check``); ``LabeledLDA`` fused (50; 25) with
+    perplexity off and on, and a call that carries the means on; ``LocalLDA``
+    at K = 20 (staged route) and K = 50 (warp route), fused, and dense, (20;
+    10); one rank of ``TG_CHAINS`` chains with 4 buckets (50; 25) and of
+    ``TG_CHAINS`` dense AD-LDA chains ``TG_DENSE``; ``LabeledLDA`` dense
+    ``TG_DENSE`` and compact (10; 5).  A model's later calls of one setting
+    capture no graph and run no body eagerly.  For each: the block's (or
+    sweep's) graph nodes, device ms per block eager and replayed, tokens/s
+    and the device's idle share of a profiled call, and peak device memory;
+    for the fused path also a save's nodes and times, eager and replayed
+    (``save_timing``), and a replayed block's device time by step
+    (``merge_block_split``)."""
     import torch
 
     from lda_thesis_tpu_torch.data.synthetic import planted_corpus
     from lda_thesis_tpu_torch.models.labeled_lda import LabeledLDA
     from lda_thesis_tpu_torch.models.local_lda import LocalLDA
-    from lda_thesis_tpu_torch.ops import fused_block_cuda as fbc
     from lda_thesis_tpu_torch.ops.gibbs_fused import fused_train_block_buckets
     from lda_thesis_tpu_torch.parallel import make_mesh
 
@@ -4030,17 +4318,38 @@ def training_graphs_phase(seed: int, corpus, dicti, card: str) -> dict:
             g.manual_seed(seed + 7 + j)
         return gens if chains else gens[0]
 
-    # Labeled LDA, fused (50; 25), perplexity off and on
+    def labeled(**kw):
+        return LabeledLDA(corpus.train_docs, corpus.train_labs, corpus.labelset, dicti,
+                          alpha=0.1, beta=0.01, seed=seed, device=DEVICE, **kw)
+
+    def dense_plan(model, iters):
+        plan = [planned_sweep_launches(tf) for tf in model._toks_f_t]
+        return iters * sum(p[0] for p in plan), iters * sum(p[1] for p in plan)
+
+    # the divisor check, on a model of its own
+    probe = labeled(n_buckets=4)
+    rec["divisor"] = divisor_check(probe, seed)
+    del probe
+
+    # Labeled LDA, fused (50; 25), perplexity off and on, then a call that
+    # carries the means on
     torch.cuda.reset_peak_memory_stats()
-    model = LabeledLDA(corpus.train_docs, corpus.train_labs, corpus.labelset, dicti,
-                       alpha=0.1, beta=0.01, seed=seed, n_buckets=4, device=DEVICE)
+    model = labeled(n_buckets=4)
     G, blocks = model.buckets.n_buckets, TRAIN_ITERS // 25
     calls = [_tg_call(model,
                       lambda p=p: model.run_training(TRAIN_ITERS, THINNING, perplexity=p,
                                                      total_iters=TOTAL_ITERS),
                       lambda p=p: eager_training(model, TRAIN_ITERS, THINNING, TOTAL_ITERS, p),
-                      f"Labeled-LDA fused (50; 25), perplexity {p}, call {n + 1}", blocks * G)
+                      f"Labeled-LDA fused (50; 25), perplexity {p}, call {n + 1}", blocks * G,
+                      warm=n > 0)
              for p in (False, True) for n in range(TG_CALLS)]
+    calls.append(_tg_call(
+        model, lambda: model.run_training(TRAIN_ITERS, THINNING, continue_avg=True,
+                                          total_iters=TOTAL_ITERS),
+        lambda: eager_training(model, TRAIN_ITERS, THINNING, TOTAL_ITERS, True,
+                               continue_avg=True),
+        "Labeled-LDA fused (50; 25), perplexity True, continue_avg", blocks * G, warm=True))
+    _check(model._avg_s == 4, f"continue_avg carried the save count on ({model._avg_s})")
     run, M, st = model._fused, model._merge_M, _state_copy(model.counts)
     eager_gen = gen_of()
     r = dict(calls=calls, block=_tg_block_timing(
@@ -4048,8 +4357,8 @@ def training_graphs_phase(seed: int, corpus, dicti, card: str) -> dict:
                                                model.lab_ids_t, model._lab_valid_tt,
                                                model.alpha, model.beta, M,
                                                generator=eager_gen), M, gen_of()))
-    r["save_ms"] = _batch_ms(model._cur_estimates, TG_TIMED)
-    r["save_host_ms"] = _host_ms(model._cur_estimates, TG_TIMED)
+    r["save"] = save_timing(model)
+    r["block_split"] = merge_block_split(run, M)
     tokens = model.n_tokens * TRAIN_ITERS
     for p in (False, True):
         r[f"profile_perplexity_{'on' if p else 'off'}"] = _tg_profile(
@@ -4059,11 +4368,13 @@ def training_graphs_phase(seed: int, corpus, dicti, card: str) -> dict:
     r["graphs"] = sorted(run._graphs)
     _check_counts(model.counts, float(model.n_tokens), "training graphs, Labeled-LDA fused")
     _tg_print("Labeled-LDA fused (50; 25)", r)
+    print(f"  Labeled-LDA fused (50; 25): {_tg_warm_line(calls)}")
     rec["labeled_fused"] = r
     del model, run, st
     torch.cuda.empty_cache()
 
-    # LocalLDA at K = 20 (staged route) and K = 50 (warp route), (20; 10), M = 1
+    # LocalLDA at K = 20 (staged route) and K = 50 (warp route), (20; 10), M = 1,
+    # and dense at K = 20
     local = planted_corpus(seed, V=LOCAL_V)
     texts = [" ".join(csv_word(int(w[1:])) for w in d)
              for d in local.train_docs + local.test_docs]
@@ -4074,7 +4385,7 @@ def training_graphs_phase(seed: int, corpus, dicti, card: str) -> dict:
         calls = [_tg_call(m, lambda: m.run_training(iters, thinning),
                           lambda: eager_training(m, iters, thinning),
                           f"LocalLDA K = {K} ({iters}; {thinning}), call {n + 1}",
-                          iters * m.buckets.n_buckets)
+                          iters * m.buckets.n_buckets, warm=n > 0)
                  for n in range(TG_CALLS)]
         warp = sum(c["launches"][1] for c in calls)
         _check(warp == (TG_CALLS * iters if K > 32 else 0),
@@ -4090,9 +4401,29 @@ def training_graphs_phase(seed: int, corpus, dicti, card: str) -> dict:
         r["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
         _check_counts(m.counts, float(m.n_tokens), f"training graphs, LocalLDA K = {K}")
         _tg_print(f"LocalLDA K = {K} (D={m.D}, A={m.A}, M = 1, ({iters}; {thinning}))", r)
+        print(f"  LocalLDA K = {K}: {_tg_warm_line(calls)}")
         rec[f"local_k{K}"] = r
         del m, run, st
         torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    m = LocalLDA(texts, alpha=0.1, beta=0.01, K=20, seed=seed, sweep="dense", device=DEVICE)
+    calls = [_tg_call(m, lambda: m.run_training(iters, thinning),
+                      lambda: eager_training(m, iters, thinning),
+                      f"LocalLDA dense K = 20 ({iters}; {thinning}), call {n + 1}", 0,
+                      kernel2=dense_plan(m, iters), warm=n > 0)
+             for n in range(TG_CALLS)]
+    r = dict(calls=calls, profile=_tg_profile(lambda: m.run_training(iters, thinning),
+                                              m.n_tokens * iters),
+             peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    _check_counts(m.counts, float(m.n_tokens), "training graphs, LocalLDA dense")
+    p = r["profile"]
+    print(f"training graphs, LocalLDA dense K = 20 ({iters}; {thinning}): {len(calls)} calls "
+          f"replayed == eager loop, bitwise; {p['tokens_per_s']:.4g} tokens/s, idle share "
+          f"{p['idle_share']:.4f}; peak {r['peak_gb']:.2f} GB; "
+          + _tg_warm_line(calls))
+    rec["local_dense"] = r
+    del m
+    torch.cuda.empty_cache()
 
     # one rank of TG_CHAINS chains, 4 buckets, (50; 25)
     torch.cuda.reset_peak_memory_stats()
@@ -4101,7 +4432,7 @@ def training_graphs_phase(seed: int, corpus, dicti, card: str) -> dict:
                                                   total_iters=TOTAL_ITERS),
                       lambda: eager_chains_training(cm, TRAIN_ITERS, THINNING, TOTAL_ITERS),
                       f"{TG_CHAINS} chains, 4 buckets, (50; 25), call {n + 1}",
-                      blocks * cm.n_buckets)
+                      blocks * cm.n_buckets, warm=n > 0)
              for n in range(TG_CALLS)]
     run, s, M = cm._loop.blocks.run, cm.state, cm._merge_M
     st = _state_copy(type(run.state)(s.z, s.n_dk, s.n_vk, s.n_k))
@@ -4116,19 +4447,62 @@ def training_graphs_phase(seed: int, corpus, dicti, card: str) -> dict:
         TG_CHAINS * cm.n_tokens * TRAIN_ITERS)
     r["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     _tg_print(f"{TG_CHAINS} chains, 4 buckets, (50; 25)", r)
+    print(f"  {TG_CHAINS} chains: {_tg_warm_line(calls)}")
     rec[f"chains_{TG_CHAINS}"] = r
     del cm, run, st
     torch.cuda.empty_cache()
 
+    # one rank of TG_CHAINS dense AD-LDA chains, TG_DENSE
+    iters, thinning = TG_DENSE
+    torch.cuda.reset_peak_memory_stats()
+    dm = _md_model(corpus, dicti, seed, make_mesh(device=DEVICE), TG_CHAINS, sweep="dense")
+    draws, commits = planned_sweep_launches(dm.corpus.tok_f.T.to(torch.float32))
+    calls = [_tg_call(dm, lambda: dm.run_training(iters, thinning),
+                      lambda: eager_dense_chains_training(dm, iters, thinning),
+                      f"{TG_CHAINS} dense AD-LDA chains ({iters}; {thinning}), call {n + 1}",
+                      0, kernel2=(iters * draws, iters * commits), warm=n > 0)
+             for n in range(TG_CALLS)]
+    r = dict(calls=calls, profile=_tg_profile(lambda: dm.run_training(iters, thinning),
+                                              TG_CHAINS * dm.n_tokens * iters),
+             peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    p = r["profile"]
+    print(f"training graphs, {TG_CHAINS} dense AD-LDA chains ({iters}; {thinning}): "
+          f"{len(calls)} calls replayed == eager loop, bitwise; {p['tokens_per_s']:.4g} "
+          f"tokens/s, idle share {p['idle_share']:.4f}; peak {r['peak_gb']:.2f} GB; "
+          + _tg_warm_line(calls))
+    rec[f"dense_chains_{TG_CHAINS}"] = r
+    del dm
+    torch.cuda.empty_cache()
+
+    # Labeled LDA, dense TG_DENSE, perplexity on
+    torch.cuda.reset_peak_memory_stats()
+    model = labeled(sweep="dense")
+    calls = [_tg_call(model, lambda: model.run_training(iters, thinning),
+                      lambda: eager_training(model, iters, thinning, perplexity=True),
+                      f"Labeled-LDA dense ({iters}; {thinning}), call {n + 1}", 0,
+                      kernel2=dense_plan(model, iters), warm=n > 0)
+             for n in range(TG_CALLS)]
+    r = dict(calls=calls, profile=_tg_profile(
+        lambda: model.run_training(iters, thinning, perplexity=False),
+        model.n_tokens * iters), peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    _check_counts(model.counts, float(model.n_tokens), "training graphs, Labeled-LDA dense")
+    p = r["profile"]
+    print(f"training graphs, Labeled-LDA dense ({iters}; {thinning}): {len(calls)} calls "
+          f"replayed == eager loop, bitwise; {p['tokens_per_s']:.4g} tokens/s with perplexity "
+          f"off, idle share {p['idle_share']:.4f}; peak {r['peak_gb']:.2f} GB; "
+          + _tg_warm_line(calls))
+    rec["labeled_dense"] = r
+    del model
+    torch.cuda.empty_cache()
+
     # Labeled LDA, compact (10; 5)
     torch.cuda.reset_peak_memory_stats()
-    model = LabeledLDA(corpus.train_docs, corpus.train_labs, corpus.labelset, dicti,
-                       alpha=0.1, beta=0.01, seed=seed, sweep="compact", device=DEVICE)
+    model = labeled(sweep="compact")
     calls = [_tg_call(model, lambda: model.run_training(COMPACT_ITERS, COMPACT_THINNING),
                       lambda: eager_training(model, COMPACT_ITERS, COMPACT_THINNING,
                                              perplexity=True),
                       f"Labeled-LDA compact ({COMPACT_ITERS}; {COMPACT_THINNING}), call "
-                      f"{n + 1}", 0)
+                      f"{n + 1}", 0, warm=n > 0)
              for n in range(TG_CALLS)]
     sweeps = compact_sweeps_case(model, seed)
     prof = _tg_profile(lambda: model.run_training(COMPACT_ITERS, COMPACT_THINNING,
@@ -4149,6 +4523,7 @@ def training_graphs_phase(seed: int, corpus, dicti, card: str) -> dict:
           f"{sum(t['replay_ms'] for t in sweeps):.4f}); {prof['tokens_per_s']:.4g} tokens/s "
           f"with perplexity off, idle share {prof['idle_share']:.4f}; peak "
           f"{r['peak_gb']:.2f} GB")
+    print(f"  Labeled-LDA compact: {_tg_warm_line(calls)}")
     rec["compact"] = r
     return rec
 

@@ -13,19 +13,24 @@ its three samplers:
   graph by the model's ``ops/gibbs_fused.FusedBlocks``, kept across calls;
 * ``sweep="dense"``: the exact per-position sweep over (D, K) lanes
   (ops/gibbs.exact_sweep); on a card a count commit and a draw kernel per
-  type position, each bucket's sweep captured once per ``run_training``
-  call as a CUDA graph and replayed (ops/gibbs.ExactSweep);
+  type position, each bucket's sweep captured once as a CUDA graph and
+  replayed (ops/gibbs.ExactSweep);
 * ``sweep="compact"``: the same exact sampler on each document's compact
   label slots (ops/gibbs.compact_sweep), in plain PyTorch, each bucket's
   sweep replayed the same way (ops/gibbs.CompactSweep).
 
-The fused path's state ``counts`` is its runner's static state, updated in
-place by every block; a state assigned to ``counts`` from elsewhere (a
-checkpoint load) is copied into the runner at the next ``run_training``.
+Each save (φ̂/θ̂ estimates, the thinned means and the perplexity) runs
+through the model's ``ops/gibbs.SaveStep``, on a card one replayed CUDA
+graph, as the JAX package's save block runs inside its jitted loop.
 
-The exact samplers keep their state position-major (``z_t (U_g, D_g)``)
-for the whole of a ``run_training`` call and write ``counts.z`` back in the
-JAX package's (D_g, U_g) layout at its end.
+The runners are made at the first training call and kept: the fused path's
+``FusedBlocks`` (``_fused``), the exact paths' ``ExactBuckets``
+(``_exact``, which keeps the state position-major, ``z_t (U_g, D_g)``, and
+writes ``counts.z`` back in the JAX package's (D_g, U_g) layout at each
+call's end) and the ``SaveStep`` (``_save``).  ``counts``, ``ph_hat`` and
+the per-bucket θ̂ are their static state, updated in place by every call; a
+state assigned from elsewhere (a checkpoint load) is copied into the
+runners at the next ``run_training``.
 
 The model runs on ``device`` (CUDA unless the caller passes ``"cpu"``) and
 draws from one ``torch.Generator`` on that device, seeded by ``seed``.  The
@@ -44,12 +49,15 @@ from ..data.buckets import BucketedDocs, bucket_encode
 from ..data.encode import binarize_labels, build_labelmap, compact_labels, encode_bow_types
 from ..ops.gibbs import (
     CompactSweep,
+    ExactBuckets,
     ExactSweep,
     FoldinSweep,
     LogLikelihood,
+    SaveStep,
     init_bucket_counts,
     init_bucket_counts_compact,
     theta_from_compact,
+    training_perplexity,
 )
 from ..ops.gibbs_fused import (
     FusedBlocks,
@@ -59,7 +67,7 @@ from ..ops.gibbs_fused import (
 )
 from .state import phi_from_counts, running_average, theta_from_counts
 
-__all__ = ["LabeledLDA", "fold_in_test", "check_merge_block", "fused_blocks"]
+__all__ = ["LabeledLDA", "fold_in_test", "check_merge_block", "fused_blocks", "exact_sweeps"]
 
 
 def check_merge_block(model, merge: int) -> None:
@@ -76,20 +84,45 @@ def check_merge_block(model, merge: int) -> None:
     model._merge_M = int(merge)
 
 
-def fused_blocks(model, alpha: float, beta: float) -> FusedBlocks:
-    """The fused merge-block runner of ``model`` (a ``LabeledLDA`` or a
-    ``LocalLDA``), made at its first training call and kept as
-    ``model._fused``, so later calls replay its graphs; ``model.counts``
-    becomes the runner's static state.  A state that replaced
-    ``model.counts`` since (a checkpoint load) is copied into the runner."""
-    run = model._fused
+def _kept(model, attr: str, make):
+    """The runner ``model.<attr>`` over ``model.counts``, made by ``make()``
+    at the model's first training call and kept, so later calls replay its
+    graphs; ``model.counts`` becomes the runner's static state.  A state
+    that replaced ``model.counts`` since (a checkpoint load) is copied into
+    the runner."""
+    run = getattr(model, attr)
     if run is None:
-        run = model._fused = FusedBlocks(model.counts, model._toks_v_t, model._toks_f_t,
-                                         model.lab_ids_t, model._lab_valid_tt, alpha, beta)
+        run = make()
+        setattr(model, attr, run)
     elif not run.holds(model.counts):
         run.load(model.counts)
     model.counts = run.state
     return run
+
+
+def fused_blocks(model, alpha: float, beta: float) -> FusedBlocks:
+    """The fused merge-block runner of ``model`` (a ``LabeledLDA`` or a
+    ``LocalLDA``), kept as ``model._fused`` (:func:`_kept`)."""
+    return _kept(model, "_fused", lambda: FusedBlocks(
+        model.counts, model._toks_v_t, model._toks_f_t, model.lab_ids_t,
+        model._lab_valid_tt, alpha, beta))
+
+
+def exact_sweeps(model, alpha: float, beta: float) -> ExactBuckets:
+    """The exact sweeps of ``model`` (``sweep="dense"``: an ``ExactSweep``
+    per bucket; ``"compact"``: a ``CompactSweep``), kept as ``model._exact``
+    (:func:`_kept`)."""
+    vbeta = float(model.V * beta)
+
+    def make(g, z_t, n_dk, n_vk, n_k):
+        tv, tf = model._toks_v_t[g], model._toks_f_t[g]
+        if model.sweep == "dense":
+            return ExactSweep(z_t, n_dk, n_vk, n_k, tv, tf, model.labs_t[g], alpha, beta,
+                              vbeta)
+        return CompactSweep(z_t, n_dk, n_vk, n_k, tv, tf, model.lab_ids_t[g],
+                            model.lab_valid_t[g], alpha, beta, vbeta)
+
+    return _kept(model, "_exact", lambda: ExactBuckets(model.counts, make))
 
 
 def _fold_in_init(phi: torch.Tensor, tok_v: torch.Tensor, tok_f: torch.Tensor,
@@ -197,6 +230,9 @@ class LabeledLDA:
         self._toks_v_t = tuple(tv.T.contiguous() for tv in self.toks_v)
         self._toks_f_t = tuple(
             self._t(x.T, torch.float32) for x in self.buckets.tok_f)
+        # per bucket (tok_v, tok_f as float32, token count): the perplexity's sums
+        self._ll_toks = tuple((tv, tf.to(torch.float32), tf.sum().to(torch.float32))
+                              for tv, tf in zip(self.toks_v, self.toks_f))
         self.lab_ids_t = tuple(self._t(lab_ids[i], torch.int64) for i in ix)
         self.lab_valid_t = tuple(self._t(lab_valid[i], torch.float32) for i in ix)
         self._lab_valid_tt = tuple(lv.T.contiguous() for lv in self.lab_valid_t)
@@ -218,20 +254,20 @@ class LabeledLDA:
 
         self.ph_hat = torch.zeros((self.V, self.Kp), dtype=torch.float32,
                                   device=self.device)
-        self._th_hat_t: Tuple[torch.Tensor, ...] = self._zeros_th()
+        self._th_hat_t: Tuple[torch.Tensor, ...] = tuple(
+            torch.zeros((len(ix), self.Kp), dtype=torch.float32, device=self.device)
+            for ix in self.buckets.doc_idx)
         self._avg_s = 0  # number of thinned saves folded into ph_hat/th_hat
         self.cur_perplx: List[float] = []
         self._ll: Optional[List[LogLikelihood]] = None
-        self._fused: Optional[FusedBlocks] = None  # the fused path's block runner
+        # the training runners, made at the first training call and kept
+        self._fused: Optional[FusedBlocks] = None  # the fused path's merge blocks
+        self._exact: Optional[ExactBuckets] = None  # the exact paths' sweeps
+        self._save: Optional[SaveStep] = None  # the saves
 
     def _t(self, x, dtype) -> torch.Tensor:
         return torch.as_tensor(np.ascontiguousarray(x)).to(
             device=self.device, dtype=dtype)
-
-    def _zeros_th(self) -> Tuple[torch.Tensor, ...]:
-        return tuple(
-            torch.zeros((len(ix), self.Kp), dtype=torch.float32, device=self.device)
-            for ix in self.buckets.doc_idx)
 
     # ---------------------------------------------------------------- train
 
@@ -248,14 +284,17 @@ class LabeledLDA:
                                  self.topic_mask)
         return cur_ph, tuple(self._theta(g) for g in range(self.buckets.n_buckets))
 
-    def _block(self, M: int) -> None:
-        """``M`` sweeps: one merge block (fused) or ``M`` exact sweeps."""
-        if self.sweep == "fused":
-            self._fused(M, generator=self._gen)
-            return
-        for _ in range(M):
-            for run in self._sweeps:
-                run(self._gen)
+    def _saves(self) -> SaveStep:
+        """The model's save runner (kept as ``_save``); ``ph_hat`` and the
+        per-bucket θ̂ become its static means, and means that replaced them
+        since (a checkpoint load) are copied in."""
+        run = self._save
+        if run is None:
+            run = self._save = SaveStep(self.ph_hat, self._th_hat_t)
+        elif not run.holds(self.ph_hat, self._th_hat_t):
+            run.load(self.ph_hat, self._th_hat_t)
+        self.ph_hat, self._th_hat_t = run.ph_hat, run.th_hat
+        return run
 
     def run_training(
         self,
@@ -274,81 +313,50 @@ class LabeledLDA:
         and the last block is cut short; ``total_iters`` is the full planned
         sweep count of a chunked run, so its merge block matches the
         uninterrupted run's.  The exact samplers run sweep by sweep.
-        ``continue_avg=True`` carries the running means across calls.  The
-        perplexities of the saves stay on the device until the call's end,
-        where the positive ones are appended to ``cur_perplx`` in order.
+        ``continue_avg=True`` carries the running means across calls.  Every
+        block or sweep and every save runs through the model's kept runners
+        (on a card, replayed CUDA graphs).  The perplexities of the saves
+        stay on the device until the call's end, where the positive ones are
+        appended to ``cur_perplx`` in order.
         """
         iters, thinning = int(iters), int(thinning)
         if self.sweep == "fused":
             budget = int(total_iters) if total_iters else iters
             merge = select_merge_block(self.merge_every, thinning, budget)
             check_merge_block(self, merge)
-            fused_blocks(self, self.alpha, self.beta)
+            blocks = fused_blocks(self, self.alpha, self.beta)
         else:
             merge = 1
-            # position-major z and private copies of the counts, which the
-            # exact sweeps update in place for the rest of this call
-            st = self.counts
-            self._z_t = [z.T.clone(memory_format=torch.contiguous_format) for z in st.z]
-            self.counts = st = type(st)(z=st.z, n_dk=tuple(x.clone() for x in st.n_dk),
-                                        n_vk=st.n_vk.clone(), n_k=st.n_k.clone())
-            # one sweep runner per bucket over this call's state: on a card
-            # the bucket's sweep becomes one CUDA graph, replayed
-            vbeta = float(self.V * self.beta)
-            self._sweeps = [
-                ExactSweep(self._z_t[g], st.n_dk[g], st.n_vk, st.n_k, self._toks_v_t[g],
-                           self._toks_f_t[g], self.labs_t[g], self.alpha, self.beta, vbeta)
-                if self.sweep == "dense" else
-                CompactSweep(self._z_t[g], st.n_dk[g], st.n_vk, st.n_k, self._toks_v_t[g],
-                             self._toks_f_t[g], self.lab_ids_t[g], self.lab_valid_t[g],
-                             self.alpha, self.beta, vbeta)
-                for g in range(self.buckets.n_buckets)]
+            blocks = exact_sweeps(self, self.alpha, self.beta)
+        saves = self._saves()
         if not (continue_avg and self._avg_s > 0):
-            self.ph_hat = torch.zeros_like(self.ph_hat)
-            self._th_hat_t = self._zeros_th()
+            saves.reset()
             self._avg_s = 0
+        loglik = self._perplexity_of if perplexity else None
         perps = []
         n_save_blocks = iters // thinning
         for _ in range(n_save_blocks):
             for _ in range(thinning // merge):
-                self._block(merge)
-            cur_ph, cur_th = self._cur_estimates()
+                blocks(merge, generator=self._gen)
             self._avg_s += 1
-            s = self._avg_s
-            self.ph_hat = running_average(self.ph_hat, cur_ph, s)
-            self._th_hat_t = tuple(
-                running_average(t, c, s) for t, c in zip(self._th_hat_t, cur_th))
+            p = saves(self._avg_s, self._cur_estimates, loglik)
             if perplexity:
-                perps.append(self._perplexity_of(cur_ph, cur_th))
+                perps.append(p.clone())
         left = iters - n_save_blocks * thinning
         while left > 0:
             m = min(merge, left)
-            self._block(m)
+            blocks(m, generator=self._gen)
             left -= m
         if self.sweep != "fused":
-            self.counts = self.counts._replace(
-                z=tuple(z.T.contiguous() for z in self._z_t))
-            del self._z_t
-            self._sweeps = None
+            blocks.doc_major()
         if perps:
             self.cur_perplx.extend(p for p in torch.stack(perps).tolist() if p > 0)
         self._check_ph_hat()
 
-    def _log_likelihoods(self, phi, thetas):
-        """``ops/gibbs.log_likelihood`` of each bucket, one ``LogLikelihood``
-        (on a card, a replayed CUDA graph) per bucket, kept across calls."""
-        if self._ll is None:
-            self._ll = [LogLikelihood(tv, tf) for tv, tf in zip(self.toks_v, self.toks_f)]
-        return [ll(th, phi) for ll, th in zip(self._ll, thetas)]
-
     def _perplexity_of(self, phi, thetas) -> torch.Tensor:
-        """The training perplexity of a save, a float32 scalar on the device."""
-        ll = torch.zeros((), dtype=torch.float32, device=self.device)
-        n = torch.zeros((), dtype=torch.float32, device=self.device)
-        for llg, ng in self._log_likelihoods(phi, thetas):
-            ll = ll + llg
-            n = n + ng.to(torch.float32)
-        return torch.exp(-ll / torch.clamp(n, min=1.0))
+        """The training perplexity of a save, a float32 scalar on the
+        device (``ops/gibbs.training_perplexity``, inside the save's body)."""
+        return training_perplexity(phi, thetas, self._ll_toks)
 
     @property
     def th_hat(self) -> np.ndarray:
@@ -424,8 +432,11 @@ class LabeledLDA:
         likelihood is summed per bucket on the host in float64, as in the
         JAX model."""
         phi, thetas = self._cur_estimates()
+        if self._ll is None:  # one LogLikelihood per bucket, kept (a replayed graph)
+            self._ll = [LogLikelihood(tv, tf) for tv, tf in zip(self.toks_v, self.toks_f)]
         ll, n = 0.0, 0
-        for llg, ng in self._log_likelihoods(phi, thetas):
+        for run, th in zip(self._ll, thetas):
+            llg, ng = run(th, phi)
             ll += float(llg)
             n += int(ng)
         return float(np.exp(-ll / max(n, 1)))

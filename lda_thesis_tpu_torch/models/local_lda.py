@@ -15,7 +15,11 @@ with every topic admissible:
   A > 32 (K > 32) takes the kernel's warp route up to A = 256.
 * ``sweep="dense"``: the exact per-position sweep (ops/gibbs.ExactSweep:
   the commit and draw kernels under a CUDA graph on a card) with an
-  all-ones mask over K and zeros up to Kp.
+  all-ones mask over K and zeros up to Kp, one runner per bucket kept across
+  calls (``models/labeled_lda.exact_sweeps``).
+
+Each save (the φ/θ estimates and the thinned means) runs through the
+model's ``ops/gibbs.SaveStep``, on a card one replayed CUDA graph.
 
 Deliberate deviations from the reference are the JAX package's: z-init
 draws one topic per type slot, and sentences split on ``! . ? , -``.  The
@@ -34,15 +38,15 @@ import torch
 from ..data.buckets import bucket_encode
 from ..data.textproc import prep_docs, split_sentences
 from ..data.vocab import Dictionary
-from ..ops.gibbs import ExactSweep, LogLikelihood, init_bucket_counts
+from ..ops.gibbs import ExactBuckets, LogLikelihood, SaveStep, init_bucket_counts
 from ..ops.gibbs_fused import (
     FusedBlocks,
     init_fused_buckets,
     select_merge_block,
     theta_from_fused,
 )
-from .labeled_lda import check_merge_block, fused_blocks
-from .state import phi_from_counts, running_average, theta_from_counts
+from .labeled_lda import check_merge_block, exact_sweeps, fused_blocks
+from .state import phi_from_counts, theta_from_counts
 
 __all__ = ["LocalLDA"]
 
@@ -132,7 +136,10 @@ class LocalLDA:
         # one LogLikelihood per bucket (on a card a replayed CUDA graph),
         # made at the first perplexity
         self._ll: Optional[List[LogLikelihood]] = None
-        self._fused: Optional[FusedBlocks] = None  # the fused path's block runner
+        # the training runners, made at the first training call and kept
+        self._fused: Optional[FusedBlocks] = None  # the fused path's merge blocks
+        self._exact: Optional[ExactBuckets] = None  # the dense path's sweeps
+        self._save: Optional[SaveStep] = None  # the saves
 
     def _t(self, x, dtype) -> torch.Tensor:
         return torch.as_tensor(np.ascontiguousarray(x)).to(device=self.device, dtype=dtype)
@@ -150,14 +157,8 @@ class LocalLDA:
     def _phi(self) -> torch.Tensor:
         return phi_from_counts(self.counts.n_vk, self.counts.n_k, self.b, self.topic_mask)
 
-    def _block(self, M: int) -> None:
-        """``M`` sweeps: one merge block (fused) or ``M`` exact sweeps."""
-        if self.sweep == "fused":
-            self._fused(M, generator=self._gen)
-            return
-        for _ in range(M):
-            for run in self._sweeps:
-                run(self._gen)
+    def _estimates(self):
+        return self._phi(), tuple(self._theta(g) for g in range(self.buckets.n_buckets))
 
     def run_training(self, iters: int, thinning: int, total_iters: int = None) -> None:
         """Gibbs sweeps + thinned φ/θ averaging (reference LocalLDA.py:86-109).
@@ -165,47 +166,42 @@ class LocalLDA:
         Saves land at exact ``thinning`` multiples; the trailing
         ``iters % thinning`` sweeps run unsaved.  ``total_iters`` (chunked or
         resumed runs) is the full planned sweep count, so the fused path's
-        merge block matches the uninterrupted run's.
+        merge block matches the uninterrupted run's.  Blocks, sweeps and
+        saves run through the model's kept runners (on a card, replayed CUDA
+        graphs); the means start anew at every call, in the save runner's
+        static buffers, and land in ``ph_hat``/``th_hat`` on the host.
         """
         iters, thinning = int(iters), int(thinning)
         if self.sweep == "fused":
             budget = int(total_iters) if total_iters else iters
             merge = select_merge_block(self.merge_every, thinning, budget)
             check_merge_block(self, merge)
-            fused_blocks(self, self.a, self.b)
+            blocks = fused_blocks(self, self.a, self.b)
         else:
             merge = 1
-            # position-major z and private copies of the counts, which the
-            # exact sweeps update in place for the rest of this call
-            st = self.counts
-            z_t = [z.T.clone(memory_format=torch.contiguous_format) for z in st.z]
-            self.counts = st = type(st)(z=st.z, n_dk=tuple(x.clone() for x in st.n_dk),
-                                        n_vk=st.n_vk.clone(), n_k=st.n_k.clone())
-            vbeta = float(self.V * self.b)
-            self._sweeps = [
-                ExactSweep(z_t[g], st.n_dk[g], st.n_vk, st.n_k, self._toks_v_t[g],
-                           self._toks_f_t[g], self.labs_t[g], self.a, self.b, vbeta)
-                for g in range(self.buckets.n_buckets)]
-        ph = torch.zeros((self.V, self.Kp), dtype=torch.float32, device=self.device)
-        th = [torch.zeros((len(i), self.Kp), dtype=torch.float32, device=self.device)
-              for i in self.buckets.doc_idx]
+            blocks = exact_sweeps(self, self.a, self.b)
+        if self._save is None:
+            ph = torch.zeros((self.V, self.Kp), dtype=torch.float32, device=self.device)
+            self._save = SaveStep(ph, [torch.zeros((len(i), self.Kp), dtype=torch.float32,
+                                                   device=self.device)
+                                       for i in self.buckets.doc_idx])
+        saves = self._save
+        saves.reset()
         n_save_blocks = iters // thinning
         for s in range(1, n_save_blocks + 1):
             for _ in range(thinning // merge):
-                self._block(merge)
-            ph = running_average(ph, self._phi(), s)
-            th = [running_average(t, self._theta(g), s) for g, t in enumerate(th)]
+                blocks(merge, generator=self._gen)
+            saves(s, self._estimates)
         left = iters - n_save_blocks * thinning
         while left > 0:
             m = min(merge, left)
-            self._block(m)
+            blocks(m, generator=self._gen)
             left -= m
         if self.sweep == "dense":
-            self.counts = self.counts._replace(
-                z=tuple(z.T.contiguous() for z in z_t))
-            self._sweeps = None
-        self.ph_hat = ph[:, : self.K].T.cpu().numpy()
-        self.th_hat = self.buckets.scatter_rows([t.cpu().numpy() for t in th])[:, : self.K]
+            blocks.doc_major()
+        self.ph_hat = saves.ph_hat[:, : self.K].T.cpu().numpy()
+        self.th_hat = self.buckets.scatter_rows(
+            [t.cpu().numpy() for t in saves.th_hat])[:, : self.K]
         self._check_ph_hat()
 
     def _check_ph_hat(self) -> None:

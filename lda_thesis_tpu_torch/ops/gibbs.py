@@ -10,8 +10,11 @@ batched node-level fold-in and the training log-likelihood.  The last three
 are JAX scans that a model runs again and again: :class:`FoldinSweep`,
 :class:`CascadeSweep` and :class:`LogLikelihood` replay each as one CUDA
 graph per sweep (or sum) on a card, with the bits of the eager function.
-Every runner follows one replay rule (``_Replayed``), which the fused
-merge block's runner (``ops/gibbs_fused.FusedBlocks``) shares.
+A training loop's exact sweeps live in :class:`ExactBuckets` (one runner
+per bucket over a static state, kept across calls) and its saves in
+:class:`SaveStep` (the estimates, the thinned means and the perplexity as
+one graph).  Every runner follows one replay rule (``_Replayed``), which
+the fused merge block's runner (``ops/gibbs_fused.FusedBlocks``) shares.
 Counts are float32 tensors holding integers below 2^24, so every count
 update is exact in any order.
 
@@ -35,6 +38,7 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..models.state import AverageWeights, running_average_
 from . import draw_update_cuda as duc
 from .draw_update_cuda import Slots, commit_counts, draw_rows
 from .sampling import gumbel, gumbel_argmax, mask_to_logits
@@ -57,6 +61,8 @@ __all__ = [
     "live_rows",
     "compact_sweep",
     "CompactSweep",
+    "ExactBuckets",
+    "SaveStep",
     "fill_uniforms",
     "densify_ndk",
     "theta_from_compact",
@@ -68,6 +74,7 @@ __all__ = [
     "cascade_test_loop",
     "log_likelihood",
     "LogLikelihood",
+    "training_perplexity",
 ]
 
 
@@ -335,8 +342,9 @@ def capture_graph(fn, device) -> "torch.cuda.CUDAGraph":
 
 class _Replayed:
     """The replay rule of the training and test-time loops (:class:`ExactSweep`,
-    :class:`CompactSweep`, :class:`FoldinSweep`, :class:`CascadeSweep`,
-    :class:`LogLikelihood`, ``ops/gibbs_fused.FusedBlocks``): on a card the
+    :class:`CompactSweep`, :class:`SaveStep`, :class:`FoldinSweep`,
+    :class:`CascadeSweep`, :class:`LogLikelihood`,
+    ``ops/gibbs_fused.FusedBlocks``): on a card the
     first call of each key runs its body eagerly (it loads what the body
     needs), the second captures the body as one CUDA graph and every call of
     that key from then on replays it; on the CPU every call runs eagerly.  A
@@ -398,6 +406,45 @@ class _Replayed:
         state = self.__dict__.copy()
         state["_graphs"], state["_key_calls"], state["calls"] = {}, {}, 0
         return state
+
+
+def _state_tensors(state) -> Tuple[torch.Tensor, ...]:
+    """The tensors of a bucketed state (``z`` and ``n_dk`` per bucket, the
+    tables), in one order."""
+    return (*state.z, *state.n_dk, state.n_vk, state.n_k)
+
+
+def _copy_state(state):
+    """A copy of a state tuple whose fields are tensors or tuples of them."""
+    return type(state)(*(tuple(x.clone() for x in part) if isinstance(part, (tuple, list))
+                         else part.clone() for part in state))
+
+
+def _load_into(dst: Sequence[torch.Tensor], src: Sequence[torch.Tensor]) -> None:
+    """Copy ``src`` into ``dst`` in place, tensor by tensor; each must keep
+    its shape (a state of another bucket count or sampler is refused)."""
+    for d, x in zip(dst, src, strict=True):
+        if x.shape != d.shape:
+            raise ValueError(f"a loaded state must keep the shape {tuple(d.shape)}, "
+                             f"got {tuple(x.shape)}")
+        d.copy_(x)
+
+
+class _StaticState:
+    """A runner whose static bucketed state ``self.state`` stands in for a
+    model's counts across its calls.  A state set from elsewhere (a
+    checkpoint load, a resumed chunk) is told apart by tensor identity
+    (:meth:`holds`) and copied in (:meth:`load`), so captured graphs keep
+    their addresses."""
+
+    def holds(self, state) -> bool:
+        """Whether ``state``'s tensors are this runner's static ones."""
+        return all(a is b for a, b in zip(_state_tensors(state), _state_tensors(self.state)))
+
+    def load(self, state) -> None:
+        """Copy ``state`` into the static state in place; every tensor must
+        keep its shape."""
+        _load_into(_state_tensors(self.state), _state_tensors(state))
 
 
 class ExactSweep(_Replayed):
@@ -591,6 +638,102 @@ class CompactSweep(_Replayed):
         fill_uniforms(self.u, generator, uniforms)
         self._run()
         return self.z_t
+
+
+class ExactBuckets(_StaticState):
+    """A training loop's exact sweeps of a bucketed state (dense or
+    compact): one runner per bucket (:class:`ExactSweep` or
+    :class:`CompactSweep`, made by ``make(g, z_t, n_dk, n_vk, n_k)``) over
+    one static state, which a model keeps across its training calls, so on a
+    card every sweep after a model's second replays a graph.
+
+    ``state`` is copied into ``self.state`` (``z`` doc-major ``(D_g,
+    U_g)``, as the JAX package keeps it) and its position-major ``z_t``,
+    which the sweeps update in place; :meth:`doc_major` writes ``z_t`` back
+    into ``state.z`` (a call's end).  The live rows of each position depend
+    only on the corpus, so a runner's stay valid across calls.  A state set
+    from elsewhere is taken in by :meth:`load`, ``z`` into both layouts.
+    """
+
+    def __init__(self, state, make):
+        self.state = _copy_state(state)
+        self.z_t = [z.T.clone(memory_format=torch.contiguous_format) for z in self.state.z]
+        self.runs = [make(g, z_t, self.state.n_dk[g], self.state.n_vk, self.state.n_k)
+                     for g, z_t in enumerate(self.z_t)]
+
+    def load(self, state) -> None:
+        super().load(state)
+        for z_t, z in zip(self.z_t, state.z):
+            z_t.copy_(z.T)
+
+    def __call__(self, M: int, generator=None) -> None:
+        """``M`` sweeps, each over the buckets in order."""
+        for _ in range(int(M)):
+            for run in self.runs:
+                run(generator)
+
+    def doc_major(self) -> None:
+        """Write the position-major ``z_t`` into ``state.z`` (doc-major)."""
+        for z, z_t in zip(self.state.z, self.z_t):
+            z.copy_(z_t.T)
+
+
+class SaveStep(_Replayed):
+    """The save step of a training loop: the current estimates, the thinned
+    means and, on request, the training perplexity, as one body (JAX: the
+    ``save_block`` of ``lda_thesis_tpu/models/labeled_lda.py:302-329``, with
+    its traced save index).
+
+    The runner owns the static means ``ph_hat`` and ``th_hat`` (one per
+    bucket; copied from the given tensors), the save's weights
+    (``models/state.AverageWeights``) and a static ``perplexity`` scalar.  A
+    call ``save(s, estimates, perplexity=None)`` refills the weights of
+    save ``s`` on the host, then runs the body: ``cur_ph, cur_th =
+    estimates()`` (over the loop's static state), the two running means in
+    place (``models/state.running_average_``) and, where ``perplexity`` is
+    given, ``perplexity(cur_ph, cur_th)`` into the static scalar, which the
+    call returns.  Under :class:`_Replayed`'s rule the body is one CUDA
+    graph per value of "perplexity on" on a card, replayed with each save's
+    weights; on the CPU it runs eagerly.  The means escape as the runner's
+    own tensors: a reader that keeps them past the next save clones them.
+    Means set from elsewhere are taken in by :meth:`load`.
+    """
+
+    def __init__(self, ph_hat: torch.Tensor, th_hat: Sequence[torch.Tensor]):
+        super().__init__(ph_hat.device)
+        self.ph_hat = ph_hat.clone()
+        self.th_hat = tuple(t.clone() for t in th_hat)
+        self.w = AverageWeights(ph_hat.device)
+        self.perplexity = torch.zeros((), dtype=torch.float32, device=ph_hat.device)
+
+    def holds(self, ph_hat, th_hat) -> bool:
+        """Whether ``ph_hat``/``th_hat`` are this runner's static means."""
+        return ph_hat is self.ph_hat and all(
+            a is b for a, b in zip(th_hat, self.th_hat, strict=True))
+
+    def load(self, ph_hat, th_hat) -> None:
+        """Copy means set from elsewhere into the static ones, in place."""
+        _load_into((self.ph_hat, *self.th_hat), (ph_hat, *th_hat))
+
+    def reset(self) -> None:
+        """Zero the means in place (a run that does not carry them on)."""
+        for t in (self.ph_hat, *self.th_hat):
+            t.zero_()
+
+    def _body(self, estimates, perplexity) -> None:
+        cur_ph, cur_th = estimates()
+        running_average_(self.ph_hat, cur_ph, self.w)
+        for avg, cur in zip(self.th_hat, cur_th, strict=True):
+            running_average_(avg, cur, self.w)
+        if perplexity is not None:
+            self.perplexity.copy_(perplexity(cur_ph, cur_th))
+
+    def __call__(self, s: int, estimates, perplexity=None) -> Optional[torch.Tensor]:
+        """Save ``s`` (1-based); returns the static perplexity scalar where
+        ``perplexity`` is given, else ``None``."""
+        self.w.set(s)
+        self._run(perplexity is not None, lambda: self._body(estimates, perplexity))
+        return None if perplexity is None else self.perplexity
 
 
 def train_sweep_compact(
@@ -903,7 +1046,8 @@ def log_likelihood(theta, phi_vk, tok_v, tok_f) -> Tuple[torch.Tensor, torch.Ten
 class LogLikelihood(_Replayed):
     """:func:`log_likelihood` of one set of tokens ``tok_v/tok_f (D, U)``,
     called again and again with new θ (D, K) and φ (V, K) of one shape: a
-    model's perplexity at every save, one instance per bucket.
+    model's ``perplexity()``, one instance per bucket (a training loop's
+    saves sum inside the save's body, :func:`training_perplexity`).
 
     Each call copies θ and φ into static buffers (made at the first call)
     and sums (:class:`_Replayed`: one replayed CUDA graph on a card from the
@@ -939,3 +1083,16 @@ class LogLikelihood(_Replayed):
         state = super().__getstate__()
         state["_inputs"] = state["_ll"] = None
         return state
+
+
+def training_perplexity(phi: torch.Tensor, thetas: Sequence[torch.Tensor], toks) -> torch.Tensor:
+    """A save's training perplexity exp(−ll/N), a float32 scalar on the
+    device: :func:`log_likelihood` of each bucket, summed in bucket order.
+    ``toks`` holds per bucket ``(tok_v int64, tok_f float32, n float32)``,
+    ``n`` the bucket's token count."""
+    ll = torch.zeros((), dtype=torch.float32, device=phi.device)
+    n = torch.zeros((), dtype=torch.float32, device=phi.device)
+    for theta, (tv, ff, ng) in zip(thetas, toks, strict=True):
+        ll = ll + _ll_positions(theta, phi, tv, ff)
+        n = n + ng
+    return torch.exp(-ll / torch.clamp(n, min=1.0))

@@ -43,7 +43,10 @@ import torch
 from . import fused_block_cuda as fbc
 from .fused_block_cuda import fused_block
 from .gibbs import (
+    _copy_state,
     _Replayed,
+    _state_tensors,
+    _StaticState,
     _uniforms,
     densify_ndk,
     fill_uniforms,
@@ -314,11 +317,7 @@ def fused_train_block_buckets(
     return FusedBucketState(z=tuple(zs), n_dk=tuple(ndks), n_vk=n_vk, n_k=n_k)
 
 
-def _tensors(state) -> Tuple[torch.Tensor, ...]:
-    return (*state.z, *state.n_dk, state.n_vk, state.n_k)
-
-
-class FusedBlocks(_Replayed):
+class FusedBlocks(_StaticState, _Replayed):
     """Repeated merge blocks (:func:`fused_train_block_buckets`) over one
     static state, which every call updates in place: the runner of a
     training loop's blocks (JAX: the merge-block scan of
@@ -338,7 +337,7 @@ class FusedBlocks(_Replayed):
     kernel 1's launches inside it; the replay adds them to the wrappers'
     counters.  Nothing outside the runner may keep the body's outputs: they
     live in the graph's pool.  A state set from elsewhere is taken in by
-    :meth:`load`.
+    :meth:`load` (``holds``/``load``: ``ops/gibbs._StaticState``).
     """
 
     _counters = ((fbc, ("launches", "warp_launches", "general_launches")),)
@@ -346,33 +345,17 @@ class FusedBlocks(_Replayed):
     def __init__(self, state: FusedBucketState, toks_v_t, toks_f_t, lab_ids_t, lab_valid_tt,
                  alpha: float, beta: float, vbeta: Optional[float] = None):
         super().__init__(state.n_vk.device)
-        self.state = FusedBucketState(*(tuple(x.clone() for x in part)
-                                        if isinstance(part, (tuple, list)) else part.clone()
-                                        for part in state))
+        self.state = _copy_state(FusedBucketState(*state))
         self._inputs = tuple(tuple(x) for x in (toks_v_t, toks_f_t, lab_ids_t, lab_valid_tt))
         self._consts = (float(alpha), float(beta))
         self._vbeta = vbeta
         self._u = {}  # M -> per-bucket static uniforms
 
-    def holds(self, state) -> bool:
-        """Whether ``state``'s tensors (a :class:`FusedBucketState`'s
-        fields) are this runner's static ones."""
-        return all(a is b for a, b in zip(_tensors(state), _tensors(self.state)))
-
-    def load(self, state) -> None:
-        """Copy ``state`` into the static state in place, so a captured
-        graph stays valid; every tensor must keep its shape."""
-        for dst, src in zip(_tensors(self.state), _tensors(state), strict=True):
-            if src.shape != dst.shape:
-                raise ValueError(f"a loaded state must keep the shape {tuple(dst.shape)}, "
-                                 f"got {tuple(src.shape)}")
-            dst.copy_(src)
-
     def _body(self, u) -> None:
         M = u[0].shape[-3]
         out = fused_train_block_buckets(self.state, *self._inputs, *self._consts, M,
                                         uniforms=u, vbeta=self._vbeta)
-        for dst, src in zip(_tensors(self.state), _tensors(out)):
+        for dst, src in zip(_state_tensors(self.state), _state_tensors(out)):
             dst.copy_(src)
 
     def __call__(self, M: int, generator=None,
@@ -404,5 +387,9 @@ def densify_ndk_fused(n_dk_t: torch.Tensor, lab_ids: torch.Tensor, K: int) -> to
 
 
 def theta_from_fused(n_dk_t, lab_ids, lab_valid, alpha: float, K: int) -> torch.Tensor:
-    """Dense (D, K) label-masked θ (LabeledLDA.py:236-239); ``lab_valid (D, A)``."""
-    return theta_from_compact(n_dk_t.T, lab_ids, lab_valid, alpha, K)
+    """Dense (D, K) label-masked θ (LabeledLDA.py:236-239); ``lab_valid (D, A)``.
+    The counts are taken doc-major (a contiguous copy), so each document's
+    sum over its slots has the same bits whatever other rows lie beside it:
+    a rank's chains side by side (``parallel/fused_sharded.theta_chains``)
+    give each chain's single-chain θ."""
+    return theta_from_compact(n_dk_t.T.contiguous(), lab_ids, lab_valid, alpha, K)

@@ -15,14 +15,16 @@ ops/gibbs_fused.py) and across data shards (AD-LDA) at once:
   gathers;
 * block end: the block's table deltas are summed over the data row
   (``all_reduce``) and the thinned φ̂/θ̂ means are updated on save
-  boundaries, as in the dense step.
+  boundaries, as in the dense step, every chain at once
+  (:func:`.sharded.phi_chains`, :func:`theta_chains`).
 
 The state holds ``z (L, U, D_s)`` / ``n_dk (L, A, D_s)`` and each chain's
 table replica ``n_vk (L, V, K)``.  The bucketed layout
 (parallel/fused_sharded_buckets.py) and the vocab-sharded one
 (parallel/vocab_sharded.py) run the same block.  The replicated layouts run
 it through :class:`RankBlocks`: on a card each block replays one CUDA graph
-of the rank's chains, the data row's all-reduce outside it.
+of the rank's chains, the data row's all-reduce outside it, and so does
+each save (``ops/gibbs.SaveStep``, :meth:`RankBlocks.save`).
 """
 
 from __future__ import annotations
@@ -32,9 +34,8 @@ from typing import Callable, NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
-from ..models.state import running_average
-from ..ops.gibbs import init_counts_compact
-from ..ops.gibbs_fused import FusedBlocks, FusedBucketState, theta_from_fused
+from ..ops.gibbs import SaveStep, init_counts_compact, theta_from_compact
+from ..ops.gibbs_fused import FusedBlocks, FusedBucketState
 from .bootstrap import Mesh
 from .sharded import phi_chains, shard_rows
 
@@ -142,15 +143,24 @@ class RankBlocks:
     ``n_dk`` and returns the merged state as the runner's static tensors; a
     state that is not the runner's (the first call, a restored checkpoint)
     is copied in first.  The denominator's V·β counts the table's rows,
-    padding included, as the trainer's loops do."""
+    padding included, as the trainer's loops do.
+
+    ``blocks.save(ph_hat, th_hat, s)`` folds the merged state's φ and θ of
+    every chain (``phi_chains``, :func:`theta_chains`) into the thinned
+    means through one ``ops/gibbs.SaveStep`` (on a card one replayed CUDA
+    graph) and returns its static means; means that are not the runner's
+    are copied in first."""
 
     def __init__(self, mesh: Mesh, corpora: Sequence[FusedShardCorpus], alpha: float,
-                 beta: float):
+                 beta: float, topic_mask=None):
         self.mesh = mesh
+        self._corpora = tuple(corpora)
         self._inputs = ([c.tok_v_t for c in corpora], [c.tok_f_t for c in corpora],
                         [c.lab_ids for c in corpora], [c.lab_valid_t for c in corpora])
         self._alpha, self._beta = alpha, beta
+        self._topic_mask = topic_mask
         self.run: Optional[FusedBlocks] = None
+        self.saves: Optional[SaveStep] = None
 
     def __call__(self, z, n_dk, n_vk, n_k, M: int, generators) -> FusedBucketState:
         st = FusedBucketState(tuple(z), tuple(n_dk), n_vk, n_k)
@@ -170,15 +180,35 @@ class RankBlocks:
             out.n_k.copy_(n_k)
         return out
 
+    def _estimates(self):
+        st = self.run.state
+        V, K = st.n_vk.shape[1:]
+        cur_ph = phi_chains(st.n_vk, st.n_k, self._beta, float(V) * float(self._beta),
+                            self._topic_mask)
+        return cur_ph, tuple(theta_chains(nd, c, self._alpha, K)
+                             for nd, c in zip(st.n_dk, self._corpora))
+
+    def save(self, ph_hat, th_hat, s: int):
+        """Save ``s`` (1-based) of the thinned means ``ph_hat (L, V, K)``
+        and ``th_hat`` (per bucket ``(L, D_s, K)``) from the runner's
+        merged state; returns the runner's static ``(ph_hat, th_hat)``."""
+        if self.saves is None:
+            self.saves = SaveStep(ph_hat, th_hat)
+        elif not self.saves.holds(ph_hat, th_hat):
+            self.saves.load(ph_hat, th_hat)
+        self.saves(s, self._estimates)
+        return self.saves.ph_hat, self.saves.th_hat
+
 
 def theta_chains(n_dk: torch.Tensor, corpus: FusedShardCorpus, alpha: float,
                  K: int) -> torch.Tensor:
     """(L, D_s, K) label-masked θ of every local chain, the chains' rows
     computed together (a per-chain loop of small ops was most of a
-    bucketed call's host time)."""
+    bucketed call's host time), doc-major as ``theta_from_fused`` takes
+    them, so chain c's rows have its single-chain bits."""
     L, A, D_s = n_dk.shape
-    th = theta_from_fused(n_dk.permute(1, 0, 2).reshape(A, L * D_s),
-                          corpus.lab_ids.repeat(L, 1), corpus.lab_valid.repeat(L, 1), alpha, K)
+    th = theta_from_compact(n_dk.transpose(1, 2).reshape(L * D_s, A),
+                            corpus.lab_ids.repeat(L, 1), corpus.lab_valid.repeat(L, 1), alpha, K)
     return th.view(L, D_s, K)
 
 
@@ -206,15 +236,15 @@ def make_fused_train_loop(mesh: Mesh, alpha: float, beta: float, topic_mask,
                           corpus: FusedShardCorpus, on_merge=()):
     """Training loop of the unbucketed layout: returns ``loop(state, iters,
     thinning, M, generators) -> state``, one kernel launch per merge block
-    for all local chains, each block replayed by the loop's
-    :class:`RankBlocks` (``loop.blocks``, kept across calls)."""
-    blocks = RankBlocks(mesh, [corpus], alpha, beta)
+    for all local chains, each block and each save replayed by the loop's
+    :class:`RankBlocks` (``loop.blocks``, kept across calls).  The state's
+    means are the runner's: a reader that keeps them past the next call
+    clones them."""
+    blocks = RankBlocks(mesh, [corpus], alpha, beta, topic_mask)
 
     def loop(state: FusedShardedState, iters: int, thinning: int, M: int,
              generators) -> FusedShardedState:
         st = [state]
-        V, K = state.n_vk.shape[1:]
-        vbeta = float(V) * float(beta)
 
         def block(m):
             s = st[0]
@@ -225,11 +255,8 @@ def make_fused_train_loop(mesh: Mesh, alpha: float, beta: float, topic_mask,
 
         def save():
             s = st[0]
-            cur_ph = phi_chains(s.n_vk, s.n_k, beta, vbeta, topic_mask)
-            cur_th = theta_chains(s.n_dk, corpus, alpha, K)
-            n = s.s + 1
-            st[0] = s._replace(ph_hat=running_average(s.ph_hat, cur_ph, n),
-                               th_hat=running_average(s.th_hat, cur_th, n), s=n)
+            ph, th = blocks.save(s.ph_hat, (s.th_hat,), s.s + 1)
+            st[0] = s._replace(ph_hat=ph, th_hat=th[0], s=s.s + 1)
 
         train_blocks(block, save, int(iters), int(thinning), int(M))
         return st[0]

@@ -8,10 +8,11 @@ unbucketed layout.  A merge block runs the buckets one after another, each
 bucket's commits landing in the chain's working table before the next
 bucket gathers (as on one device, ops/gibbs_fused.fused_train_block_buckets),
 with one kernel launch per bucket for all local chains (the leading chain
-axis of that function), each block replayed as one CUDA graph on a card
-(``fused_sharded.RankBlocks``); the block's deltas are summed over the data
-row once, outside the graph.  Opt-in (``DistributedLabeledLDA(n_buckets=...)``): the
-bucket layout is part of the draw stream.
+axis of that function), each block and each save replayed as one CUDA
+graph on a card (``fused_sharded.RankBlocks``); the block's deltas are
+summed over the data row once, outside the graph.  Opt-in
+(``DistributedLabeledLDA(n_buckets=...)``): the bucket layout is part of
+the draw stream.
 """
 
 from __future__ import annotations
@@ -21,17 +22,14 @@ from typing import NamedTuple, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..models.state import running_average
 from .bootstrap import Mesh
 from .fused_sharded import (
     FusedShardCorpus,
     RankBlocks,
     init_chains,
     shard_fused_corpus,
-    theta_chains,
     train_blocks,
 )
-from .sharded import phi_chains
 
 __all__ = ["BucketedShardedState", "shard_bucketed_corpus", "init_bucketed_sharded",
            "make_bucketed_train_loop"]
@@ -77,15 +75,13 @@ def make_bucketed_train_loop(mesh: Mesh, alpha: float, beta: float, topic_mask,
                              corpora: Sequence[FusedShardCorpus], on_merge=()):
     """Training loop of the bucketed layout: ``loop(state, iters, thinning,
     M, generators) -> state``, one kernel launch per bucket per merge
-    block for all local chains, each block replayed by the loop's
-    ``RankBlocks`` (``loop.blocks``, kept across calls)."""
-    blocks = RankBlocks(mesh, corpora, alpha, beta)
+    block for all local chains, each block and each save replayed by the
+    loop's ``RankBlocks`` (``loop.blocks``, kept across calls)."""
+    blocks = RankBlocks(mesh, corpora, alpha, beta, topic_mask)
 
     def loop(state: BucketedShardedState, iters: int, thinning: int, M: int,
              generators) -> BucketedShardedState:
         st = [state]
-        V, K = state.n_vk.shape[1:]
-        vbeta = float(V) * float(beta)
 
         def block(m):
             s = st[0]
@@ -96,11 +92,8 @@ def make_bucketed_train_loop(mesh: Mesh, alpha: float, beta: float, topic_mask,
 
         def save():
             s = st[0]
-            cur_ph = phi_chains(s.n_vk, s.n_k, beta, vbeta, topic_mask)
-            n = s.s + 1
-            th = tuple(running_average(t, theta_chains(nd, c, alpha, K), n)
-                       for t, nd, c in zip(s.th_hat, s.n_dk, corpora))
-            st[0] = s._replace(ph_hat=running_average(s.ph_hat, cur_ph, n), th_hat=th, s=n)
+            ph, th = blocks.save(s.ph_hat, s.th_hat, s.s + 1)
+            st[0] = s._replace(ph_hat=ph, th_hat=th, s=s.s + 1)
 
         train_blocks(block, save, int(iters), int(thinning), int(M))
         return st[0]

@@ -16,7 +16,9 @@ one draw-update and one commit launch per position for all chains, one
 CUDA graph per rank on a card), each chain over the rank's shard against
 its own replica, then the shards' table deltas are summed over the data
 row (``all_reduce``), which
-restores the exact global table (AD-LDA, Newman et al. 2009).  Counts are
+restores the exact global table (AD-LDA, Newman et al. 2009).  A save folds
+every chain's φ and θ into the thinned means at once, through one
+``ops/gibbs.SaveStep`` per rank (one replayed CUDA graph on a card).  Counts are
 float32 holding integers below 2^24, so the sum is exact in any order and
 on any backend, and every replica of a row stays bitwise identical.
 
@@ -37,8 +39,8 @@ from typing import List, NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
-from ..models.state import phi_from_counts, running_average, theta_from_counts
-from ..ops.gibbs import ExactSweep, init_counts
+from ..models.state import theta_from_counts
+from ..ops.gibbs import ExactSweep, SaveStep, init_counts
 from .bootstrap import Mesh, make_global_mesh
 
 __all__ = [
@@ -194,7 +196,11 @@ class ShardedTrainStep:
     call on, whatever L is.  Chain j draws from ``generators[j]``;
     ``uniforms`` (one ``(U, D_s)`` per local chain, or ``(L, U, D_s)``)
     replace the generators' draws.  ``on_merge`` callables see each merged
-    state.
+    state.  A save refills the step's ``SaveStep`` (``_saves``, one per
+    rank, kept) with the state's means, computes every chain's φ and θ
+    (``phi_chains``, ``theta_from_counts`` over the chain axis) from the
+    merged work buffers (on a card one replayed CUDA graph) and returns
+    copies of the new means.
     """
 
     def __init__(self, mesh: Mesh, n_chains: int, alpha: float, beta: float,
@@ -204,6 +210,7 @@ class ShardedTrainStep:
         self.alpha, self.beta = float(alpha), float(beta)
         self.topic_mask = topic_mask
         self._sweep = None
+        self._saves: Optional[SaveStep] = None
         self.on_merge = []
 
     def _bind(self, state: ShardedLDAState, corpus: ShardedCorpus) -> None:
@@ -231,21 +238,33 @@ class ShardedTrainStep:
         else:
             self._sweep(uniforms=torch.stack(list(uniforms)))
         # AD-LDA merge: every shard's deltas onto the chain's global table
-        n_vk = state.n_vk + self.mesh.data_sum_(n_vk - state.n_vk)
-        n_k = state.n_k + self.mesh.data_sum_(n_k - state.n_k)
+        merged_vk = state.n_vk + self.mesh.data_sum_(n_vk - state.n_vk)
+        merged_k = state.n_k + self.mesh.data_sum_(n_k - state.n_k)
         nxt = state._replace(z=z_t.transpose(1, 2).contiguous(), n_dk=n_dk.clone(),
-                             n_vk=n_vk, n_k=n_k)
+                             n_vk=merged_vk, n_k=merged_k)
         for fn in self.on_merge:
             fn(nxt)
         if not save:
             return nxt
-        vbeta = float(n_vk.shape[1] * self.beta)
-        cur_ph = phi_chains(n_vk, n_k, self.beta, vbeta, self.topic_mask)
-        cur_th = torch.stack([theta_from_counts(nd, corpus.labs, self.alpha)
-                              for nd in nxt.n_dk])
+        # the save reads the merged tables from the work buffers
+        n_vk.copy_(merged_vk)
+        n_k.copy_(merged_k)
+        if self._saves is None:
+            self._saves = SaveStep(state.ph_hat, (state.th_hat,))
+        else:
+            self._saves.load(state.ph_hat, (state.th_hat,))
         s = state.s + 1
-        return nxt._replace(ph_hat=running_average(state.ph_hat, cur_ph, s),
-                            th_hat=running_average(state.th_hat, cur_th, s), s=s)
+        self._saves(s, lambda: self._estimates(corpus))
+        return nxt._replace(ph_hat=self._saves.ph_hat.clone(),
+                            th_hat=self._saves.th_hat[0].clone(), s=s)
+
+    def _estimates(self, corpus: ShardedCorpus):
+        """Every local chain's φ ``(L, V, K)`` and θ ``(L, D_s, K)`` from
+        the work buffers, each in one pass over the chain axis."""
+        _, n_dk, n_vk, n_k = self._work
+        vbeta = float(n_vk.shape[1] * self.beta)
+        return (phi_chains(n_vk, n_k, self.beta, vbeta, self.topic_mask),
+                (theta_from_counts(n_dk, corpus.labs, self.alpha),))
 
 
 def make_sharded_train_step(mesh: Mesh, n_chains: int, alpha: float, beta: float,

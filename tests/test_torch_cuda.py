@@ -598,7 +598,8 @@ def test_run_test_sees_new_phi():
         second = model.run_test(c.test_docs, 6, 3)
     for n, call in enumerate(calls):
         chip_smoke._same_as_eager(chip_smoke.eager_fold_in, call, f"run_test {n + 1}")
-    assert calls[1][0][0] is model.ph_hat and not np.array_equal(first, second)
+    assert torch.equal(calls[1][0][0], model.ph_hat)
+    assert not torch.equal(calls[0][0][0], calls[1][0][0]) and not np.array_equal(first, second)
 
 
 @pytest.mark.cuda
@@ -665,3 +666,68 @@ def test_training_replays_equal_eager_loop(kind):
         assert chip_smoke.training_equal(m, want, before)
     if kind != "labeled-compact":
         assert sorted(m._fused._graphs) == ([1] if kind == "local" else [2, 4])
+
+
+def _card_model(kind):
+    """A small model of ``kind`` on the card (``test_saves_and_second_call_replay``)."""
+    from lda_thesis_tpu_torch.data.synthetic import planted_corpus
+    from lda_thesis_tpu_torch.data.vocab import Dictionary
+    from lda_thesis_tpu_torch.models.labeled_lda import LabeledLDA
+    from lda_thesis_tpu_torch.models.local_lda import LocalLDA
+    from lda_thesis_tpu_torch.parallel import make_mesh
+    from lda_thesis_tpu_torch.parallel.trainer import DistributedLabeledLDA
+
+    c = planted_corpus(0, n_train=300, n_test=20, V=400, n_labels=30)
+    dicti = Dictionary(c.train_docs)
+    family, sweep = kind.split("-")
+    if family == "chains":
+        return DistributedLabeledLDA(c.train_docs, c.train_labs, c.labelset, dicti, ALPHA,
+                                     BETA, mesh=make_mesh(device="cuda"), n_chains=3,
+                                     sweep="dense" if sweep == "dense" else "fused",
+                                     n_buckets=2 if sweep == "bucketed" else 1)
+    if family == "local":
+        texts = [" ".join(chip_smoke.csv_word(int(w[1:])) for w in d) for d in c.train_docs]
+        return LocalLDA(texts, alpha=ALPHA, beta=BETA, K=20, seed=0, sweep=sweep,
+                        device="cuda")
+    return LabeledLDA(c.train_docs, c.train_labs, c.labelset, dicti, ALPHA, BETA, seed=0,
+                      sweep=sweep, device="cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["labeled-fused", "labeled-compact", "labeled-dense",
+                                  "local-fused", "local-dense", "chains-bucketed",
+                                  "chains-dense"])
+def test_saves_and_second_call_replay(kind):
+    """Three training calls of each model on the card, the saves and every
+    block or sweep replayed from the second save or block on, equal
+    ``chip_smoke``'s eager loops (``eager_training`` with ``continue_avg``
+    for a ``LabeledLDA``'s later calls, ``eager_chains_training``,
+    ``eager_dense_chains_training``) from the state before each, bitwise;
+    the second and third calls capture no graph and run no body eagerly
+    (``chip_smoke.replay_counts``: the runners' graphs and keys)."""
+    _needs_card()
+    m = _card_model(kind)
+    family = kind.split("-")[0]
+    for n in range(3):
+        before = chip_smoke.replay_counts(m)
+        if family == "chains":
+            want = (chip_smoke.eager_dense_chains_training(m, 8, 4) if kind == "chains-dense"
+                    else chip_smoke.eager_chains_training(m, 8, 4, 64))
+            m.run_training(8, 4, total_iters=64)
+            assert chip_smoke.chains_equal(m, want)
+        elif family == "labeled":
+            perps = len(m.cur_perplx)
+            want = chip_smoke.eager_training(m, 8, 4, 64, True, continue_avg=n > 0)
+            m.run_training(8, 4, continue_avg=n > 0, total_iters=64)
+            assert chip_smoke.training_equal(m, want, perps)
+        else:
+            want = chip_smoke.eager_training(m, 8, 4, 64)
+            m.run_training(8, 4, total_iters=64)
+            assert chip_smoke.training_equal(m, want)
+        torch.cuda.synchronize()
+        after = chip_smoke.replay_counts(m)
+        if n == 0:
+            assert after[0] == after[1] > 0  # every runner's body captured once
+        else:
+            assert after == before, (n, before, after)
+    assert all(r._graphs for r in chip_smoke._runners(m))
