@@ -74,15 +74,19 @@ made from ``--seed``.  Phases:
     9's CSV, a non-falling ELBO, held-out AUC and seconds per CAVI step;
     then one ``fit_svi`` epoch of its model from a fresh start (2 batches
     of 2,048 documents and a CAVI pass), whose ELBO must rise;
-12. HSLDA (no CUDA kernel of its own: its z-sweep is plain PyTorch, on the
-    card one CUDA graph per sweep): one cycle of each coupling form (opt 1,
-    opt 2 compact and blockwise, opt 3) at D = 64, L = 12, K = 8 on the card
-    against the CPU from one state and one set of draws (count invariants
-    exact, at least 99% of the draws equal, η, a and β within 1e-4); 3
-    replayed cycles against 3 eager ones, bitwise, at D = 64 and at full
-    width, and a replay's device records against the eager sweep's; the
-    seconds per cycle of each block and the device time of a replayed sweep
-    at full width; the HSLDA CLI on a CSV of ``jel_corpus(seed,
+12. HSLDA (no CUDA kernel of its own: its cycle is plain PyTorch, on the
+    card one CUDA graph per cycle, ``models/hslda.CycleStep``, and one per
+    save): one cycle of each coupling form (opt 1, opt 2 compact and
+    blockwise, opt 3) at D = 64, L = 12, K = 8 on the card against the CPU
+    from one state and one set of draws (count invariants exact, at least
+    99% of the draws equal, η, a and β within 1e-4); two replayed
+    ``run_training(6, 3)`` calls of each coupling at full width against
+    ``eager_hslda_training``, bitwise, the second capturing no graph and
+    running no body eagerly, with the cycle graph's node count, and a
+    replayed z-sweep's device records against the eager sweep's; a replayed
+    cycle's host ms to issue and device ms, and each block's host ms run
+    eagerly and device ms as a graph of its own, at full width; the HSLDA
+    CLI on a CSV of ``jel_corpus(seed,
     n_l3=371)`` (D = 4,171, N = 192, L = 512, K = 15) at ``-i 25 -s 5
     --opt 1`` with the default test (AUC > 0.6), a run of it killed by
     SIGKILL after its first checkpoint and resumed in a fresh process (every
@@ -127,9 +131,12 @@ made from ``--seed``.  Phases:
     graphs with the same generators, 3 sweeps: the share of equal draws (at
     least 99%) and whether they are bitwise, replay == eager bitwise, every
     chain's count invariants, device ms per replayed sweep both ways, the
-    bound and the graph's node count; (b) ``DistributedHSLDA`` on one rank
-    at C = 1, 4, 16 and 64 chains: reckoned and peak device memory, two
-    warm-up cycles (eager, capture), 3 timed cycles, cycles/s,
+    bound and the graph's node count; a 4-chain ``run_training(6, 3)``
+    call through the loop's replayed cycle against the eager loop, bitwise,
+    and against 4 single-chain cycle runners (the share of equal draws, at
+    least 99%); (b) ``DistributedHSLDA`` on one rank
+    at C = 1, 4, 16 and 64 chains: reckoned and peak device memory, four
+    warm-up cycles and two saves (eager, capture), 3 timed cycles, cycles/s,
     chain-cycles/s, tokens/s, the device's busy share, each chain's
     invariants and finite η and β; (c) two gloo ranks on the card, mesh
     (1, 2), 2 chains, 3 cycles, replicated then vocab-sharded: every chain's
@@ -175,7 +182,10 @@ made from ``--seed``.  Phases:
     graph nodes, device and host ms eager and replayed (``save_timing``),
     a replayed merge block's device time by step (``merge_block_split``),
     tokens/s and the device's idle share of a profiled call, and peak
-    device memory;
+    device memory; then two ``run_training(6, 3)`` calls of ``HSLDA`` and
+    of one rank of 8 HSLDA chains at full width against
+    ``eager_hslda_training`` (``hslda_training_graphs``), the later call
+    capturing nothing;
 17. one JSON line of kernel records, the card's line, and the result line.
 
 Every check raises; the script exits non-zero without a CUDA device.
@@ -1975,6 +1985,7 @@ HSLDA_SMALL_K = 8
 HSLDA_FORMS = {"opt1": (1, False), "opt2-sparse": (2, True), "opt2-blockwise": (2, False),
                "opt3": (3, False)}
 HSLDA_TOL = 1e-4  # η, a and β, card against the CPU
+HSLDA_REPLAYED = (6, 3)  # (iters; thinning) of each call held to the eager loop (12b)
 
 
 def hslda_small_problem(seed: int) -> tuple:
@@ -2047,28 +2058,130 @@ def hslda_cycle_case(device, seed: int, form: str) -> dict:
     return out
 
 
-def hslda_replay_case(device, docs, labs, labelset, seed: int, opt: int, cycles: int,
-                      k: int) -> dict:
-    """``cycles`` HSLDA cycles from one generator seed twice on ``device``:
-    eagerly (``_train_cycle`` over ``hslda_z_sweep``) and through the
-    model's ``HSLDASweep`` (the first sweep eager, then a captured graph
-    replayed); returns both runs' (z, n_dk, n_vk, n_k, η, a, β) and the
-    replaying model."""
-    from lda_thesis_tpu_torch.models.hslda import HSLDA, _train_cycle
+def eager_hslda_training(model, iters: int, thinning: int, opt: int = 1,
+                         continue_avg: bool = False) -> dict:
+    """``run_training`` of an ``HSLDA``, or of a one-rank ``DistributedHSLDA``
+    on a mesh whose data axis is 1 with the replicated table, from the
+    model's current state as eager calls of the functional blocks: per cycle
+    ``hslda_z_sweep``, ``eta_draw`` of ``eta_gram``, ``a_block``,
+    ``antoniak_draw`` and ``beta_block`` (``_train_cycle`` for one chain),
+    drawing from copies of the model's generators; each save's estimates
+    and ``running_average``.  The reference of the replayed HSLDA training
+    loop; the model is left as it was.  Returns the state (z, n_dk, n_vk,
+    n_k, η, a, β), the means, the save count and the generators' states."""
+    import torch
 
-    eager = HSLDA(docs, labs, labelset, k=k, seed=seed, device=device)
-    graphed = HSLDA(docs, labs, labelset, k=k, seed=seed, device=device)
-    ids, valid = (eager._lab_pos_ids, eager._lab_pos_valid) if opt == 2 else (None, None)
-    counts, eta, a, beta = eager.counts, eager.eta, eager.a, eager.beta
-    for _ in range(cycles):
-        counts, eta, a, beta, _, _ = _train_cycle(
-            counts, eager.tok_v, eager.mask, eager.labs, eta, a, beta, eager._stirling_logs,
-            eager.mu, eager.sigma, eager.aprime, eager.alpha, eager.gamma, eager.xi, opt,
-            lab_pos_ids=ids, lab_pos_valid=valid, generator=eager._gen)
-        graphed.train_cycle(opt)
-    return dict(eager=[*counts, eta, a, beta],
-                graphed=[*graphed.counts, graphed.eta, graphed.a, graphed.beta],
-                model=graphed)
+    from lda_thesis_tpu_torch.models.hslda import (
+        _train_cycle,
+        a_block,
+        antoniak_draw,
+        beta_block,
+        eta_draw,
+        eta_gram,
+    )
+    from lda_thesis_tpu_torch.models.state import running_average
+    from lda_thesis_tpu_torch.ops.hslda_gibbs import HSLDACounts, hslda_z_sweep
+    from lda_thesis_tpu_torch.parallel.hslda_sharded import chain_ph
+
+    f32 = torch.float32
+    chains = hasattr(model, "_gens")
+    if chains:
+        st = model.state
+        local = [_copy_generator(g) for g in model._gens.local]
+        chain = [_copy_generator(g) for g in model._gens.chain]
+        gens = local + chain
+        counts = HSLDACounts(*(t.clone() for t in st[:4]))
+        eta, a, beta = (t.clone() for t in st[4:])
+        tok_v, mask, labs = model.corpus
+        kept = model._ph_hat if continue_avg else None
+        ph = (torch.zeros((counts.n_k.shape[0], model.K, model.V), dtype=f32,
+                          device=model.device) if kept is None else kept.clone())
+        means, s = [ph], model._n_saves if continue_avg else 0
+    else:
+        gens = [_copy_generator(model._gen)]
+        counts = HSLDACounts(*(t.clone() for t in model.counts))
+        eta, a, beta = model.eta.clone(), model.a.clone(), model.beta.clone()
+        tok_v, mask, labs = model.tok_v, model.mask, model.labs
+        s = model._avg_s if continue_avg and model.ph is not None else 0
+        means = ([torch.as_tensor(x, device=model.device) for x in (model.ph, model.th)]
+                 if s else [torch.zeros((model.K, model.V), dtype=f32, device=model.device),
+                            torch.zeros((model.D, model.K), dtype=f32, device=model.device)])
+    n_d = torch.clamp(mask.sum(dim=1), min=1).to(f32)
+    pos = (model._lab_pos_ids, model._lab_pos_valid) if opt == 2 and not chains \
+        else (None, None)
+    for i in range(int(iters)):
+        if chains:
+            counts, _ = hslda_z_sweep(counts, tok_v, mask, labs, eta, a, model.alpha * beta,
+                                      model.gamma, model.xi, opt=opt, V=model.V,
+                                      generator=local)
+            zbar = counts.n_dk.to(f32) / n_d[:, None]
+            eta = eta_draw(*eta_gram(zbar, a), model.mu, model.sigma, generator=chain)
+            a, _ = a_block(zbar, eta, labs, generator=local)
+            m = antoniak_draw(counts.n_dk, model.alpha, beta, model._stirling_logs,
+                              generator=local)
+            beta = beta_block(m.sum(dim=1).to(f32) / model.D, model.aprime, generator=chain)
+        else:
+            counts, eta, a, beta, _, _ = _train_cycle(
+                counts, tok_v, mask, labs, eta, a, beta, model._stirling_logs, model.mu,
+                model.sigma, model.aprime, model.alpha, model.gamma, model.xi, opt,
+                lab_pos_ids=pos[0], lab_pos_valid=pos[1], generator=gens[0])
+        if (i + 1) % int(thinning) == 0:
+            s += 1
+            if chains:
+                means = [running_average(means[0], chain_ph(counts.n_vk, counts.n_k), s)]
+            else:
+                n_kv = counts.n_vk.to(f32).T
+                cur = [n_kv / torch.clamp(n_kv.sum(dim=1, keepdim=True), min=1.0),
+                       counts.n_dk.to(f32) / n_d[:, None]]
+                means = [running_average(x, c, s) for x, c in zip(means, cur)]
+    return dict(state=[*counts, eta, a, beta], means=means, s=s,
+                generators=[g.get_state() for g in gens])
+
+
+def hslda_training_equal(model, want: dict) -> bool:
+    """Whether ``model`` after a ``run_training`` call holds ``want``
+    (``eager_hslda_training`` from the state before it) bit for bit: z,
+    n_dk, n_vk, n_k, η, a, β, the thinned means, the save count and the
+    generators' states."""
+    import torch
+
+    if hasattr(model, "_gens"):
+        got = [*model.state]
+        means = [] if model._ph_hat is None else [model._ph_hat]
+        s, gens = model._n_saves, model._gens.local + model._gens.chain
+    else:
+        got = [*model.counts, model.eta, model.a, model.beta]
+        means = [] if model.ph is None else [torch.from_numpy(model.ph),
+                                             torch.from_numpy(model.th)]
+        s, gens = model._avg_s, [model._gen]
+    want_means = want["means"] if want["s"] else []
+    return (s == want["s"]
+            and _bitwise([t.cpu() for t in got + means],
+                         [t.cpu() for t in want["state"] + want_means])
+            and all(torch.equal(g.get_state(), w) for g, w in zip(gens, want["generators"],
+                                                                 strict=True)))
+
+
+def hslda_replay_case(device, docs, labs, labelset, seed: int, opt: int, iters: int,
+                      thinning: int, k: int, calls: int = 2) -> dict:
+    """``calls`` HSLDA ``run_training(iters, thinning)`` calls of one model
+    on ``device`` (the later ones with ``continue_avg``), each held to
+    ``eager_hslda_training`` from the state before it; on a card the first
+    call's first cycle and first save run eagerly, their second calls
+    capture the graphs and the rest replay.  Returns the model, each call's
+    (captures, eager bodies) added (``replay_counts``) and whether every
+    call was equal."""
+    from lda_thesis_tpu_torch.models.hslda import HSLDA
+
+    m = HSLDA(docs, labs, labelset, k=k, seed=seed, device=device)
+    added, same = [], []
+    for n in range(calls):
+        want = eager_hslda_training(m, iters, thinning, opt, continue_avg=n > 0)
+        before = replay_counts(m)
+        m.run_training(iters, thinning, opt=opt, continue_avg=n > 0)
+        added.append([a - b for a, b in zip(replay_counts(m), before)])
+        same.append(hslda_training_equal(m, want))
+    return dict(model=m, added=added, equal=all(same))
 
 
 def hslda_sweep_bound_ms(model, rows=None) -> tuple:
@@ -2084,48 +2197,84 @@ def hslda_sweep_bound_ms(model, rows=None) -> tuple:
 
 
 def hslda_block_timing(model, cycles: int) -> dict:
-    """Seconds per block of ``cycles`` opt-1 cycles of a fresh model at full
-    width, host clock around each block ending in a synchronize (CUDA
-    events agree within their own gaps): the first z-sweep (eager), the
-    replayed ones, η, a, m and β; then the device ms of 5 replayed sweeps
-    (CUDA events) against the sweep's bound."""
+    """Times of a fresh full-width model's opt-1 cycles through its cycle
+    runner: host seconds of ``cycles`` cycles one by one, each ending in a
+    synchronize (the first eager, the second captured, then replayed); the
+    host ms to issue a replayed cycle (``_host_ms``: fills, a replay, β's
+    draw) and its device ms (CUDA events around 5 cycles, and around 5
+    replays of the graph alone); the cycle graph's nodes; the host ms to
+    issue the same cycle eagerly (its body run outside the graph).  Then
+    each block on copies of the state and noise: host seconds run eagerly
+    (a synchronize around each, as the loop ran them before its cycle
+    replayed) and device ms as a graph of its own (CUDA events around 5
+    replays): the z-sweep, η, a and m (with mdot); the fills and β's draw,
+    which stay outside the graph, by CUDA events around 5 calls."""
     import torch
 
     from lda_thesis_tpu_torch.models.hslda import a_block, antoniak_draw, beta_block, eta_block
+    from lda_thesis_tpu_torch.ops.gibbs import capture_graph
+    from lda_thesis_tpu_torch.ops.hslda_gibbs import _sweep_
 
-    sweep = model.z_sweep(1)
-    gen = model._gen
-    times = {k: [] for k in ("z", "eta", "a", "m", "beta")}
-
-    def timed(name, fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        times[name].append(time.perf_counter() - t0)
-        return out
-
+    run, gen = model.cycle_step(), model._gen
+    walls = []
     for _ in range(cycles):
-        timed("z", lambda: sweep(model.eta, model.a, model.alpha * model.beta, generator=gen))
-        zbar = model._n_dk.to(torch.float32) / model._n_d[:, None]
-        eta = timed("eta", lambda: eta_block(zbar, model.a, model.mu, model.sigma,
-                                             generator=gen))
-        model.a, _ = timed("a", lambda: a_block(zbar, eta, model.labs, generator=gen))
-        mdot = timed("m", lambda: antoniak_draw(model._n_dk, model.alpha, model.beta,
-                                                model._stirling_logs, generator=gen)
-                     .sum(dim=0).to(torch.float32) / model.D)
-        model.beta = timed("beta", lambda: beta_block(mdot, model.aprime, generator=gen))
-        model.eta = eta
-    _check(sweep._graph is not None and sweep.sweeps == cycles,
-           "the full-width sweep replays its captured graph")
-    replay_ms = _batch_ms(sweep._graph.replay, 5)
+        _sync()
+        t0 = time.perf_counter()
+        run(1, gen)
+        _sync()
+        walls.append(time.perf_counter() - t0)
+    _check(1 in run._graphs and run._key_calls[1] == cycles,
+           "the full-width cycle replays its captured graph")
+    rec = dict(cycle_eager_s=walls[0], cycle_capture_s=walls[1],
+               cycle_replayed_s=float(np.mean(walls[2:])),
+               cycle_host_ms=_host_ms(lambda: run(1, gen), 5),
+               cycle_device_ms=_batch_ms(lambda: run(1, gen), 5),
+               graph_host_ms=_host_ms(run._graphs[1][0].replay, 5),
+               graph_device_ms=_batch_ms(run._graphs[1][0].replay, 5),
+               graph_nodes=_captured_nodes(lambda: run._body(1)))
+    g2 = torch.Generator(device=DEVICE)
+    g2.manual_seed(7)
+
+    def eager_cycle():
+        run.fill(g2)
+        run._body(1)
+        run.params[2].copy_(beta_block(run.mdot[0], run.aprime, generator=g2))
+
+    rec["cycle_eager_host_ms"] = _host_ms(eager_cycle, 2)
+
+    st = [t.clone() for t in run.state]
+    M, eta, a, beta = (t.clone() for t in (run._M[1], run.eta, run.a, run.beta))
+    n_dk = st[1][0]
+    zbar = n_dk.to(torch.float32) / run._n_d[:, None]
+    blocks = {
+        "z": lambda: _sweep_(run._st, *st, M, eta, a, run.alpha * beta, run.g_z, run.gamma,
+                             run.xi, 1, *run._pos),
+        "eta": lambda: eta_block(zbar, a[0], run.mu, run.sigma, run.g_eta[0]),
+        "a": lambda: a_block(zbar, eta[0], run._st.labs, run.u_a[0]),
+        "m": lambda: antoniak_draw(n_dk, run.alpha, beta[0], run._logs, run.g_m[0])
+        .sum(dim=0).to(torch.float32) / model.D,
+    }
+    eager = {"fills": lambda: run.fill(g2),
+             "beta": lambda: beta_block(run.mdot[0], run.aprime, generator=g2)}
+    host_s, device_ms = {}, {}
+    for name, fn in {**blocks, **eager}.items():
+        reps = 1 if name == "z" else 3
+        _sync()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+            _sync()
+        host_s[name] = (time.perf_counter() - t0) / reps
+        if name in blocks:
+            graph = capture_graph(fn, torch.device(DEVICE))
+            device_ms[name] = _batch_ms(graph.replay, 5)
+            del graph
+        else:
+            device_ms[name] = _batch_ms(fn, 5)
     bytes_ms, ops_ms = hslda_sweep_bound_ms(model)
-    rec = dict(z_eager_s=times["z"][0], z_capture_s=times["z"][1],
-               z_replayed_s=float(np.mean(times["z"][2:])),
-               **{f"{k}_s": float(np.mean(v)) for k, v in times.items() if k != "z"},
-               replayed_sweep_ms=replay_ms, sweep_bound_ms=max(bytes_ms, ops_ms),
+    rec.update(block_host_s=host_s, block_device_ms=device_ms,
+               sweep_bound_ms=max(bytes_ms, ops_ms),
                sweep_bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-               sweep_bytes_bound_ms=bytes_ms, sweep_ops_bound_ms=ops_ms,
                sweep_every_row_bound_ms=hslda_sweep_bound_ms(model, model.tok_v.numel())[0])
     return rec
 
@@ -2229,8 +2378,9 @@ def hslda_launch_check(model) -> dict:
 
 def hslda_phase(seed: int) -> dict:
     """HSLDA on the card (phase 12): (a) one cycle of each coupling form on
-    the card against the CPU; (b) 3 cycles replayed against 3 eager ones,
-    bitwise, and the replay's device records against the eager sweep's;
+    the card against the CPU; (b) two replayed training calls of each form
+    at full width against the eager loop, bitwise, the second capturing
+    nothing, and the z-sweep's device records against the eager sweep's;
     (c) the HSLDA CLI at full width (L = 512, K = 15, D = 4,171), a
     SIGKILL-and-resume run, and --opt 2 / --opt 3; (d) timings."""
     import torch
@@ -2258,43 +2408,60 @@ def hslda_phase(seed: int) -> dict:
         rec["forms"][form] = dict(equal_draws=share, eta_err=errs[0], a_err=errs[1],
                                   beta_err=errs[2])
 
-    # b. replay against eager, on the card, at the small problem for each
-    # form and at full width for opt 1
-    docs, labs, labelset = hslda_small_problem(seed)
+    # b. the training loop replayed against the eager loop at full width,
+    # for each coupling form of the model: two calls of HSLDA_REPLAYED cycles
+    jel = jel_corpus(seed, n_l3=HSLDA_N_L3)
+    rec["replay"] = {}
     for form, (opt, _) in HSLDA_FORMS.items():
         if form == "opt2-blockwise":
             continue  # the model's opt 2 is the compact form
-        r = hslda_replay_case(DEVICE, docs, labs, labelset, seed, opt, 3, HSLDA_SMALL_K)
-        _check(r["model"].z_sweep(opt)._graph is not None, f"12b {form}: the sweep replays")
-        _check(_bitwise(r["graphed"], r["eager"]),
-               f"12b {form}: 3 replayed cycles == 3 eager cycles, bitwise (z, counts, η, a, β)")
-    jel = jel_corpus(seed, n_l3=HSLDA_N_L3)
-    r = hslda_replay_case(DEVICE, jel.train_docs, jel.train_labs, jel.labelset, seed, 1, 3,
-                          HSLDA_K)
-    full = r["model"]
-    _check(_bitwise(r["graphed"], r["eager"]),
-           "12b full width: 3 replayed cycles == 3 eager cycles, bitwise")
+        r = hslda_replay_case(DEVICE, jel.train_docs, jel.train_labs, jel.labelset, seed, opt,
+                              *HSLDA_REPLAYED, HSLDA_K)
+        m = r["model"]
+        _check(r["equal"], f"12b {form}: two run_training{HSLDA_REPLAYED} calls == the eager "
+                           f"loop, bitwise (z, n_dk, n_vk, n_k, η, a, β, φ̂, z̄, generator)")
+        _check(r["added"] == [[2, 2], [0, 0]],
+               f"12b {form}: the first call captured the cycle and save graphs, the second "
+               f"captured none and ran no body eagerly ({r['added']})")
+        nodes = _captured_nodes(lambda: m._cycle._body(opt))
+        rec["replay"][form] = dict(added=r["added"], cycle_graph_nodes=nodes)
+        print(f"HSLDA 12b {form}: two run_training{HSLDA_REPLAYED} calls at full width == "
+              f"the eager loop, bitwise (z, n_dk, n_vk, n_k, η, a, β, φ̂, z̄, generator); "
+              f"(captures, eager bodies) by call {r['added']}; the cycle graph has {nodes} "
+              f"nodes")
+        if opt == 1:
+            full = m
+        else:
+            del m
+        del r
     launches = hslda_launch_check(full)
-    print(f"HSLDA 12b: 3 cycles replayed == 3 eager, bitwise (z, n_dk, n_vk, n_k, η, a, β), "
-          f"for opt 1, opt 2 (compact) and opt 3 at D = 64 and for opt 1 at full width "
-          f"(D = {full.D}, N = {full.tok_v.shape[1]}, L = {full.L}, K = {full.K}); the sweep's "
-          f"graph has {launches['graph_nodes']} nodes ({launches['per_position']:.1f} per "
-          f"position), the profiler recorded {launches['replay_records']} in one replay and "
-          f"{launches['eager_records']} in the eager sweep")
+    print(f"HSLDA 12b: at full width (D = {full.D}, N = {full.tok_v.shape[1]}, L = {full.L}, "
+          f"K = {full.K}) the opt-1 sweep's graph has {launches['graph_nodes']} nodes "
+          f"({launches['per_position']:.1f} per position), the profiler recorded "
+          f"{launches['replay_records']} in one replay and {launches['eager_records']} in the "
+          f"eager sweep")
     rec["launches"] = launches
-    del r
+    del full
 
-    # d. timings at full width (a fresh model: the first sweep is eager)
+    # d. timings at full width (a fresh model: its first cycle is eager)
     timing = hslda_block_timing(HSLDA(jel.train_docs, jel.train_labs, jel.labelset,
                                       k=HSLDA_K, seed=seed, device=DEVICE), 6)
-    print(f"HSLDA 12d ({card}), seconds per cycle by block at full width: z eager "
-          f"{timing['z_eager_s']:.4f}, capture+replay {timing['z_capture_s']:.4f}, replayed "
-          f"{timing['z_replayed_s']:.4f}, η {timing['eta_s']:.5f}, a {timing['a_s']:.5f}, "
-          f"m {timing['m_s']:.5f}, β {timing['beta_s']:.5f}; a replayed opt-1 sweep "
-          f"{timing['replayed_sweep_ms']:.4f} ms of device time (bound "
+    hs, dm = timing["block_host_s"], timing["block_device_ms"]
+    print(f"HSLDA 12d ({card}), opt-1 cycles at full width through the cycle runner: eager "
+          f"{timing['cycle_eager_s']:.4f} s, captured and replayed "
+          f"{timing['cycle_capture_s']:.4f} s, replayed {timing['cycle_replayed_s']:.4f} s "
+          f"(host clock, synchronized); a replayed cycle issued in "
+          f"{timing['cycle_host_ms']:.4f} ms of host time (eagerly "
+          f"{timing['cycle_eager_host_ms']:.4f} ms), {timing['cycle_device_ms']:.4f} ms "
+          f"of device time (the graph alone, {timing['graph_nodes']} nodes: issued in "
+          f"{timing['graph_host_ms']:.4f} ms, {timing['graph_device_ms']:.4f} ms of device "
+          f"time)")
+    print(f"  by block, host ms run eagerly (synchronized) / device ms as a graph of its own: "
+          + ", ".join(f"{k} {1e3 * hs[k]:.4f} / {dm[k]:.4f}" for k in hs)
+          + f" (fills and β: device ms by events around 5 calls); the sweep's bound "
           f"{timing['sweep_bound_ms']:.4f} ms by {timing['sweep_bound_by']} over the live "
           f"instances, {timing['sweep_every_row_bound_ms']:.4f} ms over every row of every "
-          f"position)")
+          f"position")
     rec["timing"] = timing
 
     # c. the CLI at full width
@@ -2365,7 +2532,7 @@ def hslda_phase(seed: int) -> dict:
                                   str(HSLDA_SHORT_TEST_IT), "--opt", str(opt)])
             m = res["model"]
             _hslda_counts_ok(*m.counts[1:], m.n_tokens, f"CLI HSLDA --opt {opt}")
-            _check(m._sweeps[opt]._graph is not None, f"CLI HSLDA --opt {opt} replays its sweep")
+            _check(opt in m._cycle._graphs, f"CLI HSLDA --opt {opt} replays its cycle")
             steps = {k[:-2]: v for k, v in res["stats"].items() if k.endswith("_s")}
             print(f"CLI HSLDA --opt {opt} (-i {HSLDA_SHORT_IT} -s {HSLDA_S}, test "
                   f"{HSLDA_SHORT_TEST_IT}): AUC {res['metrics']['auc_roc']}; wall by step "
@@ -3031,6 +3198,46 @@ def hslda_chains_case(device, docs, labs, labelset, seed: int, C: int, sweeps: i
                 equal_draws=equal / z_batched.numel(), N=N)
 
 
+def hslda_chain_runners_case(device, docs, labs, labelset, seed: int, C: int, iters: int,
+                             thinning: int, k: int) -> dict:
+    """A one-rank ``DistributedHSLDA`` of C chains: one ``run_training(iters,
+    thinning)`` call (its loop's cycle runner over the chain axis, the
+    saves) held to ``eager_hslda_training``, and its chains against C
+    single-chain ``CycleStep`` runners from the same initial state, each
+    drawing from copies of its chain's two generators.  Returns the model,
+    whether the call equals the eager loop, whether every single-chain
+    runner's state equals its chain's bit for bit, the share of the
+    single-chain runners' draws of z that the batched runner drew alike and
+    the largest difference of η, a and β between them."""
+    import torch
+
+    from lda_thesis_tpu_torch.models.hslda import CycleStep
+
+    m = _hslda_model(docs, labs, labelset, seed, C, device, k)
+    st0 = [t.clone() for t in m.state]
+    gens = [(_copy_generator(a), _copy_generator(b))
+            for a, b in zip(m._gens.local, m._gens.chain)]
+    want = eager_hslda_training(m, iters, thinning)
+    m.run_training(iters, thinning)
+    equal = hslda_training_equal(m, want)
+    cp, got = m.corpus, m.state
+    bitwise, same_z, err = True, 0, 0.0
+    for c, (local, chain) in enumerate(gens):
+        z, n_dk, n_vk, n_k, eta, a, beta = (t[c].clone() for t in st0)
+        z_t = z.T.contiguous()
+        run = CycleStep(z_t, n_dk, n_vk, n_k, cp.tok_v, cp.mask, cp.labs, eta, a, beta,
+                        m._stirling_logs, m.mu, m.sigma, m.aprime, m.alpha, m.gamma, m.xi, m.V,
+                        D_total=m.D)
+        for _ in range(iters):
+            run(1, local, chain)
+        mine = [z_t.T, n_dk, n_vk, n_k, *run.params]
+        bitwise = bitwise and _bitwise([t.cpu() for t in mine], [t[c].cpu() for t in got])
+        same_z += int((z_t.T == got.z[c]).sum())
+        err = max(err, _max_abs_err(mine[4:], [t[c] for t in got[4:]]))
+    return dict(model=m, equal=equal, singles_bitwise=bitwise,
+                equal_draws=same_z / got.z.numel(), max_abs_err=err)
+
+
 def hslda_chains_phase(seed: int, card: str) -> dict:
     """14a: 4 chains in one replayed z-sweep graph against 4 single-chain
     graphs at full width."""
@@ -3056,6 +3263,22 @@ def hslda_chains_phase(seed: int, card: str) -> dict:
     _check(share >= MIN_EQUAL_DRAWS,
            f"14a: {share:.6f} of the batched draws equal the single-chain ones "
            f"(>= {MIN_EQUAL_DRAWS})")
+    cyc = hslda_chain_runners_case(DEVICE, jel.train_docs, jel.train_labs, jel.labelset, seed,
+                                   HMD_BATCH, *HSLDA_REPLAYED, HSLDA_K)
+    _check(cyc["equal"], f"14a: a {HMD_BATCH}-chain run_training{HSLDA_REPLAYED} call == the "
+                         f"eager loop, bitwise (every chain's z, counts, η, a, β, φ̂, "
+                         f"generators)")
+    _check(cyc["equal_draws"] >= MIN_EQUAL_DRAWS,
+           f"14a: {cyc['equal_draws']:.6f} of the batched cycles' draws equal the single-chain "
+           f"runners' (>= {MIN_EQUAL_DRAWS})")
+    print(f"14a ({card}): {HMD_BATCH} chains, one run_training{HSLDA_REPLAYED} call through "
+          f"the loop's cycle runner == the eager loop, bitwise; against {HMD_BATCH} "
+          f"single-chain cycle runners {cyc['equal_draws']:.6f} of the draws equal, "
+          f"{'bitwise' if cyc['singles_bitwise'] else 'not bitwise'} (max |Δ| of η, a, β "
+          f"{cyc['max_abs_err']:.3g})")
+    cyc_share, cyc_bitwise, cyc_err = (cyc["equal_draws"], cyc["singles_bitwise"],
+                                       cyc["max_abs_err"])
+    del cyc
     batched_ms = _batch_ms(sweep._graph.replay, 5)
     singles_ms = _batch_ms(lambda: [s[0]._graph.replay() for s in r["singles"]], 5)
     twin = torch.cuda.CUDAGraph(keep_graph=True)
@@ -3071,6 +3294,8 @@ def hslda_chains_phase(seed: int, card: str) -> dict:
     live_b, live_o = hslda_sweep_bound_ms(m)
     rows_b, _ = hslda_sweep_bound_ms(m, m.tok_v.numel())
     rec = dict(card=card, chains=HMD_BATCH, equal_draws=share, bitwise=bitwise,
+               cycles_equal_draws=cyc_share, cycles_bitwise=cyc_bitwise,
+               cycles_max_abs_err=cyc_err,
                batched_ms=batched_ms, singles_ms=singles_ms, graph_nodes=nodes,
                bound_ms=HMD_BATCH * max(live_b, live_o),
                bound_by="bytes" if live_b >= live_o else "operations",
@@ -3101,8 +3326,8 @@ def hslda_reckoned_bytes(D: int, N: int, L: int, K: int, V: int, S: int, C: int)
 
 def hslda_chain_timing(seed: int, card: str) -> list:
     """14b: ``DistributedHSLDA`` on one rank at C = 1, 4, 16, 64 at full
-    width: two warm-up cycles (the first sweep eager, the second captured),
-    ``HMD_TIMED`` cycles on the host clock ending in a synchronize, one
+    width: four warm-up cycles and two saves (the first cycle and save
+    eager, the second captured), ``HMD_TIMED`` cycles on the host clock ending in a synchronize, one
     under torch.profiler; the peak memory against the reckoned bytes."""
     import torch
 
@@ -3119,7 +3344,7 @@ def hslda_chain_timing(seed: int, card: str) -> list:
         D, N = m.tok_v.shape
         reckoned = hslda_reckoned_bytes(D, N, m.L, m.K, m.V, m._stirling_logs.shape[0], C)
         print(f"14b C={C}: reckoned device bytes {reckoned / 1e9:.3f} GB")
-        m.run_training(2, 2)  # eager sweep, then the capture
+        m.run_training(4, 2)  # eager cycle and save, then their captures
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         m.run_training(HMD_TIMED, HMD_TIMED)
@@ -3132,7 +3357,8 @@ def hslda_chain_timing(seed: int, card: str) -> list:
         _check(bool(torch.isfinite(st.eta).all()) and bool(torch.isfinite(st.beta).all()),
                f"14b C={C}: η and β are finite")
         loop = m._loops[1]
-        _check(loop._sweep._graph is not None, f"14b C={C}: the chains' sweep replays a graph")
+        _check(1 in loop._run._graphs and loop._saves._graphs,
+               f"14b C={C}: the chains' cycle and save replay graphs")
         rec = dict(card=card, chains=C, cycles=HMD_TIMED, wall_s=wall,
                    cycles_per_s=HMD_TIMED / wall, chain_cycles_per_s=C * HMD_TIMED / wall,
                    tokens_per_s=C * m.n_tokens * HMD_TIMED / wall,
@@ -3951,9 +4177,15 @@ def replayed_blocks_case(device, seed: int, name: str, calls: int = 3, chains: i
 
 def _runners(model) -> list:
     """The kept training runners (``ops/gibbs._Replayed``) of ``model``: a
-    ``LabeledLDA``'s or ``LocalLDA``'s blocks or sweeps and saves, or one
-    rank's of a ``DistributedLabeledLDA`` (replicated layouts)."""
-    if hasattr(model, "mesh"):
+    ``LabeledLDA``'s or ``LocalLDA``'s blocks or sweeps and saves, one
+    rank's of a ``DistributedLabeledLDA`` (replicated layouts), an
+    ``HSLDA``'s cycle and save runners, or those of each of a
+    ``DistributedHSLDA``'s loops (data axis 1, replicated table)."""
+    if hasattr(model, "_loops"):  # DistributedHSLDA
+        runs = [r for loop in model._loops.values() for r in (loop._run, loop._saves)]
+    elif hasattr(model, "_cycle"):  # HSLDA
+        runs = (model._cycle, model._save)
+    elif hasattr(model, "mesh"):
         loop = model._loop
         runs = (() if loop is None else (loop._sweep, loop._saves) if model.sweep == "dense"
                 else (loop.blocks.run, loop.blocks.saves))
@@ -4002,7 +4234,8 @@ def _tg_call(model, train, eager, what: str, launches: int, kernel2=None,
     fresh = [a - b for a, b in zip(replay_counts(model), runs)]
     if warm:
         _check(fresh == [0, 0], f"{what}: no graph captured and no body run eagerly ({fresh})")
-    same = (chains_equal(model, want) if hasattr(model, "mesh")
+    same = (hslda_training_equal(model, want) if hasattr(model, "_cycle")
+            else chains_equal(model, want) if hasattr(model, "mesh")
             else training_equal(model, want, perps))
     _check(same, f"{what}: the replayed run == the eager loop, bitwise (z, n_dk, n_vk, n_k, "
                  f"φ̂, θ̂, perplexities, generator)")
@@ -4291,7 +4524,7 @@ def training_graphs_phase(seed: int, corpus, dicti, card: str) -> dict:
     and the device's idle share of a profiled call, and peak device memory;
     for the fused path also a save's nodes and times, eager and replayed
     (``save_timing``), and a replayed block's device time by step
-    (``merge_block_split``)."""
+    (``merge_block_split``).  Last, HSLDA's (``hslda_training_graphs``)."""
     import torch
 
     from lda_thesis_tpu_torch.data.synthetic import planted_corpus
@@ -4525,6 +4758,47 @@ def training_graphs_phase(seed: int, corpus, dicti, card: str) -> dict:
           f"{r['peak_gb']:.2f} GB")
     print(f"  Labeled-LDA compact: {_tg_warm_line(calls)}")
     rec["compact"] = r
+    del model
+    torch.cuda.empty_cache()
+
+    # HSLDA at full width, one model and one rank of TG_CHAINS chains, two
+    # calls of HSLDA_REPLAYED each
+    rec.update(hslda_training_graphs(seed))
+    return rec
+
+
+def hslda_training_graphs(seed: int) -> dict:
+    """Phase 16's HSLDA cases: ``TG_CALLS`` ``run_training`` calls of
+    ``HSLDA_REPLAYED`` cycles each (the later ones with ``continue_avg``) of
+    an ``HSLDA`` and of a one-rank ``DistributedHSLDA`` of ``TG_CHAINS``
+    chains at full width, each held to ``eager_hslda_training``; the later
+    calls capture no graph and run no body eagerly."""
+    import torch
+
+    from lda_thesis_tpu_torch.data.synthetic import jel_corpus
+    from lda_thesis_tpu_torch.models.hslda import HSLDA
+
+    jel = jel_corpus(seed, n_l3=HSLDA_N_L3)
+    args = (jel.train_docs, jel.train_labs, jel.labelset)
+    rec = {}
+    for name, C in (("hslda", 0), (f"hslda_chains_{TG_CHAINS}", TG_CHAINS)):
+        torch.cuda.reset_peak_memory_stats()
+        m = (_hslda_model(*args, seed, C, DEVICE, HSLDA_K) if C
+             else HSLDA(*args, k=HSLDA_K, seed=seed, device=DEVICE))
+        calls = [_tg_call(m, lambda n=n: m.run_training(*HSLDA_REPLAYED, continue_avg=n > 0),
+                          lambda n=n: eager_hslda_training(m, *HSLDA_REPLAYED,
+                                                           continue_avg=n > 0),
+                          f"{name} {HSLDA_REPLAYED}, call {n + 1}", 0, warm=n > 0)
+                 for n in range(TG_CALLS)]
+        r = dict(calls=calls, peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                 graphs=list(replay_counts(m)))
+        print(f"training graphs, {name} {HSLDA_REPLAYED} at full width: {len(calls)} calls "
+              f"replayed == the eager loop, bitwise (z, counts, η, a, β, φ̂"
+              f"{'' if C else ', z̄'}, generators); (graphs, eager bodies) of its runners "
+              f"{r['graphs']}; peak {r['peak_gb']:.2f} GB; " + _tg_warm_line(calls))
+        rec[name] = r
+        del m
+        torch.cuda.empty_cache()
     return rec
 
 

@@ -7,8 +7,7 @@ auxiliaries ``a``; blocked Gibbs over five variable groups z → η → a → m 
 (HSLDA.py:312-317), one cycle per :func:`_train_cycle`:
 
 * z: the token-instance sweep with the probit coupling
-  (``ops/hslda_gibbs``), on a card one CUDA graph per sweep
-  (:class:`~..ops.hslda_gibbs.HSLDASweep`);
+  (``ops/hslda_gibbs``);
 * η: the Bayesian-regression posterior by a Cholesky factor of the (K, K)
   precision and triangular solves (:func:`eta_block`);
 * a: truncated normals by inverse CDF (:func:`a_block`);
@@ -16,13 +15,20 @@ auxiliaries ``a``; blocked Gibbs over five variable groups z → η → a → m 
   (:func:`antoniak_draw`, averaged over documents);
 * β: a Gamma-normalised Dirichlet (:func:`beta_block`).
 
-The linear-model blocks run eagerly, in float32 as the JAX function does
+The linear-model blocks run in float32 as the JAX function does
 (``torch.linalg.cholesky_ex``: no host sync; IEEE float32 matmuls, TF32
 off as ``torch.backends.cuda.matmul.allow_tf32`` leaves it by default).
 Each block takes its draws as an optional input of the JAX draw's shape,
 so a test can feed JAX's.  Every block also takes a leading chain axis
 (``parallel/hslda_sharded`` runs a rank's chains at once), drawing each
 chain's numbers from its own generator where it is given one per chain.
+
+JAX compiles the training loop as one program (``_train_loop_hslda``).
+Here :class:`CycleStep` runs a cycle as one body (the z-sweep, z̄, η, a, m
+and mdot), on a card one replayed CUDA graph per coupling, with every draw
+but β's Gammas filled outside the graph in the eager order; the φ̂/z̄
+saves run through ``ops/gibbs.SaveStep``.  A model keeps both runners for
+its life, so its second ``run_training`` captures nothing.
 
 The model runs on ``device`` (CUDA unless the caller passes ``"cpu"``) and
 draws from one ``torch.Generator`` on that device, seeded by ``seed``:
@@ -48,12 +54,22 @@ import numpy as np
 import torch
 
 from ..data.encode import binarize_labels, build_labelmap, compact_labels, encode_instances
-from ..ops.gibbs import FoldinSweep
-from ..ops.hslda_gibbs import HSLDACounts, HSLDASweep, hslda_init_counts, hslda_z_sweep
+from ..ops.gibbs import FoldinSweep, SaveStep, _load_into, _Replayed
+from ..ops.hslda_gibbs import (
+    HSLDACounts,
+    HSLDASweep,
+    _m_width,
+    _noise,
+    _static,
+    _sweep_,
+    fill_gumbels,
+    hslda_init_counts,
+    hslda_z_sweep,
+)
 from ..ops.sampling import gumbel, norm_cdf, open_uniforms, stirling_table, truncated_normal
 from .state import running_average
 
-__all__ = ["HSLDA", "CycleNoise", "eta_block", "eta_gram", "eta_draw", "a_block",
+__all__ = ["HSLDA", "CycleNoise", "CycleStep", "eta_block", "eta_gram", "eta_draw", "a_block",
            "antoniak_draw", "beta_block", "chains_test_loop", "chain_scores", "D_BLOCK"]
 
 D_BLOCK = 512  # documents per block of the m draw (the JAX function's noise blocks)
@@ -204,24 +220,17 @@ def _train_cycle(counts: HSLDACounts, tok_v, mask, labs, eta, a, beta, stirling_
                  mu: float, sigma: float, aprime: float, alpha: float, gamma: float,
                  xi: float, opt: int, lab_pos_ids=None, lab_pos_valid=None,
                  noise: Optional[CycleNoise] = None,
-                 generator: Optional[torch.Generator] = None,
-                 sweep: Optional[HSLDASweep] = None):
-    """One blocked-Gibbs cycle z → η → a → m → β (HSLDA.py:312-317); returns
-    ``(counts, eta, a, beta, zbar, mean_a)`` as the JAX function does.
-
-    With ``sweep`` (the model's :class:`HSLDASweep` over ``counts``' tensors)
-    the z block runs there, in place; else :func:`hslda_z_sweep` runs on
-    copies.  Draws come from ``noise`` where it holds them, else from
-    ``generator``, in the order z, η, a, m, β."""
+                 generator: Optional[torch.Generator] = None):
+    """One blocked-Gibbs cycle z → η → a → m → β (HSLDA.py:312-317) on copies
+    of the counts; returns ``(counts, eta, a, beta, zbar, mean_a)`` as the
+    JAX function does.  Draws come from ``noise`` where it holds them, else
+    from ``generator``, in the order z, η, a, m, β.  The functional form of
+    a :class:`CycleStep` call, which has its bits."""
     noise = noise or CycleNoise()
     alpha_beta = alpha * beta
-    if sweep is None:
-        counts, _ = hslda_z_sweep(counts, tok_v, mask, labs, eta, a, alpha_beta, gamma, xi,
-                                  opt=opt, lab_pos_ids=lab_pos_ids,
-                                  lab_pos_valid=lab_pos_valid, gumbels=noise.z,
-                                  generator=generator)
-    else:
-        sweep(eta, a, alpha_beta, generator=generator, gumbels=noise.z)
+    counts, _ = hslda_z_sweep(counts, tok_v, mask, labs, eta, a, alpha_beta, gamma, xi,
+                              opt=opt, lab_pos_ids=lab_pos_ids, lab_pos_valid=lab_pos_valid,
+                              gumbels=noise.z, generator=generator)
     n_d = torch.clamp(mask.sum(dim=1), min=1).to(torch.float32)
     zbar = counts.n_dk.to(torch.float32) / n_d[:, None]  # (D, K)
     eta_new = eta_block(zbar, a, mu, sigma, noise.eta, generator)
@@ -232,6 +241,148 @@ def _train_cycle(counts: HSLDACounts, tok_v, mask, labs, eta, a, beta, stirling_
     mdot = m.sum(dim=0).to(torch.float32) / m.shape[0]
     beta_new = beta_block(mdot, aprime, noise.beta, generator)
     return counts, eta_new, a_new, beta_new, zbar, mean_a
+
+
+def _fill(out: torch.Tensor, generator, draw) -> None:
+    """Fill ``out (C, …)`` as :func:`per_chain` draws it: ``draw(out, gen)``
+    over the whole buffer from one generator, or, given one generator per
+    chain, chain c's slice from generator c."""
+    if generator is None or isinstance(generator, torch.Generator):
+        draw(out, generator)
+        return
+    if len(generator) != out.shape[0]:
+        raise ValueError(f"{len(generator)} generators for {out.shape[0]} chains")
+    for dst, gen in zip(out, generator):
+        draw(dst, gen)
+
+
+class CycleStep(_Replayed):
+    """Repeated blocked-Gibbs cycles (:func:`_train_cycle`) over one state,
+    which every call updates in place: the count tensors ``z_t (N, C·D)``
+    (position-major), ``n_dk (C, D, K)``, ``n_vk (C, V, K)``, ``n_k (C, K)``
+    given, and η (C, L, K), a (C, D, L) and β (C, K), which the runner owns
+    (copied from the given tensors).  A single chain's ``(D, K)``, ``(V,
+    K)``, ``(K,)`` tensors and ``z_t (N, D)`` are taken as C = 1 views, and
+    its blocks run on the tensors without the chain axis, as
+    :func:`_train_cycle` runs them.  ``params`` are (η, a, β) as the caller
+    sees them (a single chain's without the axis): a reader that keeps them
+    past the next call clones them.
+
+    A call fills static noise buffers in the eager draw order, from
+    ``generator`` (or one generator per chain, each filling its chain's
+    slice as a single-chain cycle draws it) or from ``noise`` where it
+    holds the draws: the z-sweep's Gumbels (N, C, D, K), then η's normals
+    (C, K, L) from ``eta_generator`` (default ``generator``), a's uniforms
+    (C, D, L) and m's Gumbels (C, D, K, S).  Then the body: the z-sweep
+    (``ops/hslda_gibbs._sweep_``, α·β from the static β), z̄, η, a, m and
+    ``mdot = Σ_d m / D_total``, η and a written in place.  Under
+    :class:`~..ops.gibbs._Replayed`'s rule the body is one CUDA graph per
+    coupling ``opt`` on a card (the first call of an ``opt`` eager, the
+    second captured, later ones replayed); on the CPU it runs eagerly.  β's
+    Gamma variates take mdot from the body and are the cycle's last draw,
+    so they are drawn after it, from ``eta_generator``, and normalised into
+    the static β.  ``V`` is the true vocabulary size; ``D_total`` divides
+    mdot (default D)."""
+
+    def __init__(self, z_t, n_dk, n_vk, n_k, tok_v, mask, labs, eta, a, beta,
+                 stirling_logs, mu: float, sigma: float, aprime: float, alpha: float,
+                 gamma: float, xi: float, V: int, D_total: Optional[int] = None,
+                 lab_pos_ids=None, lab_pos_valid=None):
+        super().__init__(n_dk.device)
+        self.single = single = n_dk.dim() == 2
+        chains = [t[None] if single else t for t in (n_dk, n_vk, n_k)]
+        C, D, K = chains[0].shape
+        N, L, S = tok_v.shape[1], labs.shape[1], stirling_logs.shape[0]
+        if tuple(z_t.shape) != (N, C * D):
+            raise ValueError(f"z_t must have shape {(N, C * D)}, got {tuple(z_t.shape)}")
+        dev, f32 = n_dk.device, torch.float32
+        self.state = (z_t, *chains)
+        self._n_dk = n_dk  # the blocks' view
+        self._st = _static(tok_v, mask, labs, V, K, gamma, C, chains[1].shape[1])
+        self._n_d = torch.clamp(mask.sum(dim=1), min=1).to(f32)
+        self._logs = stirling_logs
+        self._pos = (None if lab_pos_ids is None else lab_pos_ids.long().contiguous(),
+                     None if lab_pos_valid is None else lab_pos_valid.to(f32))
+        self.mu, self.sigma, self.aprime = float(mu), float(sigma), float(aprime)
+        self.alpha, self.gamma, self.xi = float(alpha), float(gamma), float(xi)
+        self.D_total = int(D if D_total is None else D_total)
+        self.eta = torch.empty((C, L, K), dtype=f32, device=dev)
+        self.a = torch.empty((C, D, L), dtype=f32, device=dev)
+        self.beta = torch.empty((C, K), dtype=f32, device=dev)
+        self.mdot = torch.empty((C, K), dtype=f32, device=dev)
+        self.g_z = torch.empty((N, C, D, K), dtype=f32, device=dev)
+        self.g_eta = torch.empty((C, K, L), dtype=f32, device=dev)
+        self.u_a = torch.empty((C, D, L), dtype=f32, device=dev)
+        self.g_m = torch.empty((C, D, K, S), dtype=f32, device=dev)
+        self._M = {}  # opt -> the sweep's M buffer
+        self.params = tuple(self._v(t) for t in (self.eta, self.a, self.beta))
+        _load_into(self.params, (eta, a, beta))
+
+    def _v(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` as the blocks take it: a single chain's without the axis."""
+        return t[0] if self.single else t
+
+    def load(self, eta, a, beta) -> None:
+        """Copy (η, a, β) set from elsewhere (told apart from the static
+        tensors by identity) into the static tensors in place; each must
+        keep its shape."""
+        for p, x in zip(self.params, (eta, a, beta)):
+            if x is not p:
+                _load_into((p,), (x,))
+
+    def fill(self, generator=None, eta_generator=None,
+             noise: Optional[CycleNoise] = None) -> None:
+        """Fill the noise buffers of one cycle (z, η, a, m), in that order."""
+        noise = noise or CycleNoise()
+        eta_gen = generator if eta_generator is None else eta_generator
+        if noise.z is None:
+            fill_gumbels(self.g_z, generator)
+        else:
+            self.g_z.copy_(_noise(self.g_z.shape, self.g_z, noise.z, None))
+        draws = (
+            (self.g_eta, noise.eta, eta_gen,
+             lambda out, g: torch.randn(tuple(out.shape), generator=g, out=out)),
+            (self.u_a, noise.a, generator,
+             lambda out, g: open_uniforms(out.shape, out.device, g, out=out)),
+            (self.g_m, noise.m, generator,
+             lambda out, g: gumbel(out.shape, out.device, g, out=out)))
+        for buf, given, gen, draw in draws:
+            if given is None:
+                _fill(buf, gen, draw)
+            elif given.numel() != buf.numel():
+                raise ValueError(f"noise of {given.numel()} numbers for a buffer of "
+                                 f"shape {tuple(buf.shape)}")
+            else:
+                buf.copy_(given.to(dtype=torch.float32).reshape(buf.shape))
+
+    def _body(self, opt: int) -> None:
+        _sweep_(self._st, *self.state, self._M[opt], self.eta, self.a, self.alpha * self.beta,
+                self.g_z, self.gamma, self.xi, opt, *self._pos)
+        v = self._v
+        eta, a, n_dk = v(self.eta), v(self.a), self._n_dk
+        zbar = n_dk.to(torch.float32) / self._n_d[:, None]
+        eta_new = eta_block(zbar, a, self.mu, self.sigma, v(self.g_eta))
+        a_new, _ = a_block(zbar, eta_new, self._st.labs, v(self.u_a))
+        m = antoniak_draw(n_dk, self.alpha, v(self.beta), self._logs, v(self.g_m))
+        # the mean over documents (HSLDA.py:310): an exact integer sum, one division
+        v(self.mdot).copy_(m.sum(dim=-2).to(torch.float32) / self.D_total)
+        eta.copy_(eta_new)
+        a.copy_(a_new)
+
+    def __call__(self, opt: int, generator=None, eta_generator=None,
+                 noise: Optional[CycleNoise] = None) -> None:
+        """One cycle with coupling ``opt``; draws as :meth:`fill`, then β's
+        Gammas from ``noise.beta`` or ``eta_generator``."""
+        opt = int(opt)
+        noise = noise or CycleNoise()
+        eta_gen = generator if eta_generator is None else eta_generator
+        if opt not in self._M:
+            sparse2 = opt == 2 and self._pos[0] is not None
+            self._M[opt] = torch.empty(self.a.shape[:2] + (_m_width(self._st, opt, sparse2),),
+                                       dtype=torch.float32, device=self.a.device)
+        self.fill(generator, eta_gen, noise)
+        self._run(opt, lambda: self._body(opt))
+        self.params[2].copy_(beta_block(self._v(self.mdot), self.aprime, noise.beta, eta_gen))
 
 
 def _test_init(tv, mF, init_phi, init_uniforms):
@@ -379,6 +530,9 @@ class HSLDA:
         self._avg_s = 0
         self._cycles_done = 0
         self._sweeps: Dict[int, HSLDASweep] = {}
+        self._cycle: Optional[CycleStep] = None  # the training runners, made at first use
+        self._save: Optional[SaveStep] = None
+        self._means = None  # (ph, th) as the save runner's means last gave them
         self.seed = int(seed)
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(self.seed)
@@ -404,10 +558,10 @@ class HSLDA:
         self.a, _ = a_block(zbar, self.eta, self.labs, generator=gen)
 
     def __getstate__(self):
-        # a captured CUDA graph does not pickle; the sweeps are made again
-        # at first use
+        # a captured CUDA graph does not pickle; the runners are made again
+        # at first use, from η, a, β and the means
         state = self.__dict__.copy()
-        state["_sweeps"] = {}
+        state.update(_sweeps={}, _cycle=None, _save=None, _means=None)
         return state
 
     def _t(self, x, dtype) -> torch.Tensor:
@@ -430,11 +584,9 @@ class HSLDA:
 
     @counts.setter
     def counts(self, c: HSLDACounts) -> None:
-        # in place: a captured sweep graph reads these very tensors
-        self._z_t.copy_(c.z.T)
-        self._n_dk.copy_(c.n_dk)
-        self._n_vk.copy_(c.n_vk)
-        self._n_k.copy_(c.n_k)
+        # in place: a captured graph reads these very tensors; a state of
+        # another shape is refused
+        _load_into((self._z_t, self._n_dk, self._n_vk, self._n_k), (c.z.T, *c[1:]))
 
     def z_sweep(self, opt: int) -> HSLDASweep:
         """The model's sweep for coupling ``opt``, made at first use."""
@@ -448,13 +600,27 @@ class HSLDA:
                                            self.xi, opt, self.V, ids, valid)
         return self._sweeps[opt]
 
+    def cycle_step(self) -> CycleStep:
+        """The model's cycle runner (:class:`CycleStep` over the model's
+        count tensors), made at first use and kept for the model's life.
+        ``eta``, ``a`` and ``beta`` are its static tensors from then on; ones
+        set from elsewhere (a checkpoint, a converted state) are told apart
+        by identity and copied in."""
+        params = (self.eta, self.a, self.beta)
+        if self._cycle is None:
+            self._cycle = CycleStep(
+                self._z_t, self._n_dk, self._n_vk, self._n_k, self.tok_v, self.mask,
+                self.labs, *params, self._stirling_logs, self.mu, self.sigma, self.aprime,
+                self.alpha, self.gamma, self.xi, self.V, lab_pos_ids=self._lab_pos_ids,
+                lab_pos_valid=self._lab_pos_valid)
+        else:
+            self._cycle.load(*params)
+        self.eta, self.a, self.beta = self._cycle.params
+        return self._cycle
+
     def train_cycle(self, opt: int = 1, noise: Optional[CycleNoise] = None) -> None:
-        """One blocked-Gibbs cycle on the model's state."""
-        state = HSLDACounts(z=self._z_t, n_dk=self._n_dk, n_vk=self._n_vk, n_k=self._n_k)
-        _, self.eta, self.a, self.beta, _, _ = _train_cycle(
-            state, self.tok_v, self.mask, self.labs, self.eta, self.a, self.beta,
-            self._stirling_logs, self.mu, self.sigma, self.aprime, self.alpha, self.gamma,
-            self.xi, int(opt), noise=noise, generator=self._gen, sweep=self.z_sweep(opt))
+        """One blocked-Gibbs cycle on the model's state (:meth:`cycle_step`)."""
+        self.cycle_step()(opt, self._gen, noise=noise)
         self._cycles_done += 1
 
     # ------------------------------------------------------------------ train
@@ -468,36 +634,54 @@ class HSLDA:
         den = n_kv.sum(axis=1, keepdims=True)
         return n_kv / np.maximum(den, 1)
 
+    def _estimates(self):
+        """The save's current (φ̂ (K, V) unsmoothed, (z̄ (D, K),))."""
+        n_kv = self._n_vk.to(torch.float32).T
+        cur_ph = n_kv / torch.clamp(n_kv.sum(dim=1, keepdim=True), min=1.0)
+        return cur_ph, (self._n_dk.to(torch.float32) / self._n_d[:, None],)
+
+    def _save_step(self) -> SaveStep:
+        """The model's save runner (``ops/gibbs.SaveStep`` over φ̂ and z̄),
+        made at first use and kept for the model's life."""
+        if self._save is None:
+            f32 = dict(dtype=torch.float32, device=self.device)
+            self._save = SaveStep(torch.zeros((self.K, self.V), **f32),
+                                  [torch.zeros((self.D, self.K), **f32)])
+            self._means = None
+        return self._save
+
     def run_training(self, it: int = 25, thinning: int = 5, opt: int = 1,
                      continue_avg: bool = False) -> None:
         """Blocked-Gibbs cycles with thinned φ̂/z̄ averaging (HSLDA.py:312-333).
 
-        The means fold in at every ``thinning``-th cycle, in float32; the
-        trailing ``it % thinning`` cycles run unsaved.  ``continue_avg=True``
-        carries the means across calls (chunked or resumed training); the
-        default restarts them, as the reference's per-call counter does.
+        The means fold in at every ``thinning``-th cycle, in float32, with
+        the save index in device scalars as JAX traces it; the trailing ``it
+        % thinning`` cycles run unsaved.  ``continue_avg=True`` carries the
+        means across calls (chunked or resumed training); the default
+        restarts them, as the reference's per-call counter does.  Each cycle
+        is one :class:`CycleStep` call and each save one ``SaveStep`` call,
+        so on a card a model's second call replays graphs only.
         """
         it, thinning = int(it), int(thinning)
+        run, save = self.cycle_step(), self._save_step()
+        s = 0
         if continue_avg and self.ph is not None:
             s = int(self._avg_s)
-            ph = torch.as_tensor(self.ph, dtype=torch.float32, device=self.device)
-            th = torch.as_tensor(self.th, dtype=torch.float32, device=self.device)
-        else:
-            s = 0
-            ph = torch.zeros((self.K, self.V), dtype=torch.float32, device=self.device)
-            th = torch.zeros((self.D, self.K), dtype=torch.float32, device=self.device)
+            if self._means is None or self._means[0] is not self.ph \
+                    or self._means[1] is not self.th:
+                save.load(torch.as_tensor(self.ph), [torch.as_tensor(self.th)])
+        # without continue_avg the first save overwrites the means
         for i in range(it):
-            self.train_cycle(opt)
+            run(opt, self._gen)
+            self._cycles_done += 1
             if (i + 1) % thinning == 0:
                 s += 1
-                n_kv = self._n_vk.to(torch.float32).T  # (K, V) unsmoothed
-                cur_ph = n_kv / torch.clamp(n_kv.sum(dim=1, keepdim=True), min=1.0)
-                ph = running_average(ph, cur_ph, s)
-                th = running_average(th, self._n_dk.to(torch.float32) / self._n_d[:, None], s)
+                save(s, self._estimates)
         self._avg_s = s
         if s:
-            self.ph = ph.cpu().numpy()
-            self.th = th.cpu().numpy()
+            self.ph = save.ph_hat.to("cpu", copy=True).numpy()
+            self.th = save.th_hat[0].to("cpu", copy=True).numpy()
+            self._means = (self.ph, self.th)
 
     # ------------------------------------------------------------------- test
 

@@ -74,12 +74,19 @@ def norm_cdf(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x < 0, 0.5 * torch.erfc(-w), 0.5 * (1.0 + torch.erf(w)))
 
 
-def open_uniforms(shape, device, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+def open_uniforms(shape, device, generator: Optional[torch.Generator] = None,
+                  out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Uniforms in [1e-7, 1), as ``jax.random.uniform(minval=1e-7,
-    maxval=1)`` forms them: :func:`truncated_normal`'s draws."""
-    u = torch.rand(tuple(shape), generator=generator, device=device, dtype=torch.float32)
+    maxval=1)`` forms them: :func:`truncated_normal`'s draws.  With ``out``
+    (float32, of ``shape``) they are written there, with the same draws and
+    bits."""
     lo_u = np.float32(1e-7)
-    return torch.clamp(u * float(np.float32(1.0) - lo_u) + float(lo_u), min=float(lo_u))
+    scale, lo = float(np.float32(1.0) - lo_u), float(lo_u)
+    if out is None:
+        u = torch.rand(tuple(shape), generator=generator, device=device, dtype=torch.float32)
+        return torch.clamp(u * scale + lo, min=lo)
+    torch.rand(tuple(shape), generator=generator, out=out)
+    return out.mul_(scale).add_(lo).clamp_(min=lo)
 
 
 def truncated_normal(

@@ -49,6 +49,7 @@ import torch
 
 from ..models.hslda import (
     CycleNoise,
+    CycleStep,
     a_block,
     antoniak_draw,
     beta_block,
@@ -57,6 +58,7 @@ from ..models.hslda import (
     per_chain,
 )
 from ..models.state import running_average
+from ..ops.gibbs import SaveStep
 from ..ops.hslda_gibbs import HSLDASweep, hslda_init_counts
 from .bootstrap import Mesh
 from .sharded import chain_seed, gather_chains, local_chains, mean_in_order, padded, shard_rows
@@ -174,15 +176,22 @@ class HSLDAShardedLoop:
     n_saves)``.
 
     The loop keeps work buffers across calls: ``z`` position-major ``(N,
-    L·D_s)``, the counts, and one :class:`..ops.hslda_gibbs.HSLDASweep` over
-    them, so on a card the z-sweep of every local chain is one CUDA graph
-    from the second cycle on.  Each call loads ``state``, runs ``iters``
-    cycles and folds the per-chain φ̂ into the thinned mean ``ph_hat (L, K,
-    rows)`` after every ``thinning``-th cycle (``running_average``, save
-    count ``n_saves``), leaving the last ``iters % thinning`` unsaved.
-    ``cycles_done`` counts the cycles the loop has run; the draws come from
-    the generators, which carry their own state.  ``noise`` (a
-    ``CycleNoise`` with a chain axis) replaces one cycle's draws.
+    L·D_s)`` and the counts.  Where the data axis is 1 and the table
+    replicated, no collective lies inside a cycle, and a
+    :class:`..models.hslda.CycleStep` over the buffers runs every local
+    chain's whole cycle (the z noise, a's and m's from ``generators.local``,
+    η's and β's from ``generators.chain``) and a ``SaveStep`` the per-chain
+    φ̂ save: on a card each one replayed CUDA graph, kept across calls.
+    Elsewhere one :class:`..ops.hslda_gibbs.HSLDASweep` replays the
+    z-sweep and the rest of the cycle runs eagerly around its collectives.
+    Each call loads ``state``, runs ``iters`` cycles and folds the
+    per-chain φ̂ into the thinned mean ``ph_hat (L, K, rows)`` after every
+    ``thinning``-th cycle (``running_average``'s bits, save count
+    ``n_saves``), leaving the last ``iters % thinning`` unsaved; it returns
+    the save runner's means where it ran a save.  ``cycles_done`` counts
+    the cycles the loop has run; the draws come from the generators, which
+    carry their own state.  ``noise`` (a ``CycleNoise`` with a chain axis)
+    replaces one cycle's draws.
     """
 
     def __init__(self, mesh: Mesh, corpus: HSLDAShardCorpus, n_chains: int,
@@ -203,7 +212,8 @@ class HSLDAShardedLoop:
         self.vocab = table_shard == "vocab"
         self.V = V
         self.cycles_done = 0
-        self._sweep = None
+        self._bound = False
+        self._sweep = self._run = self._saves = None
 
     def _bind(self, state: HSLDAShardedState) -> None:
         L, D_s, N = state.z.shape
@@ -215,13 +225,29 @@ class HSLDAShardedLoop:
         self.n_dk = torch.empty_like(state.n_dk)
         self.n_vk = torch.empty((L, rows, K), dtype=torch.int32, device=dev)
         self.n_k = torch.empty_like(state.n_k)
-        self._sweep = HSLDASweep(self.z_t, self.n_dk, self.n_vk, self.n_k, self.corpus.tok_v,
-                                 self.corpus.mask, self.corpus.labs, self.gamma, self.xi,
-                                 self.opt, V)
+        cp = self.corpus
+        self._bound = True
+        if self.mesh.shape["data"] > 1 or self.vocab:
+            # The data row's all_reduces (the table deltas, η's Gram terms,
+            # mdot) sit inside the cycle.  gloo cannot be captured, and NCCL
+            # takes one rank per card, so no card here could check a captured
+            # one: the cycle stays eager around a replayed z-sweep.
+            self._sweep = HSLDASweep(self.z_t, self.n_dk, self.n_vk, self.n_k, cp.tok_v,
+                                     cp.mask, cp.labs, self.gamma, self.xi, self.opt, V)
+            return
+        self._run = CycleStep(self.z_t, self.n_dk, self.n_vk, self.n_k, cp.tok_v, cp.mask,
+                              cp.labs, state.eta, state.a, state.beta, self.logs, self.mu,
+                              self.sigma, self.aprime, self.alpha, self.gamma, self.xi, V,
+                              D_total=self.D_total)
+        self._saves = SaveStep(torch.zeros((L, K, rows), dtype=torch.float32, device=dev), ())
+
+    def _estimates(self):
+        return chain_ph(self.n_vk, self.n_k), ()
 
     def load(self, state: HSLDAShardedState) -> None:
-        """Copy ``state`` into the work buffers."""
-        if self._sweep is None:
+        """Copy ``state`` into the work buffers (η, a and β into the cycle
+        runner's, where it runs)."""
+        if not self._bound:
             self._bind(state)
         L, D_s, N = state.z.shape
         self.z_t.copy_(state.z.permute(2, 0, 1).reshape(N, L * D_s))
@@ -232,7 +258,11 @@ class HSLDAShardedLoop:
         else:
             self.n_vk.copy_(state.n_vk)
             self.table = self.n_vk
-        self.eta, self.a, self.beta = state.eta, state.a, state.beta
+        if self._run is None:
+            self.eta, self.a, self.beta = state.eta, state.a, state.beta
+        else:
+            self._run.load(state.eta, state.a, state.beta)
+            self.eta, self.a, self.beta = self._run.params
 
     def state(self) -> HSLDAShardedState:
         """A snapshot of the work buffers as a state."""
@@ -241,7 +271,7 @@ class HSLDAShardedLoop:
         return HSLDAShardedState(
             z=self.z_t.view(N, L, D_s).permute(1, 2, 0).contiguous(),
             n_dk=self.n_dk.clone(), n_vk=self.table.clone(), n_k=self.n_k.clone(),
-            eta=self.eta, a=self.a, beta=self.beta)
+            eta=self.eta.clone(), a=self.a.clone(), beta=self.beta.clone())
 
     def cycle(self, generators: Optional[HSLDAGenerators] = None,
               noise: Optional[CycleNoise] = None) -> None:
@@ -250,6 +280,11 @@ class HSLDAShardedLoop:
         noise = noise or CycleNoise()
         local = None if generators is None else generators.local
         chain = None if generators is None else generators.chain
+        if self._run is not None:
+            self._run(self.opt, local, chain, noise)
+            self.mdot = self._run.mdot
+            self.cycles_done += 1
+            return
         # z: sweep against each chain's full table, then the AD-LDA merge
         if self.vocab:
             full = full_table(mesh, self.table, self.V)
@@ -285,11 +320,18 @@ class HSLDAShardedLoop:
                  iters: int, thinning: int, generators: Optional[HSLDAGenerators] = None,
                  noise: Optional[CycleNoise] = None):
         self.load(state)
+        saves = self._saves
+        if saves is not None and ph_hat is not None and ph_hat is not saves.ph_hat:
+            saves.load(ph_hat, ())
         for i in range(int(iters)):
             self.cycle(generators, noise)
             if (i + 1) % int(thinning) == 0:
                 n_saves += 1
-                ph_hat = running_average(ph_hat, chain_ph(self.table, self.n_k), n_saves)
+                if saves is None:
+                    ph_hat = running_average(ph_hat, chain_ph(self.table, self.n_k), n_saves)
+                else:
+                    saves(n_saves, self._estimates)
+                    ph_hat = saves.ph_hat
         return self.state(), ph_hat, n_saves
 
 

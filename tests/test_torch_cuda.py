@@ -389,17 +389,34 @@ HSLDA_FORMS = ["opt1", "opt2-sparse", "opt3"]  # the model's three couplings
 @pytest.mark.cuda
 @pytest.mark.parametrize("form", HSLDA_FORMS)
 def test_hslda_replayed_cycles_equal_eager(form):
-    """Three HSLDA cycles through the model's graphed sweep (eager, capture,
-    replay) against three eager cycles from the same seed: z, the counts,
-    η, a and β bitwise equal."""
+    """Two HSLDA training calls of 6 cycles and 2 saves each through the
+    model's cycle and save runners (the first call's first cycle and save
+    eager, their second calls captured, the rest replayed) against the
+    eager loop from the same state: z, the counts, η, a, β, φ̂, z̄ and the
+    generator bitwise equal; the second call captures nothing."""
     _needs_card()
     opt, _ = chip_smoke.HSLDA_FORMS[form]
     docs, labs, labelset = chip_smoke.hslda_small_problem(0)
-    r = chip_smoke.hslda_replay_case("cuda", docs, labs, labelset, 0, opt, 3,
+    r = chip_smoke.hslda_replay_case("cuda", docs, labs, labelset, 0, opt, 6, 3,
                                      chip_smoke.HSLDA_SMALL_K)
     torch.cuda.synchronize()
-    assert r["model"].z_sweep(opt)._graph is not None
-    assert all(_same_bits(g, w) for g, w in zip(r["graphed"], r["eager"]))
+    assert r["equal"] and r["added"] == [[2, 2], [0, 0]]
+    assert opt in r["model"]._cycle._graphs
+
+
+@pytest.mark.cuda
+def test_hslda_chain_cycles_replay_equal_eager_and_single_chains():
+    """A one-rank DistributedHSLDA of three chains: a training call through
+    its loop's cycle runner (replayed) equals the eager loop bitwise, and
+    at least 99% of its draws equal three single-chain runners' (batched
+    matmuls may round otherwise; chip_smoke.py's phase 14a at full width)."""
+    _needs_card()
+    docs, labs, labelset = chip_smoke.hslda_small_problem(0)
+    r = chip_smoke.hslda_chain_runners_case("cuda", docs, labs, labelset, 0, 3, 6, 3,
+                                            chip_smoke.HSLDA_SMALL_K)
+    torch.cuda.synchronize()
+    assert r["equal"] and r["equal_draws"] >= chip_smoke.MIN_EQUAL_DRAWS
+    assert 1 in r["model"]._loops[1]._run._graphs
 
 
 @pytest.mark.cuda
