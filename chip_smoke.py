@@ -10,17 +10,18 @@ made from ``--seed``.  Phases:
 1. environment: torch, CUDA, the card's name and power limit;
 2. kernel builds, one ``nvcc`` per source, all started together; the
    registers and spills ptxas reports for each of the warp route's
-   instantiations, none of which may spill;
+   instantiations and for the wide route's kernel, none of which may spill;
 3. the merge-block kernel against ``fused_block_torch`` at every bucket of
    the fused path's first merge block (A = 24, M = 25) and at the edge
-   cases (``edge_cases``: the staged, warp and general routes' slot and
-   position counts, each launched on the route ``route()`` names, by the
-   counters), and one whole merge block on the card against the same block
-   on the CPU; the kernel's device time, its chain steps (M × the most live
-   positions of a document) and time per step, and the times of its call,
-   its plain version and the block's gather and scatter; then the warp
-   route and the general (CTA) route side by side at LocalLDA's K = 50 and
-   K = 100 shapes and at U = 1,024, A = 32: device time per launch, ns per
+   cases (``edge_cases``: the staged, warp, wide and general routes' slot
+   and position counts, each launched on the route ``route()`` names, by
+   the counters), and one whole merge block on the card against the same
+   block on the CPU; the kernel's device time, its chain steps (M × the
+   most live positions of a document) and time per step, and the times of
+   its call, its plain version and the block's gather and scatter; then the
+   warp route and the general (CTA) route side by side at LocalLDA's K = 50
+   and K = 100 shapes and at U = 1,024, A = 32, and the wide route and the
+   general route at K = 300 and K = 1,000: device time per launch, ns per
    step, bound and plain version;
 4. the fused Labeled-LDA path (``LabeledLDA`` → ``run_training`` →
    ``run_test`` → ranking metrics): 50 sweeps at (50; 25) within a
@@ -66,10 +67,14 @@ made from ``--seed``.  Phases:
 10. LocalLDA as a user runs it: its CLI on a CSV of the planted corpus at
     the abstracts' vocabulary (V = 11,889), at its defaults (K = 20, fused,
     100 sweeps at thinning 10, one merge per sweep: 100 kernel-1 launches),
-    with ``--sweep dense`` (its draw and commit launches as planned) and with
-    ``-k 50`` (A = 56: every kernel-1 launch on the warp route), each with the count
-    invariants and a perplexity below V; and a save/restore round trip of
-    the LocalLDA checkpoint whose next call equals the uninterrupted one's;
+    with ``--sweep dense`` (its draw and commit launches as planned), with
+    ``-k 50`` (A = 56: every kernel-1 launch on the warp route) and with
+    ``-k 300`` (A = 304: every kernel-1 launch on the wide route, blocks ×
+    buckets of them, and a replayed block's device time by step), each with
+    the count invariants and a perplexity below V and followed by one block
+    of its trained state on the card against the CPU; and a save/restore
+    round trip of the LocalLDA checkpoint whose next call equals the
+    uninterrupted one's;
 11. the VI engine: the Labeled-LDA CLI with ``--engine vi -i 20`` on phase
     9's CSV, a non-falling ELBO, held-out AUC and seconds per CAVI step;
     then one ``fit_svi`` epoch of its model from a fresh start (2 batches
@@ -161,8 +166,8 @@ made from ``--seed``.  Phases:
     the device ms per sweep of eager sweeps, graphed calls and replays;
 16. the training loops as replayed CUDA graphs, at full width, the saves
     (``ops/gibbs.SaveStep``) replayed too: three merge blocks of
-    ``FusedBlocks`` on each route of kernel 1 (staged, warp and general, at
-    ``edge_cases`` shapes) against eager blocks; the divisor check (the
+    ``FusedBlocks`` on each route of kernel 1 (staged, warp, wide and
+    general, at ``edge_cases`` shapes) against eager blocks; the divisor check (the
     thinned mean with its weights in device scalars against the division
     by a host number, bitwise, s = 1..50 on φ̂ and θ̂); then
     ``run_training`` calls of the Labeled-LDA fused path (50; 25) with
@@ -221,8 +226,10 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12  # H100 SXM data sheet, fp32 outside the tensor cores
 OPS_PER_SLOT_DRAW = 12  # fp32 operations per (slot, position, sweep)
 # fused_block_cuda.max_positions(32) on an H100: the staged route's widest
-# document at 32 slots (checked against the card in kernel_phase)
+# document at 32 slots, and fused_block_cuda.wide_max_slots(): the wide
+# route's widest A (both checked against the card in kernel_phase)
 STAGED_LIMIT_H100 = 563
+WIDE_SLOTS_H100 = 9852
 # fp32 operations per (row, topic) of one exact-sweep position: the
 # decrement, +α, ·labs, +β, ·cv, ·recip, the cumsum add and the comparison
 OPS_PER_TOPIC_DRAW = 8
@@ -340,24 +347,28 @@ def _card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def warp_route_ptxas(log: str) -> dict:
+def route_ptxas(log: str) -> dict:
     """ptxas -v's report (``_nvcc.NVCC_FLAGS`` asks for it) on each
-    instantiation of the warp route's kernel: {S: {"registers": n,
-    "spill_stores": bytes}}."""
-    out, rows = {}, None
+    instantiation of the warp route's kernel and on the wide route's:
+    {"warp": {S: {"registers": n, "spill_stores": bytes}}, "wide": {...}}."""
+    out, entry = {"warp": {}, "wide": {}}, None
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '\S*fused_block_warp_kernelILi(\d+)E", line)
         if "Compiling entry function" in line:
-            rows = int(m.group(1)) if m else None
-            if rows is not None:
-                out[rows] = dict(registers=None, spill_stores=None)
-        elif rows is not None:
+            m = re.search(r"fused_block_(?:warp_kernelILi(\d+)E|(wide)_kernel)", line)
+            entry = None
+            if m:
+                entry = dict(registers=None, spill_stores=None)
+                if m.group(1):
+                    out["warp"][int(m.group(1))] = entry
+                else:
+                    out["wide"] = entry
+        elif entry is not None:
             spill = re.search(r"(\d+) bytes spill stores", line)
             regs = re.search(r"Used (\d+) registers", line)
             if spill:
-                out[rows]["spill_stores"] = int(spill.group(1))
+                entry["spill_stores"] = int(spill.group(1))
             if regs:
-                out[rows]["registers"] = int(regs.group(1))
+                entry["registers"] = int(regs.group(1))
     return out
 
 
@@ -478,10 +489,15 @@ def edge_cases() -> dict:
     S_MAX slots, one position past the staged route's limit at A = 32 (563
     on an H100), 1,024 positions at 32 and 104 slots, 600 positions at 13
     slots, one-position documents at 56 and 104 slots, and four sweeps at 56
-    slots with interior gaps; then the general (CTA) route: the first
-    multiple of 8 past 32 · S_MAX, 1,032 slots, 1,032 slots at 40
-    positions, and 16,000 slots, whose state overflows shared memory into a
-    global scratch buffer."""
+    slots with interior gaps; then the wide route: the first multiple of 8
+    past 32 · S_MAX, 301 slots (cv rows not 16-byte multiples: 4-byte
+    copies), 304 (LocalLDA at K = 300), 512, 1,000 and 1,032 slots, the
+    route's widest on an H100 (``WIDE_SLOTS_H100``), one-position documents,
+    documents of at most a few live positions at interior gaps, interior
+    gaps over four sweeps, 1,024 positions and one more document than an
+    H100 holds at once, at 304 slots; then the general (CTA) route: one
+    slot past the wide route's widest, and 16,000 slots, whose state
+    overflows shared memory into a global scratch buffer."""
     from lda_thesis_tpu_torch.ops.fused_block_cuda import WARP_ROWS_MAX
 
     widest = 32 * WARP_ROWS_MAX
@@ -512,21 +528,45 @@ def edge_cases() -> dict:
         "U=1 A=56": (67, 1, 56, 3, 0.0, False),
         "U=1 A=104": (67, 1, 104, 3, 0.0, False),
         "M=4 A=56 gaps": (200, 64, 56, 4, 0.5, False),
+        "A=301": (150, 40, 301, 2, 0.3, True),
+        "A=304": (301, 40, 304, 3, 0.2, False),
+        "A=512": (150, 40, 512, 2, 0.3, False),
+        "A=1000": (100, 40, 1000, 2, 0.3, True),
+        f"A={WIDE_SLOTS_H100}": (3, 4, WIDE_SLOTS_H100, 2, 0.0, False),
+        "U=1 A=304": (67, 1, 304, 3, 0.0, True),
+        "U=1 A=1000": (67, 1, 1000, 3, 0.0, False),
+        "few live A=304": (200, 64, 304, 4, 0.95, False),
+        "M=4 A=304 gaps": (200, 64, 304, 4, 0.5, False),
+        "U=1024 A=304": (40, 1024, 304, 2, 0.3, False),
+        "two waves A=304": (32 * 132 + 1, 8, 304, 2, 0.3, True),
+        f"A={WIDE_SLOTS_H100 + 1}": (3, 4, WIDE_SLOTS_H100 + 1, 2, 0.0, False),
         "A=16000": (3, 4, 16000, 2, 0.0, False),
     }
 
 
 def _route_counts(fbc) -> tuple:
-    """(launches, warp-route launches, general-route launches) so far."""
-    return fbc.launches, fbc.warp_launches, fbc.general_launches
+    """(launches, warp-route, wide-route and general-route launches) so far."""
+    return fbc.launches, fbc.warp_launches, fbc.wide_launches, fbc.general_launches
+
+
+def _set_route_counts(fbc, counts) -> None:
+    fbc.launches, fbc.warp_launches, fbc.wide_launches, fbc.general_launches = counts
+
+
+def _route_of(moved) -> str:
+    """The route of launches whose counters moved by ``moved`` (all, warp,
+    wide, general): the staged route where none of the three moved."""
+    _, w, x, g = moved
+    return "warp" if w else "wide" if x else "general" if g else "staged"
 
 
 def _launched_on(fbc, before: tuple) -> str:
     """The route of the one launch made since ``_route_counts`` gave
     ``before``, checked against the counters: exactly one launch."""
-    n, w, g = (x - y for x, y in zip(_route_counts(fbc), before))
-    _check(n == 1 and w + g <= 1, f"one kernel-1 launch (counters moved {n}, {w}, {g})")
-    return "warp" if w else "general" if g else "staged"
+    moved = tuple(x - y for x, y in zip(_route_counts(fbc), before))
+    _check(moved[0] == 1 and sum(moved[1:]) <= 1,
+           f"one kernel-1 launch (counters moved {moved})")
+    return _route_of(moved)
 
 
 def bucket_inputs(model, g: int, M: int, gen):
@@ -630,6 +670,9 @@ def kernel_phase(model, seed: int) -> dict:
     limit = fbc.max_positions(32)
     _check(limit == STAGED_LIMIT_H100, f"max_positions(32) == {STAGED_LIMIT_H100} ({limit})")
     print(f"staged route: at most {limit} positions at A = 32 on this card")
+    rec["wide_max_slots"] = wide = fbc.wide_max_slots()
+    _check(wide == WIDE_SLOTS_H100, f"wide_max_slots() == {WIDE_SLOTS_H100} ({wide})")
+    print(f"wide route: at most {wide} slots on this card")
     for i, (name, shape) in enumerate(edge_cases().items()):
         args = block_case(DEVICE, seed + i, *shape)
         D, U, A, M_e = shape[:4]
@@ -683,23 +726,28 @@ def kernel_phase(model, seed: int) -> dict:
     return rec
 
 
-# (D, U, A, M) of the warp route's timed shapes: LocalLDA at K = 50 and at
-# K = 100 on the abstracts (one bucket, merge every sweep), and a
-# 1,024-position bucket at 32 slots, past the staged route's limit
+# (D, U, A, M) of the timed shapes, each on its own route beside the
+# general (CTA) route: the warp route's at LocalLDA's K = 50 and K = 100 on
+# the abstracts (one bucket, merge every sweep) and a 1,024-position bucket
+# at 32 slots, past the staged route's limit; the wide route's at K = 300
+# and K = 1,000
 WIDE_SLOT_SHAPE = (4635, 128, 56, 1)
 STREAMED_SHAPE = (4635, 1024, 32, 1)
 K100_SHAPE = (4635, 128, 104, 1)
-TIMED_SHAPES = {"wide_slot": WIDE_SLOT_SHAPE, "streamed": STREAMED_SHAPE, "k100": K100_SHAPE}
-TIMED_ROUTES = ("warp", "general")
+K300_SHAPE = (4635, 128, 304, 1)
+K1000_SHAPE = (4635, 128, 1000, 1)
+TIMED_SHAPES = {"wide_slot": WIDE_SLOT_SHAPE, "streamed": STREAMED_SHAPE, "k100": K100_SHAPE,
+                "k300": K300_SHAPE, "k1000": K1000_SHAPE}
+TIMED_ROUTES = ("warp", "wide", "general")
 
 
 def route_timing(seed: int, alpha: float, beta: float) -> dict:
-    """Device ms per launch of the warp route and of the general (CTA)
-    route, side by side, at each of ``TIMED_SHAPES`` (the warp route's by
-    ``route()``): each route bitwise against the plain version first, then
-    CUDA events around 10 back-to-back launches, in the order warp, general,
-    general, warp (each route's time the mean of its two); beside them the
-    chain steps, ns per step, ``bound`` and the plain version's time."""
+    """Device ms per launch of the route ``route()`` names and of the
+    general (CTA) route, side by side, at each of ``TIMED_SHAPES``: each
+    route bitwise against the plain version first, then CUDA events around
+    10 back-to-back launches, in the order route, general, general, route
+    (each route's time the mean of its two); beside them the chain steps,
+    ns per step, ``bound`` and the plain version's time."""
     import torch
 
     from lda_thesis_tpu_torch.ops import fused_block_cuda as fbc
@@ -707,31 +755,35 @@ def route_timing(seed: int, alpha: float, beta: float) -> dict:
     out = {f"{kernel}_max_abs_err": 0.0 for kernel in TIMED_ROUTES}
     for key, (D, U, A, M) in TIMED_SHAPES.items():
         args = block_case(DEVICE, seed + A, D, U, A, M, gaps=0.0)
-        _check(fbc.route(U, A) == "warp", f"{key}: the warp route's shape")
+        own = fbc.route(U, A)
+        _check(own == ("warp" if A <= 32 * fbc.WARP_ROWS_MAX else "wide"),
+               f"{key}: the {own} route's shape")
+        pair = (own, "general")
         t0 = time.perf_counter()
         want = fbc.fused_block_torch(*args, alpha, beta)
         torch.cuda.synchronize()
         plain_ms = 1e3 * (time.perf_counter() - t0)
-        for kernel in TIMED_ROUTES:
+        for kernel in pair:
             got = fbc._launch(kernel, *args, alpha, beta)
             torch.cuda.synchronize()
             _check(_bitwise(got, want), f"{kernel} route == plain version, {key} "
                                         f"(D={D} U={U} A={A})")
             out[f"{kernel}_max_abs_err"] = max(out[f"{kernel}_max_abs_err"],
                                                _max_abs_err(got, want))
-        times = {kernel: [] for kernel in TIMED_ROUTES}
-        for kernel in TIMED_ROUTES + TIMED_ROUTES[::-1]:
+        times = {kernel: [] for kernel in pair}
+        for kernel in pair + pair[::-1]:
             times[kernel].append(
                 _batch_ms(lambda: fbc._launch(kernel, *args, alpha, beta), 10))
         by_bytes, by_ops = bound(args)
         bound_ms = 1e3 * max(by_bytes, by_ops)
         steps = M * int((args[1] > 0).sum(dim=0).max())
         out[f"{key}_shape"] = [D, U, A, M]
+        out[f"{key}_route"] = own
         out[f"{key}_steps"] = steps
         out[f"{key}_bound_ms"] = bound_ms
         out[f"{key}_bound_by"] = "operations" if by_ops >= by_bytes else "bytes"
         out[f"{key}_plain_ms"] = plain_ms
-        for kernel in TIMED_ROUTES:
+        for kernel in pair:
             ms = float(np.mean(times[kernel]))
             out[f"{key}_{kernel}_ms"] = ms
             out[f"{key}_{kernel}_runs_ms"] = times[kernel]
@@ -741,8 +793,9 @@ def route_timing(seed: int, alpha: float, beta: float) -> dict:
                   f"chain steps, {1e6 * ms / steps:.1f} ns per step, bound {bound_ms:.5f} ms "
                   f"({out[f'{key}_bound_by']}), {ms / bound_ms:.1f}x the bound; plain "
                   f"{plain_ms:.2f} ms; bitwise equal")
-        print(f"{key}: the warp route takes {out[f'{key}_warp_ms'] / out[f'{key}_general_ms']:.3f}"
-              f" of the general route's time")
+        print(f"{key}: the {own} route takes "
+              f"{out[f'{key}_{own}_ms'] / out[f'{key}_general_ms']:.3f} of the general "
+              f"route's time")
         del args, got, want
     return out
 
@@ -1800,10 +1853,11 @@ def local_lda_phase(seed: int) -> dict:
     """LocalLDA as a user runs it: its CLI on a CSV of the planted corpus at
     the abstracts' vocabulary (each abstract one sentence document, one
     bucket of U = 128), at its defaults (K = 20, fused, M = 1), with
-    ``--sweep dense`` and with ``-k 50`` (the warp route); the kernel
-    counters are set to 0 just before each run and read just after.  After
-    each run, one block of its trained state on the card against the CPU;
-    and a save/restore round trip of the LocalLDA checkpoint."""
+    ``--sweep dense``, with ``-k 50`` (the warp route) and with ``-k 300``
+    (the wide route, and a replayed block's device time by step); the
+    kernel counters are set to 0 just before each run and read just after.
+    After each run, one block of its trained state on the card against the
+    CPU; and a save/restore round trip of the LocalLDA checkpoint."""
     import torch
 
     from lda_thesis_tpu_torch.cli import evaluate_local_lda
@@ -1814,7 +1868,7 @@ def local_lda_phase(seed: int) -> dict:
     from lda_thesis_tpu_torch.utils.checkpoint import restore_model, save_model
 
     def counters_zero():
-        fbc.launches = fbc.warp_launches = fbc.general_launches = 0
+        _set_route_counts(fbc, (0, 0, 0, 0))
         duc.launches = duc.commit_launches = 0
 
     def check_model(m, what):
@@ -1835,15 +1889,14 @@ def local_lda_phase(seed: int) -> dict:
                       flags + ["-i", str(LOCAL_ITERS), "-s", str(LOCAL_THINNING)])
         m = res["model"]
         n_buckets = m.buckets.n_buckets
-        launches = (fbc.launches, fbc.warp_launches, fbc.general_launches, duc.launches,
-                    duc.commit_launches)
+        launches = (*_route_counts(fbc), duc.launches, duc.commit_launches)
         _check(m.K == 20 and m.A == 24 and m._merge_M == 1 and n_buckets == 1,
                f"LocalLDA CLI defaults: K 20, A 24, M 1, one bucket ({m.K}, {m.A}, "
                f"{m._merge_M}, {n_buckets})")
-        _check(launches == (LOCAL_ITERS, 0, 0, 0, 0)
+        _check(launches == (LOCAL_ITERS, 0, 0, 0, 0, 0)
                and res["launches"]["fused_block"] == LOCAL_ITERS,
                f"LocalLDA CLI: {LOCAL_ITERS} kernel-1 launches on the staged route, no "
-               f"other (kernel 1, warp, general, draw, commit: {launches})")
+               f"other (kernel 1, warp, wide, general, draw, commit: {launches})")
         perp = check_model(m, "LocalLDA CLI fused")
         _check(perp == res["perplexity"], "LocalLDA CLI: its perplexity")
         shape = (m.D, m.V, tuple(m.counts.z[0].shape))
@@ -1904,10 +1957,10 @@ def local_lda_phase(seed: int) -> dict:
         counters_zero()
         res, _ = _cli(evaluate_local_lda.main, flags + short + ["-k", "50"])
         m = res["model"]
-        launches = (fbc.launches, fbc.warp_launches, fbc.general_launches)
-        _check(m.A == 56 and launches == (LOCAL_SHORT, LOCAL_SHORT, 0),
+        launches = _route_counts(fbc)
+        _check(m.A == 56 and launches == (LOCAL_SHORT, LOCAL_SHORT, 0, 0),
                f"LocalLDA CLI -k 50: A 56, every kernel-1 launch on the warp route "
-               f"(A {m.A}; launches, warp, general {launches})")
+               f"(A {m.A}; launches, warp, wide, general {launches})")
         perp50 = check_model(m, "LocalLDA CLI -k 50")
         print(f"LocalLDA CLI -k 50 ({LOCAL_SHORT}; {LOCAL_THINNING}): A = {m.A}, "
               f"{launches[1]} kernel-1 launches on the warp route; perplexity "
@@ -1915,6 +1968,27 @@ def local_lda_phase(seed: int) -> dict:
               f"{json.dumps({k: round(v, 4) for k, v in _local_steps(res).items()})}")
         rec["k50"] = dict(launches=launches[1], perplexity=perp50, wall_s=_local_steps(res))
         _local_card_equals_cpu(m, seed + 4, "LocalLDA K = 50 (warp route)")
+        del m, res
+
+        counters_zero()
+        res, _ = _cli(evaluate_local_lda.main, flags + short + ["-k", "300"])
+        m = res["model"]
+        blocks = LOCAL_SHORT * m.buckets.n_buckets
+        launches = _route_counts(fbc)
+        _check(m.A == 304 and launches == (blocks, 0, blocks, 0)
+               and res["launches"]["fused_block"] == blocks,
+               f"LocalLDA CLI -k 300: A 304, every kernel-1 launch on the wide route, "
+               f"blocks x buckets = {blocks} (A {m.A}; launches, warp, wide, general "
+               f"{launches})")
+        perp300 = check_model(m, "LocalLDA CLI -k 300")
+        print(f"LocalLDA CLI -k 300 ({LOCAL_SHORT}; {LOCAL_THINNING}): A = {m.A}, "
+              f"{launches[2]} kernel-1 launches on the wide route; perplexity "
+              f"{perp300:.2f}; wall by step "
+              f"{json.dumps({k: round(v, 4) for k, v in _local_steps(res).items()})}")
+        split = merge_block_split(m._fused, 1)
+        rec["k300"] = dict(launches=launches[2], perplexity=perp300, wall_s=_local_steps(res),
+                           tokens_per_s=res["tokens_per_s"], block_split=split)
+        _local_card_equals_cpu(m, seed + 5, "LocalLDA K = 300 (wide route)")
     return rec
 
 
@@ -3857,7 +3931,8 @@ TG_CALLS = 2  # run_training calls of each setting held to the eager loop
 TG_LOCAL = (20, 10)  # LocalLDA (iters; thinning) of the phase, M = 1: 20 blocks a call
 TG_CHAINS = 8  # a rank's chains, with 4 buckets
 TG_TIMED = 5  # merge blocks or sweeps timed back to back
-TG_ROUTES = ("interior gaps", "A=56", f"A={32 * 8 + 8}")  # edge_cases of each route
+# edge_cases of each route of kernel 1: staged, warp, wide, general
+TG_ROUTES = ("interior gaps", "A=56", f"A={32 * 8 + 8}", "A=16000")
 TG_DENSE = (10, 5)  # (iters; thinning) of the dense Labeled-LDA and AD-LDA calls
 DIVISOR_SAVES = 50  # saves of the divisor check
 ALPHA_TG, BETA_TG = 0.1, 0.01
@@ -4165,13 +4240,12 @@ def replayed_blocks_case(device, seed: int, name: str, calls: int = 3, chains: i
         got = run(M, generator=gen)
         counted = _route_counts(fbc)
         state = fused_train_block_buckets(state, *inputs, ALPHA_TG, BETA_TG, M, generator=twin)
-        fbc.launches, fbc.warp_launches, fbc.general_launches = counted  # eager: not counted
+        _set_route_counts(fbc, counted)  # eager: not counted
         _check(got is run.state and _bitwise(_flat(got), _flat(state)),
                f"replayed merge block {name}, chains {chains}, call {i + 1}: FusedBlocks == "
                f"fused_train_block_buckets, bitwise")
-    n, w, g = (a - b for a, b in zip(_route_counts(fbc), before))
-    route = "warp" if w else "general" if g else "staged"
-    return dict(run=run, route=route, launches=(n, w, g), shape=(D, U, A))
+    moved = tuple(a - b for a, b in zip(_route_counts(fbc), before))
+    return dict(run=run, route=_route_of(moved), launches=moved, shape=(D, U, A))
 
 
 
@@ -4276,7 +4350,7 @@ def _tg_block_timing(run, eager_block, M: int, gen) -> dict:
                replay_ms=_batch_ms(run._graphs[M][0].replay, TG_TIMED),
                eager_host_ms=_host_ms(eager_block, TG_TIMED),
                call_host_ms=_host_ms(lambda: run(M, generator=gen), TG_TIMED))
-    fbc.launches, fbc.warp_launches, fbc.general_launches = counts
+    _set_route_counts(fbc, counts)
     buckets = len(run._inputs[0])
     _check(out["graph_nodes"] >= buckets,
            f"a merge block's graph holds {out['graph_nodes']} nodes, at least its {buckets} "
@@ -4490,7 +4564,7 @@ def merge_block_split(run, M: int) -> dict:
     nodes = _captured_nodes(lambda: run._body(us))
     records, ms = _most_records(graph.replay, nodes)[""]
     out["replayed block"] = dict(nodes=nodes, records=records, device_ms=ms)
-    fbc.launches, fbc.warp_launches, fbc.general_launches = counts
+    _set_route_counts(fbc, counts)
     print("  a replayed merge block's device time by step (profiler records, "
           f"{len(tvs)} buckets): " + "; ".join(
               f"{name} {t['device_ms']:.4f} ms ({t['records']} records, {t['nodes']} nodes)"
@@ -4534,7 +4608,7 @@ def training_graphs_phase(seed: int, corpus, dicti, card: str) -> dict:
     from lda_thesis_tpu_torch.parallel import make_mesh
 
     rec = {"card": card, "routes": {}}
-    want_route = dict(zip(TG_ROUTES, ("staged", "warp", "general")))
+    want_route = dict(zip(TG_ROUTES, ("staged", "warp", "wide", "general")))
     for name in TG_ROUTES:
         r = replayed_blocks_case(DEVICE, seed, name)
         _check(r["route"] == want_route[name] and r["launches"][0] == 3 * 2
@@ -4833,6 +4907,38 @@ def warp_record(rec: dict, local: dict, ptxas: dict) -> dict:
     }
 
 
+def wide_record(rec: dict, local: dict, ptxas: dict) -> dict:
+    """The wide route's line of the kernel records: its launches on its main
+    path (LocalLDA ``-k 300``, phase 10), its time, bound and plain version
+    at ``K300_SHAPE``, and the general (CTA) route's time on the same
+    inputs."""
+    t = rec["timed"]
+    return {
+        "name": "fused_block_wide",
+        "route": "cuda",
+        "source": SOURCE,
+        "replaces": REPLACES,
+        "launches": local["k300"]["launches"],
+        "bitwise_equal": True,
+        "max_abs_err": rec["route_max_abs_err"]["wide"],
+        "ms": t["k300_wide_ms"],
+        "plain_ms": t["k300_plain_ms"],
+        "bound_ms": t["k300_bound_ms"],
+        "bound_by": t["k300_bound_by"],
+        "library_ms": None,
+        "per": f"launch of the wide route at (D, U, A, M) = {K300_SHAPE} (LocalLDA "
+               "K = 300); device time from CUDA events around 10 back-to-back launches, "
+               "the mean of two runs; general_ms the general (CTA) route's on the same "
+               "inputs in the same run; launches are LocalLDA -k 300's (20; 10)",
+        "general_ms": t["k300_general_ms"],
+        "k1000": {k: t[f"k1000_{k}"] for k in ("wide_ms", "general_ms", "bound_ms",
+                                                "plain_ms", "steps")},
+        "max_slots": rec["wide_max_slots"],
+        "ptxas": ptxas,
+        "local_lda_k300_wall_s": local["k300"]["wall_s"],
+    }
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4849,7 +4955,7 @@ def main(argv=None) -> int:
     from lda_thesis_tpu_torch.ops import draw_update_cuda as duc
     from lda_thesis_tpu_torch.ops import fused_block_cuda as fbc
 
-    warp_ptxas = {}  # filled by a build in this run
+    ptxas = {"warp": {}, "wide": {}}  # filled by a build in this run
     seconds = {}
     clock = [time.perf_counter()]
 
@@ -4881,12 +4987,15 @@ def main(argv=None) -> int:
                 if "registers" in line or "spill" in line:
                     print("  " + line.strip())
             if name == "fused_block" and log:  # a build in this run: ptxas spoke
-                warp_ptxas = warp_route_ptxas(log)
-                _check(sorted(warp_ptxas) == list(range(1, fbc.WARP_ROWS_MAX + 1))
-                       and all(v["spill_stores"] == 0 for v in warp_ptxas.values()),
-                       f"the warp route's S = 1..{fbc.WARP_ROWS_MAX} build with no spill "
-                       f"stores ({warp_ptxas})")
-                print(f"warp route, ptxas by rows S: {json.dumps(warp_ptxas)}")
+                ptxas = route_ptxas(log)
+                warp = ptxas["warp"]
+                _check(sorted(warp) == list(range(1, fbc.WARP_ROWS_MAX + 1))
+                       and all(v["spill_stores"] == 0 for v in warp.values())
+                       and ptxas["wide"].get("spill_stores") == 0,
+                       f"the warp route's S = 1..{fbc.WARP_ROWS_MAX} and the wide route "
+                       f"build with no spill stores ({ptxas})")
+                print(f"warp route, ptxas by rows S: {json.dumps(warp)}; wide route: "
+                      f"{json.dumps(ptxas['wide'])}")
     phase_done("build")
 
     # 3. merge-block kernel against its plain version
@@ -5071,7 +5180,7 @@ def main(argv=None) -> int:
                           "y = chain) and one sweep graph per rank; multi_device_dense_chains "
                           "holds its device ms per replayed sweep against single-chain graphs",
         "multi_device_dense_chains": md["dense_chains"],
-    }, warp_record(rec, local, warp_ptxas), {
+    }, warp_record(rec, local, ptxas["warp"]), wide_record(rec, local, ptxas["wide"]), {
         "name": "count_commit",
         "route": "cuda",
         "source": DRAW_SOURCE,

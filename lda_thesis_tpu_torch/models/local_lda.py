@@ -12,7 +12,8 @@ with every topic admissible:
   need no gather of their own.  One kernel-1 launch per bucket per block on
   a card, each block replayed as one CUDA graph by the model's
   ``ops/gibbs_fused.FusedBlocks`` (``models/labeled_lda.fused_blocks``);
-  A > 32 (K > 32) takes the kernel's warp route up to A = 256.
+  A > 32 (K > 32) takes the kernel's warp route up to A = 256, and its
+  wide route past that (K > 256).
 * ``sweep="dense"``: the exact per-position sweep (ops/gibbs.ExactSweep:
   the commit and draw kernels under a CUDA graph on a card) with an
   all-ones mask over K and zeros up to Kp, one runner per bucket kept across

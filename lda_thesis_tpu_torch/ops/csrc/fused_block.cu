@@ -80,9 +80,9 @@
 //
 // The warp route (fused_block_warp_kernel<S>) replaces the same TPU kernel
 // for 32 < A <= 32 * S_MAX slots at any U, and for A <= 32 where U >
-// fused_block_max_positions(A): every LocalLDA run at K > 32 (A = 56, 104
-// and 200 at K = 50, 100 and 200), and label sets or documents the staged
-// route cannot hold.  S_MAX = kWarpRowsMax = 8 (A <= 256): ptxas reports no
+// fused_block_max_positions(A): every LocalLDA run at 32 < K <= 256 (A =
+// 56, 104 and 200 at K = 50, 100 and 200), and label sets or documents the
+// staged route cannot hold.  S_MAX = kWarpRowsMax = 8 (A <= 256): ptxas reports no
 // spill stores for any of S = 1..8 (nvcc -Xptxas -v; chip_smoke.py's build
 // phase checks it).  Its bound is the function's, as above: the work and
 // the bytes do not change with the route (chip_smoke.bound counts them for
@@ -138,8 +138,44 @@
 //   * One warp (one document) per CTA: two and four independent warps per
 //     CTA were no faster across the timed shapes on the H100 (PERF.md).
 //
-// The CTA route (fused_block_general_kernel) keeps only A > 32 * S_MAX
-// slots, at any U, with the same arithmetic and scan order.
+// The wide route (fused_block_wide_kernel) replaces the same TPU kernel for
+// 32 * S_MAX < A <= fused_block_wide_max_slots() (9,852 on an H100): every
+// LocalLDA run at K > 256 (A = 304 at K = 300) and label sets wider than
+// 256.  Its bound is the function's, as above: at LocalLDA's shapes (4,635
+// documents, U = 128, about 300k live positions, M = 1) the cv rows and
+// uniforms of the live positions, 0.116 ms at A = 304 and 0.384 ms at
+// A = 1,000 over 3.35 TB/s (chip_smoke.bound).  A step's work grows as A:
+// per row of 32 slots the weight (five float operations), three
+// shuffle-and-add scan levels, four shuffles for the row's group totals,
+// four sequential prefix adds, a select, a compare, a ballot and a popc;
+// with tens of documents per SM, the latency of those shuffles and loads,
+// not the instruction count, sets the time.  What the design does:
+//   * The warp route's layout past 8 rows: one warp per document and no
+//     block barrier; lane l owns slots l + 32·j.  Rows 0..7 keep n_dk,
+//     valid and rcp_rn(n_k) in registers; rows 8..S-1 keep them in shared
+//     memory, [row][lane], so that each lane reads and writes only its own
+//     slots, free of bank conflicts and of any warp barrier.  The live
+//     count changes at two slots a step: their owners update them in
+//     place, in the plain version's order ((n_dk - f) + f).
+//   * Each row's four group totals come by shuffles and extend the
+//     sequential prefix P[h] = P[h-1] + T[h-1] carried across rows in a
+//     register, so a row's prefixed sums are known as soon as it is
+//     scanned, and a step holds no sequential pass over all ceil(A/8)
+//     groups (the CTA route's cost, which grows as A^2).  The rows in
+//     shared memory keep their prefixed sums there until u * c[A-1] is
+//     known; the draw is the sum over rows of popc(ballot(c < r)).
+//   * The cv rows stream through a two-buffer ring, each chunk as many
+//     positions as fit 4 KB (one past 512 slots), by cp.async.bulk on an
+//     mbarrier, and the per-position scalars a chunk of 32 ahead, as in
+//     the warp route, whose walk (walk_chunks) the two routes share.
+//     Eight register rows, two buffers and 4 KB chunks were the fastest of
+//     the sizes timed on the H100; W = ceil(S/8) warps per document with
+//     every row in registers and two CTA barriers a step was 1.3-1.6x
+//     slower at both shapes (PERF.md).
+//
+// The CTA route (fused_block_general_kernel) keeps only the slot counts
+// past the wide route's widest, at any U, with the same arithmetic and scan
+// order; no user path reaches it.
 //   * A CTA owns one document; thread t owns slot t (and, past 1,024 slots,
 //     slots t + T, t + 2T, ...), T = 32 * ceil(A / 32) threads, at most
 //     1,024.  Each warp scans its slots in groups of eight lanes; the group
@@ -153,8 +189,8 @@
 //     other slots' state in shared memory, about 20.5 bytes per slot; past
 //     the card's limit (about 11,000 slots on an H100) the wrapper hands
 //     the kernel a scratch buffer in global memory instead, so A has no
-//     limit.  Two barriers and a serial prefix per step make it about 13x
-//     its bound (PERF.md).
+//     limit.  Two barriers and a serial prefix per step made it 19x its
+//     bound at A = 304 and 36x at A = 1,000 (PERF.md).
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -606,10 +642,6 @@ __host__ __device__ inline size_t warp_smem_bytes(int A) {
   return kRingBufs * warp_buf_bytes(A) + round16((size_t)A * 4) + kRingBufs * 8;
 }
 
-__device__ inline void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
 __device__ inline void mbar_wait(uint64_t* bar, uint32_t parity) {
   uint32_t done = 0;
   while (!done) {
@@ -715,15 +747,51 @@ __device__ __forceinline__ void ring_fill(int k, int b, int C, int walk, int A,
   }
 }
 
-// Waits for ring chunk g; `later` says whether chunk g + 1 was requested.
-__device__ __forceinline__ void ring_wait(int g, bool later, uint64_t* bar, bool bulk) {
+// Starts a warp's ring of NB buffers: their mbarriers where chunks come by
+// bulk copy, then chunks 0 .. min(NB, total) - 1.  Its __syncwarp also
+// orders the per-slot state the lanes wrote before it.
+template <int NB>
+__device__ __forceinline__ void ring_start(int total, int C, int walk, int A,
+                                           const float* cv_doc, float* ring,
+                                           size_t buf_floats, uint64_t* bar, bool bulk,
+                                           int lane) {
+  if (bulk && lane == 0) {
+    for (int b = 0; b < NB; ++b)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
+                   :: "r"(smem_addr(bar + b)) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncwarp();
+  for (int g = 0; g < min(NB, total); ++g)
+    ring_fill(g, g, C, walk, A, cv_doc, ring, buf_floats, bar, bulk, lane);
+}
+
+// Waits for ring chunk g of `total` on a ring of NB buffers (chunks up to
+// g + NB - 1 requested).  The 4-byte copies' groups complete in order: it
+// lets NB - 1 stay in flight where that many were requested, else none.
+template <int NB>
+__device__ __forceinline__ void ring_wait(int g, int total, uint64_t* bar, bool bulk) {
   if (bulk) {
-    mbar_wait(bar + g % kRingBufs, (uint32_t)((g / kRingBufs) & 1));
+    mbar_wait(bar + g % NB, (uint32_t)((g / NB) & 1));
   } else {
-    if (later) cp_async_wait_one();
+    if (g + NB - 1 < total) asm volatile("cp.async.wait_group %0;\n" :: "n"(NB - 1) : "memory");
     else cp_async_wait_all();
     __syncwarp();
   }
+}
+
+// A warp's walk of document d: positions up to its last with f > 0, none
+// where M == 0.  The positions past the walk keep z0 in z_out.
+__device__ __forceinline__ int warp_walk(const float* __restrict__ f,
+                                         const int* __restrict__ z0, int* z_out, int M,
+                                         int U, int D, int d, int lane) {
+  int last = -1;
+  for (int p = lane; p < U; p += 32)
+    if (f[(size_t)p * D + d] > 0.0f) last = p;
+  const int walk = M > 0 ? __reduce_max_sync(kFullMask, last) + 1 : 0;
+  for (int p = walk + lane; p < U; p += 32)
+    z_out[(size_t)p * D + d] = z0[(size_t)p * D + d];
+  return walk;
 }
 
 // The scalars of position sc*32 + lane in sweep m (none past the walk): f,
@@ -744,6 +812,71 @@ __device__ __forceinline__ void fetch_scalars(int m, int sc, int nsc, int walk, 
     zb = z0[o];
     zl = m == 0 ? zb : nsc > 1 ? z_out[o] : 0;
     uv = uni[((size_t)m * U + q) * D + d];
+  }
+}
+
+// A document's walk by its warp, for the warp and wide routes: the cv ring
+// of NB buffers of C positions (resident across the M sweeps where the walk
+// is at most NB chunks), the per-position scalars a chunk of 32 ahead with
+// rcp_rn(n_k[zb] - f), and the 32 live slots written back after each 32
+// positions.  n_k[zb] comes from nk when the scalars are taken, where
+// NkShared (the block-start totals in shared memory, (A,)), else from nk
+// when they are loaded (nkg in global memory, (A, D)).  A segment is one
+// ring chunk inside one chunk of 32, positions [p0, p1): seg(p0, p1, row,
+// f_c, u_c, rz_c, zb_c, zl_c) runs its steps from cv row `row`, taking
+// position cb + i's scalars from lane i of *_c and leaving its draw in
+// lane i's zl_c.
+template <int NB, bool NkShared, class Seg>
+__device__ __forceinline__ void walk_chunks(const float* __restrict__ cv,
+                                            const float* __restrict__ f,
+                                            const float* __restrict__ uni,
+                                            const int* __restrict__ z0, const float* nk,
+                                            int* z_out, int M, int U, int A, int D, int d,
+                                            int lane, int walk, int C, float* ring,
+                                            size_t buf_floats, uint64_t* bar, Seg seg) {
+  const int nck = (walk + C - 1) / C, nsc = (walk + 31) / 32;
+  const bool resident = nck <= NB;  // loaded once for all M sweeps
+  const int total = resident ? nck : M * nck;
+  const bool bulk = A % 4 == 0 && (reinterpret_cast<uintptr_t>(cv) & 15) == 0;
+  const float* cv_doc = cv + (size_t)d * U * A;
+  ring_start<NB>(total, C, walk, A, cv_doc, ring, buf_floats, bar, bulk, lane);
+
+  // Scalars: *_c of the 32 positions being read (lane i: position cb + i),
+  // *_n of the next 32, loaded a chunk ahead.
+  float f_n, u_n, nk_n = 0.0f, f_c = 0.0f, u_c = 0.0f, rz_c = 0.0f;
+  int zb_n, zl_n, zb_c = 0, zl_c = 0;
+  auto fetch = [&](int m, int sc) {
+    fetch_scalars(m, sc, nsc, walk, U, D, d, lane, f, z0, uni, z_out, f_n, zb_n, zl_n, u_n);
+    if (!NkShared) nk_n = nk[(size_t)min(max(zb_n, 0), A - 1) * D + d];
+  };
+  fetch(0, 0);
+
+  for (int m = 0; m < M; ++m) {
+    for (int k = 0; k < nck; ++k) {
+      const int p0 = k * C, p1 = min(p0 + C, walk);
+      if ((p0 & 31) == 0) {  // take the next 32 positions' scalars
+        f_c = f_n, u_c = u_n, zb_c = zb_n;
+        if (m == 0 || nsc > 1) zl_c = zl_n;  // one chunk of 32: its slots carry over
+        rz_c = __frcp_rn((NkShared ? nk[min(max(zb_c, 0), A - 1)] : nk_n) - f_c);
+        const int sc = p0 / 32 + 1;  // the 32 after these: (m, sc) or (m + 1, 0)
+        if (sc < nsc) fetch(m, sc);
+        else if (m + 1 < M) fetch(m + 1, 0);
+      }
+      const int g = resident ? k : m * nck + k;
+      if (!resident || m == 0) ring_wait<NB>(g, total, bar, bulk);
+      seg(p0, p1, ring + (g % NB) * buf_floats, f_c, u_c, rz_c, zb_c, zl_c);
+      if ((p1 & 31) == 0 || p1 == walk) {  // write the 32 live slots back
+        const int cb = (p1 - 1) & ~31;
+        if (cb + lane < walk) z_out[(size_t)(cb + lane) * D + d] = zl_c;
+      }
+      if (!resident && g + NB < total) {  // refill the buffer
+        __syncwarp();  // every lane is done with chunk g's buffer
+        // chunk g + NB is chunk k + NB of the walk, wrapped (streaming
+        // means nck > NB, so one wrap at most)
+        const int k2 = k + NB < nck ? k + NB : k + NB - nck;
+        ring_fill(k2, g % NB, C, walk, A, cv_doc, ring, buf_floats, bar, bulk, lane);
+      }
+    }
   }
 }
 
@@ -784,110 +917,55 @@ fused_block_warp_kernel(const float* __restrict__ cv,     // (D, U, A)
     if (in) nk_s[a] = nka;
   }
 
-  // 2. the walk: positions up to the last with f > 0; z_out of the rest
-  int last = -1;
-  for (int p = lane; p < U; p += 32)
-    if (f[(size_t)p * D + d] > 0.0f) last = p;
-  const int walk = __reduce_max_sync(kFullMask, last) + 1;
-  const bool walking = walk > 0 && M > 0;
-  for (int p = (walking ? walk : 0) + lane; p < U; p += 32)
-    z_out[(size_t)p * D + d] = z0[(size_t)p * D + d];
+  // 2. the walk; z_out of the positions past it
+  const int walk = warp_walk(f, z0, z_out, M, U, D, d, lane);
 
-  if (walking) {
-    const int C = warp_chunk_positions(A);
-    const int nck = (walk + C - 1) / C, nsc = (walk + 31) / 32;
-    const bool resident = nck <= kRingBufs;  // loaded once for all M sweeps
-    const int total = resident ? nck : M * nck;
-    const bool bulk = A % 4 == 0 && (reinterpret_cast<uintptr_t>(cv) & 15) == 0;
-    const float* cv_doc = cv + (size_t)d * U * A;
-    if (bulk && lane == 0) {
-      for (int b = 0; b < kRingBufs; ++b)
-        asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
-                     :: "r"(smem_addr(bar + b)) : "memory");
-      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    }
-    __syncwarp();  // the barriers and nk_s are ready
-    for (int g = 0; g < min(kRingBufs, total); ++g)
-      ring_fill(g, g, C, walk, A, cv_doc, ring, buf_floats, bar, bulk, lane);
-
+  if (walk > 0) {
     const int last_lane = (A - 1) & 31;
     const unsigned last_bits = kFullMask >> (31 - last_lane);  // the last row's lanes below A
     const int grp = lane / kGroup;
     const bool g0 = grp == 0, g1 = grp == 1, g2 = grp == 2;
-
-    // Scalars: *_c of the 32 positions being read (lane i: position cb + i),
-    // *_n of the next 32, loaded a chunk ahead.
-    float f_n, u_n, f_c = 0.0f, u_c = 0.0f, rz_c = 0.0f;
-    int zb_n, zl_n, zb_c = 0, zl_c = 0;
-    fetch_scalars(0, 0, nsc, walk, U, D, d, lane, f, z0, uni, z_out, f_n, zb_n, zl_n, u_n);
-
-    // A segment is one ring chunk, positions [p0, p1), inside one chunk of
-    // 32: its loop makes no branch and no wait; the next position's
-    // operands are loaded a step ahead.
-    for (int m = 0; m < M; ++m) {
-      for (int k = 0; k < nck; ++k) {
-        const int p0 = k * C, p1 = min(p0 + C, walk);
-        if ((p0 & 31) == 0) {  // take the next 32 positions' scalars
-          f_c = f_n, u_c = u_n, zb_c = zb_n;
-          if (m == 0 || nsc > 1) zl_c = zl_n;  // one chunk of 32: its slots carry over
-          rz_c = __frcp_rn(nk_s[min(max(zb_c, 0), A - 1)] - f_c);
-          const int sc = p0 / 32 + 1;  // the 32 after these: (m, sc) or (m + 1, 0)
-          if (sc < nsc)
-            fetch_scalars(m, sc, nsc, walk, U, D, d, lane, f, z0, uni, z_out, f_n, zb_n,
-                          zl_n, u_n);
-          else if (m + 1 < M)
-            fetch_scalars(m + 1, 0, nsc, walk, U, D, d, lane, f, z0, uni, z_out, f_n, zb_n,
-                          zl_n, u_n);
-        }
-        const int g = resident ? k : m * nck + k;
-        if (!resident || m == 0) ring_wait(g, g + 1 < total, bar, bulk);
-        const float* row = ring + (g % kRingBufs) * buf_floats;  // position p's row
-        float cvv[S];
-        load_row<S>(cvv, row, A, lane);
-        const int i0 = p0 & 31;
-        float fp = __shfl_sync(kFullMask, f_c, i0), u = __shfl_sync(kFullMask, u_c, i0);
-        float rz = __shfl_sync(kFullMask, rz_c, i0);
-        int zo = __shfl_sync(kFullMask, zl_c, i0), zb = __shfl_sync(kFullMask, zb_c, i0);
-        // unrolled by two: ptxas then overlaps one step's tail with the
-        // next step's head (within a percent or two at S = 2, faster at
-        // S = 1 and 4 on the H100)
-#pragma unroll 2
-        for (int p = p0; p < p1; ++p) {
-          float c[S], r;
-          warp_weigh<S>(ndk, vl, r0, cvv, fp, zo, zb, u, rz, lane, last_lane, g0, g1, g2,
-                        alpha, beta, c, r);
-          // while the count is in flight: the next position's operands (the
-          // segment's last step loads its own again, unused)
-          const bool step = p + 1 < p1;
-          const int i = (p + step) & 31;
-          row += step ? A : 0;
+    // a segment's loop makes no branch and no wait; the next position's
+    // operands are loaded a step ahead
+    walk_chunks<kRingBufs, true>(
+        cv, f, uni, z0, nk_s, z_out, M, U, A, D, d, lane, walk, warp_chunk_positions(A), ring,
+        buf_floats, bar,
+        [&](int p0, int p1, const float* row, float f_c, float u_c, float rz_c, int zb_c,
+            int& zl_c) {
+          float cvv[S];
           load_row<S>(cvv, row, A, lane);
-          const float fp_n = __shfl_sync(kFullMask, f_c, i);
-          u = __shfl_sync(kFullMask, u_c, i);
-          rz = __shfl_sync(kFullMask, rz_c, i);
-          const int zo_n = __shfl_sync(kFullMask, zl_c, i);
-          zb = __shfl_sync(kFullMask, zb_c, i);
-          // the draw: a position with f == 0 keeps its slot (and adds 0)
-          int zn = warp_count<S>(c, r, last_bits);
-          zn = fp > 0.0f ? zn : zo;
+          const int i0 = p0 & 31;
+          float fp = __shfl_sync(kFullMask, f_c, i0), u = __shfl_sync(kFullMask, u_c, i0);
+          float rz = __shfl_sync(kFullMask, rz_c, i0);
+          int zo = __shfl_sync(kFullMask, zl_c, i0), zb = __shfl_sync(kFullMask, zb_c, i0);
+          // unrolled by two: ptxas then overlaps one step's tail with the
+          // next step's head (within a percent or two at S = 2, faster at
+          // S = 1 and 4 on the H100)
+#pragma unroll 2
+          for (int p = p0; p < p1; ++p) {
+            float c[S], r;
+            warp_weigh<S>(ndk, vl, r0, cvv, fp, zo, zb, u, rz, lane, last_lane, g0, g1, g2,
+                          alpha, beta, c, r);
+            // while the count is in flight: the next position's operands
+            // (the segment's last step loads its own again, unused)
+            const bool step = p + 1 < p1;
+            const int i = (p + step) & 31;
+            row += step ? A : 0;
+            load_row<S>(cvv, row, A, lane);
+            const float fp_n = __shfl_sync(kFullMask, f_c, i);
+            u = __shfl_sync(kFullMask, u_c, i);
+            rz = __shfl_sync(kFullMask, rz_c, i);
+            const int zo_n = __shfl_sync(kFullMask, zl_c, i);
+            zb = __shfl_sync(kFullMask, zb_c, i);
+            // the draw: a position with f == 0 keeps its slot (and adds 0)
+            int zn = warp_count<S>(c, r, last_bits);
+            zn = fp > 0.0f ? zn : zo;
 #pragma unroll
-          for (int j = 0; j < S; ++j) ndk[j] = ndk[j] + ((lane + 32 * j == zn) ? fp : 0.0f);
-          zl_c = lane == (p & 31) ? zn : zl_c;
-          fp = fp_n, zo = zo_n;
-        }
-        if ((p1 & 31) == 0 || p1 == walk) {  // write the 32 live slots back
-          const int cb = (p1 - 1) & ~31;
-          if (cb + lane < walk) z_out[(size_t)(cb + lane) * D + d] = zl_c;
-        }
-        if (!resident && g + kRingBufs < total) {  // refill the buffer
-          __syncwarp();  // every lane is done with chunk g's buffer
-          // chunk g + kRingBufs is chunk k + kRingBufs of the walk, wrapped
-          // (streaming means nck > kRingBufs, so one wrap at most)
-          const int k2 = k + kRingBufs < nck ? k + kRingBufs : k + kRingBufs - nck;
-          ring_fill(k2, g % kRingBufs, C, walk, A, cv_doc, ring, buf_floats, bar, bulk, lane);
-        }
-      }
-    }
+            for (int j = 0; j < S; ++j) ndk[j] = ndk[j] + ((lane + 32 * j == zn) ? fp : 0.0f);
+            zl_c = lane == (p & 31) ? zn : zl_c;
+            fp = fp_n, zo = zo_n;
+          }
+        });
   }
 #pragma unroll
   for (int j = 0; j < S; ++j) {
@@ -904,6 +982,164 @@ int warp_launch(size_t smem, cudaStream_t stream, const float* cv, const float* 
   fused_block_warp_kernel<S><<<D, 32, smem, stream>>>(
       cv, f, uni, z0, nkg, valid, ndk0, z_out, ndk_out, M, U, A, D, alpha, beta);
   return (int)cudaGetLastError();
+}
+
+// --------------------------------------------------------------- wide route
+
+constexpr int kWideRegRows = 8;           // rows of 32 slots in registers
+constexpr int kWideRingBufs = 2;          // cv chunks in flight per warp
+constexpr size_t kWideChunkBytes = 4096;  // cv bytes per ring buffer, at most
+
+__host__ __device__ inline int wide_rows(int A) { return (A + 31) / 32; }
+
+// Positions per cv chunk: a power of two up to 32 whose rows fit
+// kWideChunkBytes, at least one.
+__host__ __device__ inline int wide_chunk_positions(int A) {
+  int C = 32;
+  while (C > 1 && (size_t)C * A * 4 > kWideChunkBytes) C >>= 1;
+  return C;
+}
+
+__host__ __device__ inline size_t wide_buf_bytes(int A) {
+  return round16((size_t)wide_chunk_positions(A) * A * 4);
+}
+
+// Per warp: the ring; four floats a slot of the rows past the register
+// rows (n_dk, valid, rcp_rn(n_k), the step's prefixed sum), [row][lane];
+// one mbarrier per buffer.  For A > 32 * kWideRegRows.
+__host__ __device__ inline size_t wide_smem_bytes(int A) {
+  return kWideRingBufs * wide_buf_bytes(A) +
+         (size_t)(wide_rows(A) - kWideRegRows) * 32 * 16 + kWideRingBufs * 8;
+}
+
+// A row's prefixed sums from its in-group sums l: its four group totals by
+// shuffles from lanes 7, 15, 23 and 31, then the sequential prefix carried
+// across rows in run, P[4j] = run and P[4j+k+1] = P[4j+k] + T[4j+k] (so
+// P[0] = 0 and P[1] = 0 + T[0] = T[0]); returns P of the lane's group + l.
+__device__ __forceinline__ float row_prefix(float l, float& run, int grp) {
+  const float t0 = __shfl_sync(kFullMask, l, kGroup - 1);
+  const float t1 = __shfl_sync(kFullMask, l, 2 * kGroup - 1);
+  const float t2 = __shfl_sync(kFullMask, l, 3 * kGroup - 1);
+  const float t3 = __shfl_sync(kFullMask, l, 4 * kGroup - 1);
+  const float p0 = run, p1 = p0 + t0, p2 = p1 + t1, p3 = p2 + t2;
+  run = p3 + t3;
+  return (grp == 0 ? p0 : grp == 1 ? p1 : grp == 2 ? p2 : p3) + l;
+}
+
+// One warp per CTA, one document per warp, A > 32 * kWideRegRows slots:
+// rows 0..R-1 in registers as the warp route's, rows R..S-1 in shared memory.
+__global__ void __launch_bounds__(32, 1)
+fused_block_wide_kernel(const float* __restrict__ cv,     // (D, U, A)
+                        const float* __restrict__ f,      // (U, D)
+                        const float* __restrict__ uni,    // (M, U, D)
+                        const int* __restrict__ z0,       // (U, D)
+                        const float* __restrict__ nkg,    // (A, D), pre-biased
+                        const float* __restrict__ valid,  // (A, D)
+                        const float* __restrict__ ndk0,   // (A, D)
+                        int* z_out,                       // (U, D), the live z
+                        float* __restrict__ ndk_out,      // (A, D)
+                        int M, int U, int A, int D, float alpha, float beta) {
+  constexpr int R = kWideRegRows, NB = kWideRingBufs;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lane = threadIdx.x, d = blockIdx.x;
+  const int E = wide_rows(A) - R;  // rows in shared memory, >= 1
+  const size_t buf_floats = wide_buf_bytes(A) / 4;
+  float* ring = reinterpret_cast<float*>(smem);
+  float* ndk_s = ring + NB * buf_floats;  // slot 32 (R + e) + lane at 32 e + lane
+  float* vl_s = ndk_s + 32 * E;
+  float* r0_s = vl_s + 32 * E;
+  float* c_s = r0_s + 32 * E;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(c_s + 32 * E);
+
+  // 1. per-slot state: rows 0..R-1 (every slot below A) in registers, the
+  //    rest in shared memory, each slot read and written by its own lane only
+  float ndk[R], vl[R], r0[R];
+#pragma unroll
+  for (int j = 0; j < R; ++j) {
+    const size_t o = (size_t)(lane + 32 * j) * D + d;
+    ndk[j] = ndk0[o];
+    vl[j] = valid[o];
+    r0[j] = __frcp_rn(nkg[o]);
+  }
+  for (int e = 0; e < E; ++e) {
+    const int a = 32 * (R + e) + lane;
+    const size_t o = (size_t)a * D + d;
+    ndk_s[32 * e + lane] = a < A ? ndk0[o] : 0.0f;
+    vl_s[32 * e + lane] = a < A ? valid[o] : 0.0f;
+    r0_s[32 * e + lane] = a < A ? __frcp_rn(nkg[o]) : 0.0f;
+  }
+
+  // 2. the walk; z_out of the positions past it
+  const int walk = warp_walk(f, z0, z_out, M, U, D, d, lane);
+
+  if (walk > 0) {
+    const int last_lane = (A - 1) & 31;
+    const unsigned last_bits = kFullMask >> (31 - last_lane);  // the last row's lanes below A
+    const int grp = lane / kGroup;
+    walk_chunks<NB, false>(
+        cv, f, uni, z0, nkg, z_out, M, U, A, D, d, lane, walk, wide_chunk_positions(A), ring,
+        buf_floats, bar,
+        [&](int p0, int p1, const float* row, float f_c, float u_c, float rz_c, int zb_c,
+            int& zl_c) {
+          for (int p = p0; p < p1; ++p, row += A) {
+            const int i = p & 31;
+            const float fp = __shfl_sync(kFullMask, f_c, i), u = __shfl_sync(kFullMask, u_c, i);
+            const float rz = __shfl_sync(kFullMask, rz_c, i);
+            const int zo = __shfl_sync(kFullMask, zl_c, i), zb = __shfl_sync(kFullMask, zb_c, i);
+            // every slot's weight, in-group scan and prefixed sum, row by row
+            float run = 0.0f, c[R];
+#pragma unroll
+            for (int j = 0; j < R; ++j) {
+              const int a = lane + 32 * j;
+              const bool own_slot = a == zb;
+              const float own = own_slot ? fp : 0.0f;
+              ndk[j] = ndk[j] - ((a == zo) ? fp : 0.0f);  // ndk_m
+              float w = vl[j] * (ndk[j] + alpha);
+              w = w * ((row[a] - own) + beta);
+              w = w * (own_slot ? rz : r0[j]);
+              c[j] = row_prefix(group_scan(w, lane), run, grp);
+            }
+            float c_end = 0.0f;  // the last row's
+#pragma unroll 4
+            for (int e = 0; e < E; ++e) {
+              const int a = 32 * (R + e) + lane, s = 32 * e + lane;
+              const bool own_slot = a == zb;
+              const float own = own_slot ? fp : 0.0f;
+              const float ndk_m = ndk_s[s] - ((a == zo) ? fp : 0.0f);
+              float w = vl_s[s] * (ndk_m + alpha);
+              w = w * (((a < A ? row[a] : 0.0f) - own) + beta);
+              w = w * (own_slot ? rz : r0_s[s]);
+              c_end = row_prefix(group_scan(w, lane), run, grp);
+              c_s[s] = c_end;
+            }
+            const float r = u * __shfl_sync(kFullMask, c_end, last_lane);  // u * c[A-1]
+            // the draw: the slots below A with c < r; a position with f == 0
+            // keeps its slot (and adds 0)
+            int zn = 0;
+#pragma unroll
+            for (int j = 0; j < R; ++j) zn += __popc(__ballot_sync(kFullMask, c[j] < r));
+#pragma unroll 4
+            for (int e = 0; e + 1 < E; ++e)
+              zn += __popc(__ballot_sync(kFullMask, c_s[32 * e + lane] < r));
+            zn += __popc(__ballot_sync(kFullMask, c_end < r) & last_bits);
+            zn = fp > 0.0f ? zn : zo;
+#pragma unroll
+            for (int j = 0; j < R; ++j) ndk[j] = ndk[j] + ((lane + 32 * j == zn) ? fp : 0.0f);
+            // in shared memory only slots zo and zn change, each by its own
+            // lane, in the plain version's order: (n_dk - f) + f
+            const int so = zo - 32 * R, sn = zn - 32 * R;
+            if (fp > 0.0f && so >= 0 && zo < A && lane == (zo & 31)) ndk_s[so] = ndk_s[so] - fp;
+            if (fp > 0.0f && sn >= 0 && zn < A && lane == (zn & 31)) ndk_s[sn] = ndk_s[sn] + fp;
+            zl_c = lane == i ? zn : zl_c;
+          }
+        });
+  }
+#pragma unroll
+  for (int j = 0; j < R; ++j) ndk_out[(size_t)(lane + 32 * j) * D + d] = ndk[j];
+  for (int e = 0; e < E; ++e) {
+    const int a = 32 * (R + e) + lane;
+    if (a < A) ndk_out[(size_t)a * D + d] = ndk_s[32 * e + lane];
+  }
 }
 
 // The device's shared memory per CTA (opt-in), or -1 on a CUDA error.
@@ -991,6 +1227,41 @@ extern "C" int fused_block_warp_launch(const float* cv, const float* f,
   }
 #undef FB_WARP_CASE
   return (int)cudaErrorInvalidValue;
+}
+
+// The widest A the wide route takes on the current device (its shared
+// memory must fit one CTA, opt-in); 32 * kWideRegRows where it takes none,
+// -1 on a CUDA error.
+extern "C" int fused_block_wide_max_slots() {
+  const int limit = smem_limit();
+  if (limit < 0) return -1;
+  int A = 32 * kWideRegRows;
+  while (wide_smem_bytes(A + 1) <= (size_t)limit) ++A;
+  return A;
+}
+
+// Launches the wide route on `stream`, one CTA of one warp per document,
+// for 32 * kWideRegRows < A <= fused_block_wide_max_slots(); returns
+// cudaGetLastError() as an int.
+extern "C" int fused_block_wide_launch(const float* cv, const float* f,
+                                       const float* uni, const int* z0,
+                                       const float* nkg, const float* valid,
+                                       const float* ndk0, int* z_out, float* ndk_out,
+                                       int M, int U, int A, int D, float alpha,
+                                       float beta, void* stream) {
+  const int limit = smem_limit();
+  if (A <= 32 * kWideRegRows || U < 0 || M < 0 || D < 1 || limit < 0 ||
+      wide_smem_bytes(A) > (size_t)limit)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = wide_smem_bytes(A);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        fused_block_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  fused_block_wide_kernel<<<D, 32, smem, static_cast<cudaStream_t>(stream)>>>(
+      cv, f, uni, z0, nkg, valid, ndk0, z_out, ndk_out, M, U, A, D, alpha, beta);
+  return (int)cudaGetLastError();
 }
 
 // Launches the staged kernel on `stream`, one CTA per document; returns

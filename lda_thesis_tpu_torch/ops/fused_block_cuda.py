@@ -16,8 +16,11 @@ per launch from ``(U, A)``:
 * ``"warp"`` (32 < A <= 32 · :data:`WARP_ROWS_MAX`, and A <= 32 past the
   staged limit): one warp per document, each lane on ``ceil(A/32)`` slots in
   registers, the cv rows streamed through a small ring in shared memory;
-* ``"general"`` (A > 32 · :data:`WARP_ROWS_MAX`): one CTA per document, one
-  thread per slot, its operands read from global memory.
+* ``"wide"`` (32 · :data:`WARP_ROWS_MAX` < A <= :func:`wide_max_slots`): one
+  warp per document as the warp route's, its first ``WARP_ROWS_MAX`` rows
+  of 32 slots in registers and the rest in shared memory;
+* ``"general"`` (wider still): one CTA per document, one thread per slot,
+  its operands read from global memory.
 
 The kernel is compiled with ``nvcc`` at first use and loaded with ``ctypes``
 (:mod:`._nvcc`); importing this module needs neither ``nvcc`` nor a card.
@@ -34,19 +37,20 @@ import torch
 
 from . import _nvcc
 
-__all__ = ["fused_block", "fused_block_torch", "build", "max_positions", "route",
-           "choose_route"]
+__all__ = ["fused_block", "fused_block_torch", "build", "max_positions", "wide_max_slots",
+           "route", "choose_route"]
 
 SOURCE = _nvcc.CSRC / "fused_block.cu"
 STAGED_SLOTS = 32  # the staged route: one lane per slot
 # S_MAX, the warp route's rows of 32 slots per lane (kWarpRowsMax in the .cu)
 WARP_ROWS_MAX = 8
-ROUTES = ("staged", "warp", "general")
+ROUTES = ("staged", "warp", "wide", "general")
 
 # Number of kernel launches since import (or since a caller reset it), of
-# every route, and of the warp and the general route alone.
+# every route, and of the warp, wide and general routes alone.
 launches = 0
 warp_launches = 0
+wide_launches = 0
 general_launches = 0
 
 
@@ -71,6 +75,10 @@ def _library() -> ctypes.CDLL:
     lib.fused_block_smem_limit.restype = ctypes.c_int
     lib.fused_block_warp_launch.argtypes = [ptr] * 9 + [i32] * 4 + [f32, f32, ptr]
     lib.fused_block_warp_launch.restype = ctypes.c_int
+    lib.fused_block_wide_launch.argtypes = [ptr] * 9 + [i32] * 4 + [f32, f32, ptr]
+    lib.fused_block_wide_launch.restype = ctypes.c_int
+    lib.fused_block_wide_max_slots.argtypes = []
+    lib.fused_block_wide_max_slots.restype = ctypes.c_int
     lib.fused_block_warp_rows_max.argtypes = []
     lib.fused_block_warp_rows_max.restype = ctypes.c_int
     if lib.fused_block_warp_rows_max() != WARP_ROWS_MAX:
@@ -93,22 +101,38 @@ def max_positions(A: int, index: int = 0) -> int:
     return U
 
 
-def choose_route(U: int, A: int, staged_limit: int) -> str:
+@functools.lru_cache(maxsize=None)
+def wide_max_slots(index: int = 0) -> int:
+    """The widest A the wide route takes on CUDA device ``index``: one
+    document's ring and per-slot state must fit one CTA's shared memory
+    (9,852 slots on an H100).  Wider documents take the general route."""
+    with torch.cuda.device(index):
+        A = _library().fused_block_wide_max_slots()
+    if A < 0:
+        raise RuntimeError("fused_block_wide_max_slots failed: no CUDA device")
+    return A
+
+
+def choose_route(U: int, A: int, staged_limit: int, wide_limit: int) -> str:
     """The route of a launch at ``U`` positions and ``A`` slots, given the
-    staged route's position limit at ``A`` (consulted only for A <= 32):
+    staged route's position limit at ``A`` (consulted only for A <= 32)
+    and the wide route's widest A (consulted only past the warp route's):
     ``"staged"`` where one document's staging fits one CTA, else ``"warp"``
-    up to ``32 *`` :data:`WARP_ROWS_MAX` slots, else ``"general"``."""
+    up to ``32 *`` :data:`WARP_ROWS_MAX` slots, else ``"wide"`` up to
+    ``wide_limit``, else ``"general"``."""
     if A <= STAGED_SLOTS and U <= staged_limit:
         return "staged"
-    return "warp" if A <= STAGED_SLOTS * WARP_ROWS_MAX else "general"
+    if A <= STAGED_SLOTS * WARP_ROWS_MAX:
+        return "warp"
+    return "wide" if A <= wide_limit else "general"
 
 
 def route(U: int, A: int, index: int = 0) -> str:
     """The kernel a CUDA launch at ``U`` positions and ``A`` slots takes on
-    CUDA device ``index`` (:func:`choose_route` with that card's staged
-    limit)."""
-    limit = max_positions(A, index) if A <= STAGED_SLOTS else 0
-    return choose_route(U, A, limit)
+    CUDA device ``index`` (:func:`choose_route` with that card's limits)."""
+    staged = max_positions(A, index) if A <= STAGED_SLOTS else 0
+    wide = wide_max_slots(index) if A > STAGED_SLOTS * WARP_ROWS_MAX else 0
+    return choose_route(U, A, staged, wide)
 
 
 @functools.lru_cache(maxsize=None)
@@ -173,9 +197,9 @@ def _launch(kernel: str, cv, f, uniforms, z0, nkg, valid, ndk0, alpha: float,
             beta: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch route ``kernel`` on CUDA tensors and count it.  :func:`fused_block`
     passes the route :func:`route` names; a measurement may name another
-    route that takes the shape (``"warp"`` at any A <= 256, ``"general"``
-    at any A)."""
-    global launches, warp_launches, general_launches
+    route that takes the shape (``"warp"`` at any A <= 256, ``"wide"`` at
+    256 < A <= :func:`wide_max_slots`, ``"general"`` at any A)."""
+    global launches, warp_launches, wide_launches, general_launches
     if kernel not in ROUTES:
         raise ValueError(f"no route {kernel!r}; the routes are {ROUTES}")
     M, U, A, D = _check_inputs(cv, f, uniforms, z0, nkg, valid, ndk0)
@@ -198,6 +222,9 @@ def _launch(kernel: str, cv, f, uniforms, z0, nkg, valid, ndk0, alpha: float,
         elif kernel == "warp":
             err = lib.fused_block_warp_launch(*ptrs, M, U, A, D, float(alpha), float(beta),
                                               stream)
+        elif kernel == "wide":
+            err = lib.fused_block_wide_launch(*ptrs, M, U, A, D, float(alpha), float(beta),
+                                              stream)
         else:
             per_doc = _general_scratch_floats(A, index)
             scratch = (torch.empty(D * per_doc, dtype=torch.float32, device=cv.device)
@@ -209,6 +236,7 @@ def _launch(kernel: str, cv, f, uniforms, z0, nkg, valid, ndk0, alpha: float,
         raise RuntimeError(f"fused_block {kernel} kernel launch failed: CUDA error {err}")
     launches += 1
     warp_launches += kernel == "warp"
+    wide_launches += kernel == "wide"
     general_launches += kernel == "general"
     return z_out, ndk_out
 

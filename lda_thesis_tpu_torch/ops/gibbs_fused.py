@@ -340,7 +340,7 @@ class FusedBlocks(_StaticState, _Replayed):
     :meth:`load` (``holds``/``load``: ``ops/gibbs._StaticState``).
     """
 
-    _counters = ((fbc, ("launches", "warp_launches", "general_launches")),)
+    _counters = ((fbc, ("launches", "warp_launches", "wide_launches", "general_launches")),)
 
     def __init__(self, state: FusedBucketState, toks_v_t, toks_f_t, lab_ids_t, lab_valid_tt,
                  alpha: float, beta: float, vbeta: Optional[float] = None):

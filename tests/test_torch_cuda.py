@@ -270,8 +270,9 @@ def _check_block(args):
 # shapes, two waves of CTAs, one and 32 slots, a document with no live
 # position, interior gaps, U = 512, and documents of one or two positions
 # (with one, each step's next step is the same position); then the warp
-# route's slot and position counts past the staged route's limits, and the
-# general route's past the warp route's widest A
+# route's slot and position counts past the staged route's limits, the wide
+# route's past the warp route's widest A, and the general route's past the
+# wide route's widest
 BLOCK_CASES = {
     "bucket0": (1653, 32, 24, 25, 0.0, False),
     "bucket1": (1148, 48, 24, 25, 0.0, False),
@@ -300,22 +301,27 @@ def test_fused_block_shared_memory_layout_and_limit():
     """The staged route runs at the widest document its shared memory holds
     (at A = 32, at least the 512 positions of the old cap); one position
     past it, at A = 33 and at the warp route's widest A, the warp route
-    runs; one slot past that, the general route: each bitwise equal to the
-    plain version, each counted on its own route, and nothing is refused."""
+    runs; one slot past that and up to its own widest A (9,852 on an H100),
+    the wide route; one slot past that, the general route: each bitwise
+    equal to the plain version, each counted on its own route, and nothing
+    is refused."""
     _needs_card()
     U = fbc.max_positions(32)
     widest = 32 * fbc.WARP_ROWS_MAX
-    assert U >= 512
+    wide = fbc.wide_max_slots()
+    assert U >= 512 and wide == chip_smoke.WIDE_SLOTS_H100
     assert fbc.route(U, 32) == "staged"
     assert fbc.route(U + 1, 32) == fbc.route(8, 33) == fbc.route(8, widest) == "warp"
-    assert fbc.route(8, widest + 1) == "general"
-    cases = [((1, 4, U, 32, 1), (1, 0, 0)), ((1, 4, U + 1, 32, 1), (1, 1, 0)),
-             ((2, 4, 8, 33, 2), (1, 1, 0)), ((3, 4, 8, widest, 2), (1, 1, 0)),
-             ((4, 4, 8, widest + 1, 2), (1, 0, 1))]
+    assert fbc.route(8, widest + 1) == fbc.route(8, wide) == "wide"
+    assert fbc.route(8, wide + 1) == "general"
+    cases = [((1, 4, U, 32, 1), (1, 0, 0, 0)), ((1, 4, U + 1, 32, 1), (1, 1, 0, 0)),
+             ((2, 4, 8, 33, 2), (1, 1, 0, 0)), ((3, 4, 8, widest, 2), (1, 1, 0, 0)),
+             ((4, 4, 8, widest + 1, 2), (1, 0, 1, 0)), ((5, 3, 4, wide, 2), (1, 0, 1, 0)),
+             ((6, 3, 4, wide + 1, 2), (1, 0, 0, 1))]
     for args, moved in cases:
-        before = (fbc.launches, fbc.warp_launches, fbc.general_launches)
+        before = chip_smoke._route_counts(fbc)
         _check_block(chip_smoke.block_case("cuda", *args))
-        after = (fbc.launches, fbc.warp_launches, fbc.general_launches)
+        after = chip_smoke._route_counts(fbc)
         assert tuple(a - b for a, b in zip(after, before)) == moved, args
     with pytest.raises(ValueError, match="slots"):
         fbc.max_positions(33)
@@ -336,12 +342,13 @@ def _local_lda(K, sweep, device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("sweep,K", [("fused", 20), ("fused", 50), ("fused", 100),
-                                     ("dense", 20)])
+                                     ("fused", 300), ("dense", 20)])
 def test_local_lda_sweeps_on_card_equal_cpu(sweep, K):
     """Three LocalLDA sweeps from one state and the same uniforms: on the
-    card (kernel 1 on the staged route at K = 20 and on the warp route at
-    K = 50 and 100, or the dense sweep's graphed kernels) and on the CPU
-    (the plain versions) give the same bits."""
+    card (kernel 1 on the staged route at K = 20, on the warp route at K =
+    50 and 100 and on the wide route at K = 300, or the dense sweep's
+    graphed kernels) and on the CPU (the plain versions) give the same
+    bits."""
     from lda_thesis_tpu_torch.ops import gibbs_fused as tfused
 
     _needs_card()
@@ -356,16 +363,16 @@ def test_local_lda_sweeps_on_card_equal_cpu(sweep, K):
     for m in (card, cpu):
         dev = m.device
         if sweep == "fused":
-            before = (fbc.launches, fbc.warp_launches, fbc.general_launches)
+            before = chip_smoke._route_counts(fbc)
             for sw in us:
                 m.counts = tfused.fused_train_block_buckets(
                     m.counts, m._toks_v_t, m._toks_f_t, m.lab_ids_t, m._lab_valid_tt,
                     m.a, m.b, 1, uniforms=[u[None].to(dev) for u in sw])
             if dev.type == "cuda":
                 n = 3 * m.buckets.n_buckets
-                after = (fbc.launches, fbc.warp_launches, fbc.general_launches)
+                after = chip_smoke._route_counts(fbc)
                 assert tuple(a - b for a, b in zip(after, before)) == (
-                    n, n if K > 32 else 0, 0)
+                    n, n if 32 < K <= 256 else 0, n if K > 256 else 0, 0)
             state = [*m.counts.z, *m.counts.n_dk, m.counts.n_vk, m.counts.n_k]
         else:
             st = m.counts
@@ -622,7 +629,9 @@ def test_run_test_sees_new_phi():
 @pytest.mark.cuda
 @pytest.mark.parametrize("name, route, chains", [
     ("interior gaps", "staged", 0), ("interior gaps", "staged", 3), ("A=56", "warp", 0),
-    (f"A={32 * fbc.WARP_ROWS_MAX + 8}", "general", 0)])
+    (f"A={32 * fbc.WARP_ROWS_MAX + 8}", "wide", 0),
+    (f"A={32 * fbc.WARP_ROWS_MAX + 8}", "wide", 3),
+    ("A=1000", "wide", 0), ("A=16000", "general", 0)])
 def test_fused_blocks_replay_equal_eager_blocks(name, route, chains):
     """Four merge blocks of ``FusedBlocks`` (eager, capture and replay,
     replays) at an ``edge_cases`` shape of each route of kernel 1 against
@@ -633,7 +642,8 @@ def test_fused_blocks_replay_equal_eager_blocks(name, route, chains):
     r = chip_smoke.replayed_blocks_case("cuda", 0, name, calls=4, chains=chains)
     torch.cuda.synchronize()
     n = 4 * 2
-    want = {"staged": (n, 0, 0), "warp": (n, n, 0), "general": (n, 0, n)}[route]
+    want = {"staged": (n, 0, 0, 0), "warp": (n, n, 0, 0), "wide": (n, 0, n, 0),
+            "general": (n, 0, 0, n)}[route]
     assert r["route"] == route and r["launches"] == want
     assert sorted(r["run"]._graphs) == [2] and r["run"].calls == 4
 

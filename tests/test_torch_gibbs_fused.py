@@ -59,13 +59,17 @@ WIDE_24 = dict(D=37, A=24, max_labels=24, label_set=100)
 WIDE_32 = dict(D=37, A=32, max_labels=32, label_set=120)
 # every slot valid, past the staged kernel's 32 lanes: the warp route's
 # shapes (LocalLDA at K = 50 and K = 100, a label set of 136), whose
-# group-total prefix spans 7, 13 and 17 groups of eight, and the first
-# multiple of 8 past the warp route's widest, which takes the general route
+# group-total prefix spans 7, 13 and 17 groups of eight, and the wide
+# route's: the first multiple of 8 past the warp route's widest, LocalLDA
+# at K = 300 (A = 304) and K = 1,000, whose prefix spans 33, 38 and 125
+# groups over 9, 10 and 32 rows of 32 slots
 WIDE_56 = dict(D=37, A=56, label_set=100, all_valid=True)
 WIDE_104 = dict(D=37, A=104, label_set=150, all_valid=True)
 WIDE_136 = dict(D=37, A=136, label_set=200, all_valid=True)
 PAST_WARP = 32 * fbc.WARP_ROWS_MAX + 8
 WIDE_PAST_WARP = dict(D=37, A=PAST_WARP, label_set=PAST_WARP + 40, all_valid=True)
+WIDE_304 = dict(D=37, A=304, label_set=344, all_valid=True)
+WIDE_1000 = dict(D=37, A=1000, label_set=1040, all_valid=True)
 
 
 @pytest.fixture(scope="module")
@@ -120,6 +124,8 @@ def _kernel_inputs(problem, st):
     pytest.param(2, WIDE_104, id="A104"),
     pytest.param(2, WIDE_136, id="A136"),
     pytest.param(2, WIDE_PAST_WARP, id=f"A{PAST_WARP}"),
+    pytest.param(2, WIDE_304, id="A304"),
+    pytest.param(2, WIDE_1000, id="A1000"),
 ])
 def test_fused_block_torch_matches_xla_twin(M, shape):
     problem = _make_problem(**shape)
@@ -154,6 +160,8 @@ def test_fused_block_torch_matches_xla_twin(M, shape):
     pytest.param(2, WIDE_104, id="A104"),
     pytest.param(2, WIDE_136, id="A136"),
     pytest.param(2, WIDE_PAST_WARP, id=f"A{PAST_WARP}"),
+    pytest.param(2, WIDE_304, id="A304"),
+    pytest.param(2, WIDE_1000, id="A1000"),
 ])
 def test_fused_train_block_matches_jax(M, shape):
     problem = _make_problem(**shape)

@@ -4,9 +4,9 @@ Both packages build LocalLDA from the same texts; the vocabulary, the
 sentence documents and the bucket layout must be equal.  Fed the JAX
 model's own uniforms (``jax.random.uniform`` of the keys it folds per
 bucket), the port's init and first merge block must give the same z and
-counts exactly, at K = 4 (A = 8, the staged kernel's shape) and at K = 50
-(A = 56, the warp route's shape; here on the CPU through the plain
-version).  The JAX side runs the fused XLA twin, whose ``tril @ w`` scan
+counts exactly, at K = 4 (A = 8, the staged kernel's shape), at K = 50
+(A = 56, the warp route's shape) and at K = 300 (A = 304, the wide
+route's; here on the CPU through the plain version).  The JAX side runs the fused XLA twin, whose ``tril @ w`` scan
 differs from the port's grouped scan in the last bits of c (not in the
 draws, at these sizes).  Then the port of ``tests/test_local_lda.py``:
 invariants, the dense and fused samplers, and a kill/resume through the
@@ -96,7 +96,7 @@ def _state_equal(got, want):
     np.testing.assert_array_equal(got.n_k.numpy(), np.asarray(want.n_k))
 
 
-@pytest.mark.parametrize("K", [4, 50])
+@pytest.mark.parametrize("K", [4, 50, 300])
 def test_init_and_first_merge_block_match_jax(K):
     jm = _jax_model(K)
     pm = _port(_texts(1), alpha=0.1, beta=0.01, K=K, seed=SEED, n_buckets=2)
@@ -121,12 +121,15 @@ def test_init_and_first_merge_block_match_jax(K):
     got = tfused.fused_train_block_buckets(init, pm._toks_v_t, pm._toks_f_t, pm.lab_ids_t,
                                            pm._lab_valid_tt, pm.a, pm.b, M, uniforms=u1)
     _state_equal(got, want)
-    # the block moved tokens, and into every group of eight topics at K = 50
+    # the block moved tokens, and into every group of eight topics at K = 50,
+    # past the first 256 slots (the warp route's widest) at K = 300
     moved = np.concatenate([(np.asarray(a) != np.asarray(b)).ravel()
                             for a, b in zip(got.z, init.z)])
     assert moved.any()
     if K > 32:
         assert max(int(z.max()) for z in got.z) >= 48
+    if K > 256:
+        assert max(int(z.max()) for z in got.z) >= 256
 
 
 def test_train_and_estimators():

@@ -342,7 +342,7 @@ def test_replay_rule_keeps_a_graph_per_block_length(monkeypatch):
         fbc.launches -= 2  # the eager reference's
         assert _same(got, state) and fbc.launches == 2 * (i + 1)
     assert sorted(run._graphs) == [1, 2] and len(captured) == 2
-    assert [added for _, added in run._graphs.values()] == [[2, 0, 0], [2, 0, 0]]
+    assert [added for _, added in run._graphs.values()] == [[2, 0, 0, 0], [2, 0, 0, 0]]
     clone = pickle.loads(pickle.dumps(run))
     assert clone._graphs == {} and clone._u == {} and clone.calls == 0
     assert _same(clone.state, run.state)
