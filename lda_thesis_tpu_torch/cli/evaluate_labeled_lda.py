@@ -93,7 +93,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "(utils/tracing.Progress; no per-iteration syncs)")
     p.add_argument("--trace", default=None, metavar="DIR",
                    help="write a torch.profiler trace of training and the "
-                        "fold-in test into DIR (utils/tracing.trace)")
+                        "fold-in test into DIR (utils/tracing.trace; the "
+                        "program's spans are named lda/...) and return the "
+                        "run's replay counters in stats['counts']")
     p.add_argument("--n-chains", type=int, default=1,
                    help="independent Gibbs chains (distributed trainer)")
     p.add_argument("--n-data", type=int, default=1,
@@ -310,7 +312,7 @@ def main(argv=None) -> dict:
 
 
 def _main(opt) -> dict:
-    from ..utils.tracing import annotate, trace
+    from ..utils.tracing import annotate, counts, trace
 
     cfg = make_config(opt)  # applies the thinning == 0 -> iters rule
     g = cfg.gibbs
@@ -321,6 +323,7 @@ def _main(opt) -> dict:
     stats = {"load_s": time.perf_counter() - t0}
 
     tracer = trace(opt.trace) if opt.trace else contextlib.nullcontext()
+    counted = counts()
     rank_info = {}
     print("Starting training...")
     with tracer:
@@ -339,6 +342,9 @@ def _main(opt) -> dict:
             else:
                 th = model.run_test(test.docs, cfg.test_iters, cfg.test_thinning)
         stats["test_s"] = time.perf_counter() - t0
+    if opt.trace:  # the replay runners' phases in the traced run, by span name
+        stats["counts"] = {k: n - counted.get(k, 0) for k, n in counts().items()
+                           if n != counted.get(k, 0)}
     if rank_info.get("rank", 0) != 0:
         return dict(model=model)
     if opt.trace:

@@ -67,6 +67,7 @@ from ..ops.hslda_gibbs import (
     hslda_z_sweep,
 )
 from ..ops.sampling import gumbel, norm_cdf, open_uniforms, stirling_table, truncated_normal
+from ..utils.tracing import annotate
 from .state import running_average
 
 __all__ = ["HSLDA", "CycleNoise", "CycleStep", "eta_block", "eta_gram", "eta_draw", "a_block",
@@ -282,7 +283,9 @@ class CycleStep(_Replayed):
     Gamma variates take mdot from the body and are the cycle's last draw,
     so they are drawn after it, from ``eta_generator``, and normalised into
     the static β.  ``V`` is the true vocabulary size; ``D_total`` divides
-    mdot (default D)."""
+    mdot (default D).  A call is the span ``hslda_cycle``."""
+
+    _layer = "hslda_cycle"
 
     def __init__(self, z_t, n_dk, n_vk, n_k, tok_v, mask, labs, eta, a, beta,
                  stirling_logs, mu: float, sigma: float, aprime: float, alpha: float,
@@ -376,13 +379,16 @@ class CycleStep(_Replayed):
         opt = int(opt)
         noise = noise or CycleNoise()
         eta_gen = generator if eta_generator is None else eta_generator
-        if opt not in self._M:
-            sparse2 = opt == 2 and self._pos[0] is not None
-            self._M[opt] = torch.empty(self.a.shape[:2] + (_m_width(self._st, opt, sparse2),),
-                                       dtype=torch.float32, device=self.a.device)
-        self.fill(generator, eta_gen, noise)
-        self._run(opt, lambda: self._body(opt))
-        self.params[2].copy_(beta_block(self._v(self.mdot), self.aprime, noise.beta, eta_gen))
+        with annotate(self._layer):
+            if opt not in self._M:
+                sparse2 = opt == 2 and self._pos[0] is not None
+                self._M[opt] = torch.empty(
+                    self.a.shape[:2] + (_m_width(self._st, opt, sparse2),),
+                    dtype=torch.float32, device=self.a.device)
+            self.fill(generator, eta_gen, noise)
+            self._run(opt, lambda: self._body(opt))
+            self.params[2].copy_(beta_block(self._v(self.mdot), self.aprime, noise.beta,
+                                            eta_gen))
 
 
 def _test_init(tv, mF, init_phi, init_uniforms):
@@ -414,18 +420,20 @@ def _test_loop(tok_v, mask, init_phi, sweep_phi, alpha_beta, it: int, thinning: 
     are the draws; without them they come from ``generator``."""
     D, N = tok_v.shape
     device = tok_v.device
-    n_d = torch.clamp(mask.sum(dim=1), min=1).to(torch.float32)
-    if init_uniforms is None:
-        init_uniforms = torch.rand((N, D), generator=generator, device=device)
-    z, n_dk = _test_init(tok_v.long(), mask.to(torch.float32), init_phi, init_uniforms)
-    sweep = FoldinSweep(z, n_dk, tok_v, mask, sweep_phi, alpha_beta)
-    avg = torch.zeros_like(n_dk)
-    s = 0
-    for i in range(int(it)):
-        sweep(generator, uniforms=None if sweep_uniforms is None else sweep_uniforms[i])
-        if (i + 1) % int(thinning) == 0:
-            s += 1
-            avg = running_average(avg, n_dk / n_d[:, None], s)
+    with annotate("foldin.init"):
+        n_d = torch.clamp(mask.sum(dim=1), min=1).to(torch.float32)
+        if init_uniforms is None:
+            init_uniforms = torch.rand((N, D), generator=generator, device=device)
+        z, n_dk = _test_init(tok_v.long(), mask.to(torch.float32), init_phi, init_uniforms)
+    with annotate("foldin.sweeps"):
+        sweep = FoldinSweep(z, n_dk, tok_v, mask, sweep_phi, alpha_beta)
+        avg = torch.zeros_like(n_dk)
+        s = 0
+        for i in range(int(it)):
+            sweep(generator, uniforms=None if sweep_uniforms is None else sweep_uniforms[i])
+            if (i + 1) % int(thinning) == 0:
+                s += 1
+                avg = running_average(avg, n_dk / n_d[:, None], s)
     return avg
 
 
@@ -697,15 +705,18 @@ class HSLDA:
         :func:`~..ops.sampling.norm_cdf`, precise in the left tail as the
         reference's float64 ``norm.cdf`` is; the JAX package's ½(1 + erf)
         in float32 ties the scores of labels far below ξ."""
-        tok_v, mask = self._encode_test(newdocs)
-        ph = self.ph if self.ph is not None else self.get_ph()
-        init_phi = self._t(np.ascontiguousarray(ph.T), torch.float32)  # (V, K)
-        sweep = self._n_vk.cpu().numpy().astype(np.float64) + self.gamma  # (V, K)
-        sweep = sweep / sweep.sum(axis=0, keepdims=True)
-        sweep_phi = self._t(sweep, torch.float32)
+        with annotate("predict.prepare"):
+            tok_v, mask = self._encode_test(newdocs)
+            ph = self.ph if self.ph is not None else self.get_ph()
+            init_phi = self._t(np.ascontiguousarray(ph.T), torch.float32)  # (V, K)
+            sweep = self._n_vk.cpu().numpy().astype(np.float64) + self.gamma  # (V, K)
+            sweep = sweep / sweep.sum(axis=0, keepdims=True)
+            sweep_phi = self._t(sweep, torch.float32)
         zbar = _test_loop(tok_v, mask, init_phi, sweep_phi, self.alpha * self.beta,
                           it=int(it), thinning=int(s), generator=self._gen)
-        return chain_scores(zbar.cpu().numpy()[None], self.eta.cpu().numpy()[None], self.xi)
+        with annotate("predict.scores"):
+            return chain_scores(zbar.cpu().numpy()[None], self.eta.cpu().numpy()[None],
+                                self.xi)
 
     def run_test(self, newdoc, it: int = 250, s: int = 25) -> np.ndarray:
         return self.run_tests([newdoc], it=it, s=s)[0]
@@ -718,4 +729,5 @@ class HSLDA:
         return [[self.v_to_w[int(v)] for v in top] for top in top_v]
 
     def label_predictions(self, probs: np.ndarray):
-        return sorted(zip(probs.tolist(), self.lablist))[::-1]
+        with annotate("predict.rank"):
+            return sorted(zip(probs.tolist(), self.lablist))[::-1]

@@ -65,6 +65,7 @@ from ..ops.gibbs_fused import (
     select_merge_block,
     theta_from_fused,
 )
+from ..utils.tracing import annotate
 from .state import phi_from_counts, running_average, theta_from_counts
 
 __all__ = ["LabeledLDA", "fold_in_test", "check_merge_block", "fused_blocks", "exact_sweeps"]
@@ -159,17 +160,19 @@ def fold_in_test(phi: torch.Tensor, tok_v: torch.Tensor, tok_f: torch.Tensor,
     ``foldin_sweep``.
     """
     D, U = tok_v.shape
-    u = torch.rand((U, D), generator=generator, device=phi.device)
-    z, n_dk = _fold_in_init(phi, tok_v, tok_f, topic_mask, u)
-    sweep = FoldinSweep(z, n_dk, tok_v, tok_f, phi, alpha)
-    avg = torch.zeros_like(n_dk)
-    s = 0
-    for i in range(int(it)):
-        sweep(generator)
-        if (i + 1) % int(thinning) == 0:
-            s += 1
-            cur = n_dk / torch.clamp(n_dk.sum(dim=1, keepdim=True), min=1.0)
-            avg = running_average(avg, cur, s)
+    with annotate("foldin.init"):
+        u = torch.rand((U, D), generator=generator, device=phi.device)
+        z, n_dk = _fold_in_init(phi, tok_v, tok_f, topic_mask, u)
+    with annotate("foldin.sweeps"):
+        sweep = FoldinSweep(z, n_dk, tok_v, tok_f, phi, alpha)
+        avg = torch.zeros_like(n_dk)
+        s = 0
+        for i in range(int(it)):
+            sweep(generator)
+            if (i + 1) % int(thinning) == 0:
+                s += 1
+                cur = n_dk / torch.clamp(n_dk.sum(dim=1, keepdim=True), min=1.0)
+                avg = running_average(avg, cur, s)
     return avg
 
 
@@ -387,12 +390,14 @@ class LabeledLDA:
         sweeps, averaging the normalised doc-topic counts at multiples of
         ``thinning``; trailing sweeps run unsaved, as in the reference.
         """
-        bows = [self.dicti.doc2bow(doc) for doc in newdocs]
-        tv_np, tf_np = encode_bow_types(bows)
-        avg = fold_in_test(self.ph_hat, self._t(tv_np, torch.int64),
-                           self._t(tf_np, torch.int64), self.topic_mask, self.alpha,
-                           it, thinning, self._gen)
-        return avg[:, : self.K].cpu().numpy()
+        with annotate("predict.prepare"):
+            bows = [self.dicti.doc2bow(doc) for doc in newdocs]
+            tv_np, tf_np = encode_bow_types(bows)
+            tv, tf = self._t(tv_np, torch.int64), self._t(tf_np, torch.int64)
+        avg = fold_in_test(self.ph_hat, tv, tf, self.topic_mask, self.alpha, it, thinning,
+                           self._gen)
+        with annotate("predict.scores"):
+            return avg[:, : self.K].cpu().numpy()
 
     # ------------------------------------------------------------ estimators
 
@@ -416,7 +421,8 @@ class LabeledLDA:
         return list(zip(labels[top], single_th[top]))
 
     def get_preds(self, all_th: np.ndarray, n: int = 5):
-        return [self.get_pred(all_th[d], n) for d in range(all_th.shape[0])]
+        with annotate("predict.rank"):
+            return [self.get_pred(all_th[d], n) for d in range(all_th.shape[0])]
 
     def topwords_per_topic(self, topwords: int = 10):
         ph = self.get_phi()

@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from ..models.state import AverageWeights, running_average_
+from ..utils.tracing import annotate, count
 from . import draw_update_cuda as duc
 from .draw_update_cuda import Slots, commit_counts, draw_rows
 from .sampling import gumbel, gumbel_argmax, mask_to_logits
@@ -355,9 +356,15 @@ class _Replayed:
     The kernel wrappers count their launches in module counters, which a
     subclass names in ``_counters``: the launches counted while capturing
     are taken back, and each replay adds them again.  A captured graph does
-    not pickle: a pickled instance captures again."""
+    not pickle: a pickled instance captures again.
+
+    Each call's phase is a span and a counter (``utils/tracing``) named
+    ``<layer>.eager``, ``<layer>.capture`` or ``<layer>.replay``, where the
+    layer is the subclass's ``_layer``: a capturing call counts one capture
+    and one replay."""
 
     _counters: Tuple[Tuple[object, Tuple[str, ...]], ...] = ()
+    _layer: str  # each subclass's span and counter prefix
 
     def __init__(self, device):
         self._device = torch.device(device)
@@ -386,19 +393,26 @@ class _Replayed:
 
     def _run(self, key=None, body=None) -> None:
         body = self._sweep if body is None else body
+        layer = self._layer
         seen = self._key_calls.get(key, 0)
         if not self._graphed or seen == 0:
-            body()
+            with annotate(f"{layer}.eager"):
+                body()
+            count(f"{layer}.eager")
         else:
             if key not in self._graphs:
                 before = self._read_counters()
-                graph = capture_graph(body, self._device)
+                with annotate(f"{layer}.capture"):
+                    graph = capture_graph(body, self._device)
+                count(f"{layer}.capture")
                 added = [n - b for n, b in zip(self._read_counters(), before)]
                 self._write_counters(before)
                 self._graphs[key] = (graph, added)
             graph, added = self._graphs[key]
-            graph.replay()
-            self._write_counters([n + a for n, a in zip(self._read_counters(), added)])
+            with annotate(f"{layer}.replay"):
+                graph.replay()
+                self._write_counters([n + a for n, a in zip(self._read_counters(), added)])
+            count(f"{layer}.replay")
         self._key_calls[key] = seen + 1
         self.calls += 1
 
@@ -468,6 +482,7 @@ class ExactSweep(_Replayed):
     them, or uniforms ``(L, U, D)``.
     """
 
+    _layer = "exact_sweep"
     _counters = ((duc, ("launches", "commit_launches")),)
 
     def __init__(self, z_t, n_dk, n_vk, n_k, tok_v_t, tok_f_t, labs, alpha: float,
@@ -621,6 +636,8 @@ class CompactSweep(_Replayed):
     (:class:`_Replayed`: on a card one replayed CUDA graph per sweep from
     the second call on), so each call has the eager sweep's bits."""
 
+    _layer = "compact_sweep"
+
     def __init__(self, z_t, n_dk, n_vk, n_k, tok_v_t, tok_f_t, lab_ids, lab_valid,
                  alpha: float, beta: float, vbeta: float):
         super().__init__(tok_v_t.device)
@@ -696,8 +713,11 @@ class SaveStep(_Replayed):
     graph per value of "perplexity on" on a card, replayed with each save's
     weights; on the CPU it runs eagerly.  The means escape as the runner's
     own tensors: a reader that keeps them past the next save clones them.
-    Means set from elsewhere are taken in by :meth:`load`.
+    Means set from elsewhere are taken in by :meth:`load`.  A call is the
+    span ``save_step``.
     """
+
+    _layer = "save_step"
 
     def __init__(self, ph_hat: torch.Tensor, th_hat: Sequence[torch.Tensor]):
         super().__init__(ph_hat.device)
@@ -731,8 +751,9 @@ class SaveStep(_Replayed):
     def __call__(self, s: int, estimates, perplexity=None) -> Optional[torch.Tensor]:
         """Save ``s`` (1-based); returns the static perplexity scalar where
         ``perplexity`` is given, else ``None``."""
-        self.w.set(s)
-        self._run(perplexity is not None, lambda: self._body(estimates, perplexity))
+        with annotate(self._layer):
+            self.w.set(s)
+            self._run(perplexity is not None, lambda: self._body(estimates, perplexity))
         return None if perplexity is None else self.perplexity
 
 
@@ -845,8 +866,10 @@ class FoldinSweep(_Replayed):
     (``torch.rand(..., out=)``) or from the given ``uniforms``, then sweeps
     (:class:`_Replayed`: replayed as one CUDA graph on a card from the
     second call on).  A state of C chains' documents side by side is a
-    taller D: one graph for all chains.
+    taller D: one graph for all chains.  A call is the span ``foldin_sweep``.
     """
+
+    _layer = "foldin_sweep"
 
     def __init__(self, z, n_dk, tok_v, tok_f, phi, alpha):
         super().__init__(n_dk.device)
@@ -866,11 +889,12 @@ class FoldinSweep(_Replayed):
                  uniforms: Optional[torch.Tensor] = None) -> None:
         """One sweep of the state, with these uniforms ``(U, D)`` or the
         generator's."""
-        if uniforms is None:
-            torch.rand(tuple(self.u.shape), generator=generator, out=self.u)
-        else:
-            self.u.copy_(uniforms)
-        self._run()
+        with annotate(self._layer):
+            if uniforms is None:
+                torch.rand(tuple(self.u.shape), generator=generator, out=self.u)
+            else:
+                self.u.copy_(uniforms)
+            self._run()
 
 
 def _cascade_init(tv, ff, phi_vk, ids, lab_mask, mask_logits, beta, init_gumbels,
@@ -946,6 +970,8 @@ class CascadeSweep(_Replayed):
     ``gumbels``; then sweeps (:class:`_Replayed`).  ``phi_vk`` is read in
     place and must not change while the instance is used.
     """
+
+    _layer = "cascade_sweep"
 
     def __init__(self, z, n_dk, tok_v, tok_f, phi_vk, lab_ids, lab_mask, alpha: float,
                  beta: float):
@@ -1054,6 +1080,8 @@ class LogLikelihood(_Replayed):
     second call on), in :func:`log_likelihood`'s order, so the result has
     its bits.  Returns ``(ll, n)`` as it does.
     """
+
+    _layer = "log_likelihood"
 
     def __init__(self, tok_v, tok_f):
         super().__init__(tok_v.device)

@@ -40,6 +40,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from ..utils.tracing import annotate
 from . import fused_block_cuda as fbc
 from .fused_block_cuda import fused_block
 from .gibbs import (
@@ -337,9 +338,11 @@ class FusedBlocks(_StaticState, _Replayed):
     kernel 1's launches inside it; the replay adds them to the wrappers'
     counters.  Nothing outside the runner may keep the body's outputs: they
     live in the graph's pool.  A state set from elsewhere is taken in by
-    :meth:`load` (``holds``/``load``: ``ops/gibbs._StaticState``).
+    :meth:`load` (``holds``/``load``: ``ops/gibbs._StaticState``).  A call
+    is the span ``merge_block``.
     """
 
+    _layer = "merge_block"
     _counters = ((fbc, ("launches", "warp_launches", "wide_launches", "general_launches")),)
 
     def __init__(self, state: FusedBucketState, toks_v_t, toks_f_t, lab_ids_t, lab_valid_tt,
@@ -364,15 +367,16 @@ class FusedBlocks(_StaticState, _Replayed):
         ``generator``: a ``torch.Generator``, or one per chain; or
         ``uniforms`` per bucket."""
         M = int(M)
-        u = self._u.get(M)
-        if u is None:
-            lead = tuple(self.state.n_vk.shape[:-2])
-            u = self._u[M] = tuple(
-                torch.empty(lead + (M, *tv.shape), dtype=torch.float32, device=tv.device)
-                for tv in self._inputs[0])
-        for g, ug in enumerate(u):
-            fill_uniforms(ug, generator, None if uniforms is None else uniforms[g])
-        self._run(M, lambda: self._body(u))
+        with annotate(self._layer):
+            u = self._u.get(M)
+            if u is None:
+                lead = tuple(self.state.n_vk.shape[:-2])
+                u = self._u[M] = tuple(
+                    torch.empty(lead + (M, *tv.shape), dtype=torch.float32, device=tv.device)
+                    for tv in self._inputs[0])
+            for g, ug in enumerate(u):
+                fill_uniforms(ug, generator, None if uniforms is None else uniforms[g])
+            self._run(M, lambda: self._body(u))
         return self.state
 
     def __getstate__(self):

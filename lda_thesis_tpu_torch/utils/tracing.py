@@ -6,7 +6,9 @@ Counterpart of ``lda_thesis_tpu/utils/tracing.py``:
   activity, and CUDA where a card is visible) writing a TensorBoard-loadable
   Chrome trace (``*.pt.trace.json``: host ops, kernel launches and device
   kernels) into a directory;
-* :func:`annotate` — named ``record_function`` scopes for host-side phases;
+* :func:`annotate` — the program's spans: a named ``record_function``
+  scope ``lda/<name>`` while a profiler runs, nothing otherwise;
+* :func:`count` / :func:`counts` — the program's counters, always on;
 * :class:`Progress` — rate/ETA progress reporting for long Gibbs runs
   (tokens/s, sweeps/s) without per-iteration host syncs.
 """
@@ -15,12 +17,17 @@ from __future__ import annotations
 
 import contextlib
 import time
-from typing import Iterator
+from typing import ContextManager, Dict, Iterator
 
 import torch
+from torch._C._autograd import _profiler_enabled
 from torch.profiler import ProfilerActivity, profile, record_function, tensorboard_trace_handler
 
-__all__ = ["trace", "annotate", "Progress"]
+__all__ = ["trace", "annotate", "count", "counts", "PREFIX", "Progress"]
+
+PREFIX = "lda/"  # the profiler name of every span of the program
+_NULL = contextlib.nullcontext()
+_COUNTS: Dict[str, int] = {}
 
 
 @contextlib.contextmanager
@@ -37,11 +44,37 @@ def trace(log_dir: str) -> Iterator[None]:
         yield
 
 
-@contextlib.contextmanager
-def annotate(name: str) -> Iterator[None]:
-    """Named host-side scope that shows up on the profiler timeline."""
-    with record_function(name):
-        yield
+def annotate(name: str) -> ContextManager[None]:
+    """The span ``name``: a host-side scope named ``lda/<name>`` on the
+    profiler's timeline while a profiler runs (:func:`trace`, or any
+    ``torch.profiler.profile``), so that each device record and idle gap
+    falls inside the program phase that issued it.  Spans nest by
+    containment on one thread.  With no profiler running it is one shared
+    null context: the cost is a flag test, where a bare ``record_function``
+    costs some microseconds even then.
+
+    The spans: ``<layer>`` around a call of each measured replay runner
+    (``merge_block``, ``save_step``, ``hslda_cycle``, ``foldin_sweep``),
+    ``<layer>.eager`` / ``.capture`` / ``.replay`` around the phase a
+    runner's call takes (``ops/gibbs._Replayed``), and a prediction
+    request's steps ``predict.prepare``, ``foldin.init``,
+    ``foldin.sweeps``, ``predict.scores`` and ``predict.rank``."""
+    if not _profiler_enabled():
+        return _NULL
+    return record_function(PREFIX + name)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the process's counter ``name``: one per phase of each
+    replay runner's call, ``<layer>.eager`` / ``.capture`` / ``.replay``
+    (a capturing call counts a capture and a replay)."""
+    _COUNTS[name] = _COUNTS.get(name, 0) + n
+
+
+def counts() -> Dict[str, int]:
+    """A copy of the process's counters; the counts of a stretch of work
+    are the difference of two copies."""
+    return dict(_COUNTS)
 
 
 class Progress:

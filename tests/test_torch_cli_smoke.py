@@ -47,14 +47,17 @@ def test_labeled_lda_cli(corpus_csv, capsys, sweep):
 
 def test_labeled_lda_cli_progress_and_trace(corpus_csv, capsys, tmp_path):
     trace_dir = str(tmp_path / "trace")
-    _run(corpus_csv, "--checkpoint", str(tmp_path / "ck"), "--save-every", "2",
-         "--progress", "--trace", trace_dir)
+    res = _run(corpus_csv, "--checkpoint", str(tmp_path / "ck"), "--save-every", "2",
+               "--progress", "--trace", trace_dir)
     out, aucs = _capture(capsys)
     assert len(aucs) == 1
     assert "tokens/s" in out and "[4/4]" in out
     assert "device profile written" in out
     found = [f for _, _, fs in os.walk(trace_dir) for f in fs]
     assert any(f.endswith(".pt.trace.json") for f in found), found
+    counts = res["stats"]["counts"]  # the CPU runs every runner call eagerly
+    assert counts["foldin_sweep.eager"] == 4 and counts["merge_block.eager"] >= 1
+    assert not any(k.endswith((".capture", ".replay")) for k in counts), counts
 
 
 def test_labeled_lda_cli_max_restarts(corpus_csv, capsys, tmp_path):
