@@ -10,7 +10,8 @@ made from ``--seed``.  Phases:
 1. environment: torch, CUDA, the card's name and power limit;
 2. kernel builds, one ``nvcc`` per source, all started together; the
    registers and spills ptxas reports for each of the warp route's
-   instantiations and for the wide route's kernel, none of which may spill;
+   instantiations and for the wide route's kernel, none of which may spill,
+   and for each instantiation of the fold-in kernel (``foldin_ptxas``);
 3. the merge-block kernel against ``fused_block_torch`` at every bucket of
    the fused path's first merge block (A = 24, M = 25) and at the edge
    cases (``edge_cases``: the staged, warp, wide and general routes' slot
@@ -164,6 +165,10 @@ made from ``--seed``.  Phases:
     saves' estimates (``loglik_case``); a ``run_test`` after more training
     against an eager fold-in with the new φ̂; each graph's node count and
     the device ms per sweep of eager sweeps, graphed calls and replays;
+    since the fold-in kernel (``ops/csrc/foldin.cu``) a fold-in sweep's
+    graph is one node, and each fold-in's kernel time per sweep beside its
+    bound and its plain body's, eager and replayed as a graph
+    (``foldin_kernel_case``);
 16. the training loops as replayed CUDA graphs, at full width, the saves
     (``ops/gibbs.SaveStep``) replayed too: three merge blocks of
     ``FusedBlocks`` on each route of kernel 1 (staged, warp, wide and
@@ -222,6 +227,9 @@ KERNEL2 = "draw_update_kernel"  # the CUDA kernels' names, as the profiler shows
 COMMIT = "count_commit_kernel"
 # the commit kernel takes in the reference's table and topic-total scatters
 COMMIT_REPLACES = "lda_thesis_tpu/ops/gibbs.py:178-187 (XLA scatter-adds, no TPU kernel)"
+FOLDIN_SOURCE = "lda_thesis_tpu_torch/ops/csrc/foldin.cu"
+FOLDIN_REPLACES = ("none: lda_thesis_tpu/ops/gibbs.py foldin_sweep is a lax.scan of XLA "
+                   "ops; the kernel replaces the port's CUDA graph of them")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12  # H100 SXM data sheet, fp32 outside the tensor cores
 OPS_PER_SLOT_DRAW = 12  # fp32 operations per (slot, position, sweep)
@@ -369,6 +377,29 @@ def route_ptxas(log: str) -> dict:
                 entry["spill_stores"] = int(spill.group(1))
             if regs:
                 entry["registers"] = int(regs.group(1))
+    return out
+
+
+def foldin_ptxas(log: str) -> dict:
+    """ptxas -v's report on each instantiation of the fold-in kernel:
+    {"R<rows>/LS<ls>" or "wide/LS<ls>": {"registers": n, "spill_stores":
+    bytes, "stack_frame": bytes}}."""
+    out, entry = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(r"foldin_kernelILi(\d+)ELi(\d+)E|foldin_wide_kernelILi(\d+)E", line)
+            entry = None
+            if m:
+                entry = dict(registers=None, spill_stores=None, stack_frame=None)
+                key = f"R{m.group(1)}/LS{m.group(2)}" if m.group(1) else f"wide/LS{m.group(3)}"
+                out[key] = entry
+        elif entry is not None:
+            for name, pat in (("spill_stores", r"(\d+) bytes spill stores"),
+                              ("registers", r"Used (\d+) registers"),
+                              ("stack_frame", r"(\d+) bytes stack frame")):
+                m = re.search(pat, line)
+                if m:
+                    entry[name] = int(m.group(1))
     return out
 
 
@@ -3736,6 +3767,74 @@ def foldin_sweeps_case(z, n_dk, tok_v, tok_f, phi, alpha, seed: int, norm,
     return run, lambda: foldin_sweep(z, n_dk, tok_v, tok_f, phi, alpha, generator=gens[1])
 
 
+FOLDIN_TIMED = 20  # fold-in sweeps per graph timed by _graph_ms
+
+
+def foldin_bound(tv, tf, K: int) -> tuple:
+    """The least time one fold-in sweep could take on an H100 (3.35 TB/s,
+    67 TFLOP/s float32): bytes are each input read once and each output
+    written once (z and n_dk read and written; the words, frequencies and
+    uniforms; the φ rows of the distinct words at live positions), and
+    operations 4·K + 1 a live position (n + α, the product, the scan's add
+    and the comparison a topic; the threshold).  Returns (ms, "bytes" or
+    "operations", live positions, most live positions of a document)."""
+    import torch
+
+    live = tf > 0
+    D, U = tv.shape
+    words = int(torch.unique(tv[live]).numel())
+    nbytes = D * U * (4 + 4 + 8 + 4 + 4) + D * K * 4 * 2 + words * K * 4
+    n_live = int(live.sum())
+    ops = n_live * (4 * K + 1)
+    by_bytes, by_ops = nbytes / 3.35e12, ops / 67e12
+    return (max(by_bytes, by_ops) * 1e3, "bytes" if by_bytes >= by_ops else "operations",
+            n_live, int(live.sum(dim=1).max()))
+
+
+def foldin_kernel_case(z, n_dk, tok_v, tok_f, phi, alpha, seed: int) -> dict:
+    """The fold-in kernel at one fold-in's inputs: device ms per sweep
+    (``_graph_ms`` over ``FOLDIN_TIMED`` launches, the state advancing) and
+    ns per live position of the longest document (the warp's serial chain);
+    its bound (``foldin_bound``); the plain body's device ms per sweep,
+    eager and replayed as one CUDA graph (the port's fold-in before the
+    kernel); one kernel sweep against one plain sweep from the same state
+    and uniforms, bitwise."""
+    import torch
+
+    from lda_thesis_tpu_torch.ops import foldin_cuda as fic
+    from lda_thesis_tpu_torch.ops.gibbs import _foldin_positions
+
+    D, U = tok_v.shape
+    K = n_dk.shape[1]
+    tv, ff = tok_v.long().contiguous(), tok_f.to(torch.float32).contiguous()
+    phi = phi.contiguous()
+    g = torch.Generator(device=z.device)
+    g.manual_seed(seed)
+    u = torch.rand((U, D), generator=g, device=z.device)
+    got, want = [(z.clone(), n_dk.clone()) for _ in range(2)]
+    fic.foldin_positions(*got, tv, ff, phi, alpha, u)
+    _foldin_positions(*want, tv, ff, phi, alpha, u)
+    _check(_bitwise(got, want), f"fold-in kernel == plain sweep at D={D}, U={U}, K={K}, "
+                                f"bitwise")
+    state = (z.clone(), n_dk.clone())
+    ms = _graph_ms(lambda: fic.foldin_positions(*state, tv, ff, phi, alpha, u), FOLDIN_TIMED)
+    plain_graph_ms = _graph_ms(lambda: _foldin_positions(*state, tv, ff, phi, alpha, u), 1)
+    plain_ms = _batch_ms(lambda: _foldin_positions(*state, tv, ff, phi, alpha, u), 3)
+    bound_ms, bound_by, n_live, longest = foldin_bound(tv, ff, K)
+    return dict(shape=f"D={D}, U={U}, K={K}, lx={fic.scan_log_width(D, K)}", ms=ms,
+                plain_ms=plain_ms, plain_graph_ms=plain_graph_ms, bound_ms=bound_ms,
+                bound_by=bound_by, live_positions=n_live, longest_document=longest,
+                ns_per_position=ms * 1e6 / max(longest, 1))
+
+
+def _print_foldin_kernel(name: str, t: dict) -> None:
+    print(f"fold-in kernel, {name} ({t['shape']}): kernel == plain sweep bitwise; "
+          f"{t['ms']:.4f} ms per sweep ({t['ns_per_position']:.0f} ns per position of the "
+          f"longest document, {t['longest_document']} live), bound {t['bound_ms']:.4f} ms "
+          f"({t['bound_by']}, {t['live_positions']} live positions); plain body "
+          f"{t['plain_ms']:.4f} ms eager, {t['plain_graph_ms']:.4f} ms as a graph")
+
+
 def cascade_sweeps_case(tok_v, tok_f, phi_vk, lab_ids, lab_mask, alpha: float, beta: float,
                         seed: int, sweeps: int = LOOP_SWEEPS):
     """``sweeps`` cascade sweeps from one init and one seed, through
@@ -3832,6 +3931,7 @@ def compiled_loops_phase(seed: int, corpus, dicti, cascade_model, jel) -> dict:
     from lda_thesis_tpu_torch.models import cascade_lda, hslda, labeled_lda
     from lda_thesis_tpu_torch.models.hslda import HSLDA, _test_init
     from lda_thesis_tpu_torch.models.labeled_lda import LabeledLDA, _fold_in_init
+    from lda_thesis_tpu_torch.ops import foldin_cuda as fic
 
     rec = {"card": _card_line()}
     it, thinning = LOOP_TEST
@@ -3840,10 +3940,15 @@ def compiled_loops_phase(seed: int, corpus, dicti, cascade_model, jel) -> dict:
     model = LabeledLDA(corpus.train_docs, corpus.train_labs, corpus.labelset, dicti,
                        alpha=0.1, beta=0.01, seed=seed, device=DEVICE)
     model.run_training(TRAIN_ITERS, THINNING, total_iters=TOTAL_ITERS)
+    before = fic.launches
     with _recording(labeled_lda, "fold_in_test") as calls:
         first = model.run_test(corpus.test_docs, it, thinning)
         model.run_training(TRAIN_ITERS, THINNING, total_iters=TOTAL_ITERS)
         second = model.run_test(corpus.test_docs, it, thinning)
+    rec["foldin_launches"] = fic.launches - before
+    _check(rec["foldin_launches"] == 2 * it,
+           f"two run_test calls at it = {it}: one fold-in kernel launch a sweep "
+           f"({rec['foldin_launches']})")
     loop_s = [_same_as_eager(eager_fold_in, call, f"Labeled-LDA fold-in, run_test {n + 1}")
               for n, call in enumerate(calls)]
     _check(torch.equal(calls[1][0][0], model.ph_hat)
@@ -3861,6 +3966,8 @@ def compiled_loops_phase(seed: int, corpus, dicti, cascade_model, jel) -> dict:
     t = _loop_timing(run, eager, lambda: run(g), U)
     shape = f"D={D}, U={U}, Kp={phi.shape[1]}"
     _print_loop("Labeled-LDA fold-in", shape, t)
+    rec["labeled_foldin_kernel"] = foldin_kernel_case(z, n_dk, tv, tf, phi, alpha, seed)
+    _print_foldin_kernel("Labeled-LDA fold-in", rec["labeled_foldin_kernel"])
     print(f"  run_test after {TRAIN_ITERS} more sweeps folds in against the new φ̂: equal to "
           f"a fresh eager fold-in, bitwise, and unlike the first run_test; {_loop_line(loop_s)}")
     rec["labeled_foldin"] = dict(t, shape=shape, stale_phi_check=True, loop_s=loop_s)
@@ -3903,6 +4010,9 @@ def compiled_loops_phase(seed: int, corpus, dicti, cascade_model, jel) -> dict:
         t = _loop_timing(run, eager, lambda: run(g), N)
         shape = f"C={C}, rows C*D={D}, N={N}, K={init_phi.shape[1]}, alpha*beta {tuple(ab.shape)}"
         _print_loop("HSLDA fold-in", shape, t)
+        rec[f"hslda_foldin_kernel_c{C}"] = foldin_kernel_case(z, n_dk, tv, mask, sweep_phi, ab,
+                                                              seed)
+        _print_foldin_kernel(f"HSLDA fold-in, C={C}", rec[f"hslda_foldin_kernel_c{C}"])
         print(f"  {_loop_line(loop_s)}")
         rec[f"hslda_foldin_c{C}"] = dict(t, shape=shape, loop_s=loop_s)
         del m, run, eager
@@ -4953,9 +5063,11 @@ def main(argv=None) -> int:
     from lda_thesis_tpu_torch.data.vocab import prune_dict
     from lda_thesis_tpu_torch.models.labeled_lda import LabeledLDA
     from lda_thesis_tpu_torch.ops import draw_update_cuda as duc
+    from lda_thesis_tpu_torch.ops import foldin_cuda as fic
     from lda_thesis_tpu_torch.ops import fused_block_cuda as fbc
 
     ptxas = {"warp": {}, "wide": {}}  # filled by a build in this run
+    fold_ptxas = {}
     seconds = {}
     clock = [time.perf_counter()]
 
@@ -4977,9 +5089,10 @@ def main(argv=None) -> int:
     phase_done("environment")
 
     # 2. kernel builds: one nvcc per source, started together
-    with ThreadPoolExecutor(max_workers=2) as pool:
+    with ThreadPoolExecutor(max_workers=3) as pool:
         builds = {name: pool.submit(mod.build)
-                  for name, mod in (("fused_block", fbc), ("draw_update", duc))}
+                  for name, mod in (("fused_block", fbc), ("draw_update", duc),
+                                    ("foldin", fic))}
         for name, fut in builds.items():
             _, secs, log = fut.result()
             print(f"kernel build {name}: {secs:.2f} s")
@@ -4996,6 +5109,13 @@ def main(argv=None) -> int:
                        f"build with no spill stores ({ptxas})")
                 print(f"warp route, ptxas by rows S: {json.dumps(warp)}; wide route: "
                       f"{json.dumps(ptxas['wide'])}")
+            if name == "foldin" and log:
+                fold = fold_ptxas = foldin_ptxas(log)
+                print(f"fold-in kernel, ptxas by instantiation: {json.dumps(fold)}")
+                _check(len(fold) == 27 and all(v["spill_stores"] == 0 for k, v in fold.items()
+                                               if k.startswith("R")),
+                       f"the fold-in kernel's 27 instantiations build, the register route's "
+                       f"21 with no spill stores ({fold})")
     phase_done("build")
 
     # 3. merge-block kernel against its plain version
@@ -5201,6 +5321,29 @@ def main(argv=None) -> int:
         "launches_multi_device_dense": md["dense"]["commit_launches"],
         "launches_multi_device_dense_cli_n_chains_8":
             md["cli"]["dense_n_chains_commit_launches"],
+    }, {
+        "name": "foldin",
+        "route": "cuda",
+        "source": FOLDIN_SOURCE,
+        "replaces": FOLDIN_REPLACES,
+        "launches": loops["foldin_launches"],
+        "bitwise_equal": True,
+        "max_abs_err": 0.0,
+        "ms": loops["labeled_foldin_kernel"]["ms"],
+        "plain_ms": loops["labeled_foldin_kernel"]["plain_ms"],
+        "bound_ms": loops["labeled_foldin_kernel"]["bound_ms"],
+        "bound_by": loops["labeled_foldin_kernel"]["bound_by"],
+        "library_ms": None,
+        "per": "sweep, the Labeled-LDA fold-in of phase 15 (D = 464, U = 128, Kp = 512); ms "
+               "is device time (CUDA events around replays of a graph of 20 launches), "
+               "plain_ms the plain body's sweep run eagerly, plain_graph_ms replayed as one "
+               "graph (the port's fold-in before the kernel); hslda the HSLDA fold-in at "
+               "C = 1 and 8",
+        "plain_graph_ms": loops["labeled_foldin_kernel"]["plain_graph_ms"],
+        "labeled": loops["labeled_foldin_kernel"],
+        "hslda_c1": loops["hslda_foldin_kernel_c1"],
+        "hslda_c8": loops["hslda_foldin_kernel_c8"],
+        "ptxas": fold_ptxas,
     }]
     print(json.dumps({"phase_seconds": seconds}))
     print(json.dumps({"vi": vi}))

@@ -7,9 +7,10 @@ per sweep state by :class:`ExactSweep`; compact in plain PyTorch, replayed
 the same way by :class:`CompactSweep`) and their bucket variants, the
 compact → dense doc-topic helpers, the frozen-φ fold-in sweep, CascadeLDA's
 batched node-level fold-in and the training log-likelihood.  The last three
-are JAX scans that a model runs again and again: :class:`FoldinSweep`,
-:class:`CascadeSweep` and :class:`LogLikelihood` replay each as one CUDA
-graph per sweep (or sum) on a card, with the bits of the eager function.
+are JAX scans that a model runs again and again: :class:`FoldinSweep`
+(one kernel launch per sweep, :mod:`.foldin_cuda`), :class:`CascadeSweep`
+and :class:`LogLikelihood` replay each as one CUDA graph per sweep (or
+sum) on a card, with the bits of the eager function.
 A training loop's exact sweeps live in :class:`ExactBuckets` (one runner
 per bucket over a static state, kept across calls) and its saves in
 :class:`SaveStep` (the estimates, the thinned means and the perplexity as
@@ -41,6 +42,7 @@ import torch
 from ..models.state import AverageWeights, running_average_
 from ..utils.tracing import annotate, count
 from . import draw_update_cuda as duc
+from . import foldin_cuda
 from .draw_update_cuda import Slots, commit_counts, draw_rows
 from .sampling import gumbel, gumbel_argmax, mask_to_logits
 
@@ -817,7 +819,9 @@ def theta_from_compact(n_dk_c, lab_ids, lab_valid, alpha: float, K: int) -> torc
 
 
 def _foldin_positions(z, n_dk, tv, ff, phi, alpha, u) -> None:
-    """:func:`foldin_sweep`'s positions, in order, on ``z``/``n_dk`` in place."""
+    """:func:`foldin_sweep`'s positions, in order, on ``z``/``n_dk`` in place:
+    the plain version of the fold-in kernel (``foldin_cuda``), which
+    repeats these ops and ``torch.cumsum``'s order on a card bit for bit."""
     for p in range(tv.shape[1]):
         f_p = ff[:, p]
         z_old = z[:, p].long()[:, None]
@@ -854,36 +858,40 @@ def foldin_sweep(
 
 
 class FoldinSweep(_Replayed):
-    """Repeated fold-in sweeps (:func:`foldin_sweep`, its ops in its order)
-    over one state ``z (D, U)`` int32 and ``n_dk (D, K)`` float32, which
-    every call updates in place.
+    """Repeated fold-in sweeps (:func:`foldin_sweep` bit for bit) over one
+    state ``z (D, U)`` int32 and ``n_dk (D, K)`` float32, which every call
+    updates in place.
 
     ``phi (V, K)`` is read in place and must not change while the instance
-    is used.  ``alpha`` is a number, or a tensor that broadcasts against
-    ``n_dk`` (HSLDA's α·β, ``(K,)`` or one row per document), copied into a
-    static buffer.  Each call fills a static ``(U, D)`` uniforms buffer
-    outside the graph, from ``generator`` as :func:`foldin_sweep` draws it
-    (``torch.rand(..., out=)``) or from the given ``uniforms``, then sweeps
-    (:class:`_Replayed`: replayed as one CUDA graph on a card from the
-    second call on).  A state of C chains' documents side by side is a
-    taller D: one graph for all chains.  A call is the span ``foldin_sweep``.
+    is used.  ``alpha`` is a number, or a float32 tensor that broadcasts
+    against ``n_dk`` (HSLDA's α·β, ``(K,)`` or one row per document),
+    copied into a static buffer.  Each call fills a static ``(U, D)``
+    uniforms buffer outside the graph, from ``generator`` as
+    :func:`foldin_sweep` draws it (``torch.rand(..., out=)``) or from the
+    given ``uniforms``, then sweeps: on a card one launch of the fold-in
+    kernel (``foldin_cuda.foldin_positions``), replayed as a one-node CUDA
+    graph from the second call on (:class:`_Replayed`); on the CPU the
+    plain :func:`_foldin_positions`.  A state of C chains' documents side by
+    side is a taller D: one launch for all chains.  A call is the span
+    ``foldin_sweep``.
     """
 
     _layer = "foldin_sweep"
+    _counters = ((foldin_cuda, ("launches",)),)
 
     def __init__(self, z, n_dk, tok_v, tok_f, phi, alpha):
         super().__init__(n_dk.device)
         D, U = tok_v.shape
         self.z, self.n_dk = z, n_dk
-        self._tv = tok_v.long()
-        self._ff = tok_f.to(torch.float32)
-        self._phi = phi
+        self._tv = tok_v.long().contiguous()
+        self._ff = tok_f.to(torch.float32).contiguous()
+        self._phi = phi.contiguous()
         self._alpha = alpha.clone() if torch.is_tensor(alpha) else alpha
         self.u = torch.empty((U, D), dtype=torch.float32, device=n_dk.device)
 
     def _sweep(self) -> None:
-        _foldin_positions(self.z, self.n_dk, self._tv, self._ff, self._phi, self._alpha,
-                          self.u)
+        foldin_cuda.foldin_positions(self.z, self.n_dk, self._tv, self._ff, self._phi,
+                                     self._alpha, self.u)
 
     def __call__(self, generator: Optional[torch.Generator] = None,
                  uniforms: Optional[torch.Tensor] = None) -> None:

@@ -10,7 +10,8 @@ perplexity) to its eager loop from the same generator state (the eager
 loops are ``chip_smoke``'s, which phase 15 holds the replays to on the
 card).  ``fold_in_test`` is also held to the JAX package's ``_test_loop``
 fed JAX's uniforms, at the tolerance of ``tests/test_torch_hslda.py``'s
-fold-in (z̄ within rtol 1e-6).
+fold-in (z̄ within rtol 1e-6).  The fold-in kernel's chunk-width rule
+(``ops/foldin_cuda.scan_log_width``) is held to torch's.
 """
 
 import pickle
@@ -31,6 +32,7 @@ from lda_thesis_tpu_torch.models import labeled_lda as tlabeled
 from lda_thesis_tpu_torch.models.labeled_lda import LabeledLDA
 from lda_thesis_tpu_torch.models.labeled_lda_vi import LabeledLDAVI
 from lda_thesis_tpu_torch.models.local_lda import LocalLDA
+from lda_thesis_tpu_torch.ops import foldin_cuda
 from lda_thesis_tpu_torch.ops import gibbs as tgibbs
 
 D, U, K, V = 24, 10, 16, 40
@@ -86,6 +88,26 @@ def test_foldin_sweep_class_equals_function(form, draws):
         assert run.z is zs and run.n_dk is ns
         assert _same(zs, z) and _same(ns, n_dk)
     assert run._graph is None and run.calls == 4  # the CPU never captures
+
+
+@pytest.mark.parametrize("rows, size, lx", [
+    (464, 512, 4),  # llda_d3.predict: chunks of 32
+    (464, 15, 4),  # hslda_jel.predict
+    (100, 512, 5),  # chunks of 64
+    (50, 1024, 6),
+    (64, 1100, 7),
+    (9000, 15, 9),  # ceil-log2 difference -10: the unsigned wrap
+    (8192, 16, 4),  # difference -9: no wrap
+    (1000, 2, 4),  # clamped from below
+    (2, 100_000, 9),  # clamped from above
+    (1, 1, 4),
+])
+def test_scan_log_width_mirrors_torch_rule(rows, size, lx):
+    """``foldin_cuda.scan_log_width`` is torch's chunk-width rule for a
+    cumsum over the innermost dim (``get_log_num_threads_x_inner_scan`` in
+    ``ATen/native/cuda/ScanUtils.cuh``, unsigned arithmetic), whose order
+    the fold-in kernel repeats."""
+    assert foldin_cuda.scan_log_width(rows, size) == lx
 
 
 def _jax_foldin_uniforms(key, it):

@@ -535,35 +535,94 @@ def test_hslda_batched_sweep_equals_single_chain_sweeps():
     assert r["equal_draws"] >= chip_smoke.MIN_EQUAL_DRAWS
 
 
-def _foldin_problem(seed, D=300, U=24, K=40, V=120):
+def _foldin_problem(seed, D=300, U=24, K=40, V=120, chains=1, alpha_form="per_row",
+                    edges=False):
     """Held-out documents (a third of the slots empty), a frozen φ and a
-    state of them, on the card."""
+    state of them, on the card.  With ``chains`` C the D rows are C chains'
+    documents side by side over stacked ``(C·V, K)`` tables, as
+    ``models/hslda.chains_test_loop`` lays them out.  α is ``per_row``
+    ``(D, K)``, ``per_topic`` ``(K,)`` or ``scalar`` (0.1).  ``edges``:
+    document 0 reads only word 0, whose φ rows are all zero (totals 0), and
+    document 1 has no live position."""
     rng = np.random.default_rng(seed)
-    tok_v = rng.integers(0, V, size=(D, U))
-    tok_f = rng.integers(1, 4, size=(D, U)) * (rng.random((D, U)) > 0.33)
-    phi = rng.dirichlet(np.ones(V), size=K).T.astype(np.float32)
+    Dc = D // chains
+    tok_v = rng.integers(0, V, size=(Dc, U))
+    tok_f = rng.integers(1, 4, size=(Dc, U)) * (rng.random((Dc, U)) > 0.33)
+    phi = np.concatenate([rng.dirichlet(np.ones(V), size=K).T.astype(np.float32)
+                          for _ in range(chains)])
+    if edges:
+        tok_v[0], tok_f[1], phi[::V] = 0, 0, 0.0
+    rows = np.repeat(np.arange(chains), Dc)
+    tok_v = np.tile(tok_v, (chains, 1)) + (V * rows)[:, None]
+    tok_f = np.tile(tok_f, (chains, 1))
     z = rng.integers(0, K, size=(D, U)).astype(np.int32)
     n_dk = np.zeros((D, K), np.float32)
     for d in range(D):
         np.add.at(n_dk[d], z[d], tok_f[d].astype(np.float32))
     alpha = (rng.random((D, K)) * 0.2 + 0.01).astype(np.float32)
-    return [torch.from_numpy(x).cuda() for x in (z, n_dk, tok_v, tok_f, phi, alpha)]
+    if alpha_form == "per_topic":
+        alpha = alpha[0]
+    out = [torch.from_numpy(x).cuda() for x in (z, n_dk, tok_v, tok_f, phi, alpha)]
+    if alpha_form == "scalar":
+        out[-1] = ALPHA
+    return out
+
+
+# (D, U, K, V, chains, α): the first two are the cases this test had; then
+# both prediction cells' shapes (llda_d3: K = 512, a number; hslda_jel:
+# K = 15, α·β per topic), HSLDA's chains over stacked tables, chunks of 64
+# topics (D = 100, K = 512), of 128 (K = 1,024) and of 256 (the kernel's
+# wide route, K = 1,100), and of 1,024 past the rule's unsigned wrap
+# (D = 9,000, K = 15); then the kernel's other register rows (K = 100, 200,
+# 1,000) and D = 2, the fewest rows torch does not scan with CUB (chunks of
+# 512 topics).
+FOLDIN_SHAPES = {
+    "scalar": (300, 24, 40, 120, 1, "scalar"),
+    "per_row": (300, 24, 40, 120, 1, "per_row"),
+    "llda_d3": (464, 128, 512, 600, 1, "scalar"),
+    "hslda_jel": (464, 200, 15, 600, 1, "per_topic"),
+    "hslda_chains4": (4 * 464, 200, 15, 300, 4, "per_row"),
+    "W64-D100-K512": (100, 40, 512, 200, 1, "per_row"),
+    "W128-D50-K1024": (50, 40, 1024, 200, 1, "scalar"),
+    "wide-W256-D64-K1100": (64, 24, 1100, 200, 1, "per_row"),
+    "W1024-D9000-K15": (9000, 24, 15, 200, 1, "per_row"),
+    "K100": (200, 30, 100, 150, 1, "per_topic"),
+    "W128-D20-K200": (20, 30, 200, 150, 1, "scalar"),
+    "K1000": (600, 20, 1000, 150, 1, "per_row"),
+    "W512-D2-K512": (2, 60, 512, 150, 1, "per_row"),
+}
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("form", ["scalar", "per_row"])
-def test_foldin_replays_equal_eager_sweeps(form):
-    """Four ``FoldinSweep`` calls (eager, capture and replay, replays)
-    against four eager ``foldin_sweep`` calls from one state and seed: z,
-    n_dk and the running average bitwise after each (chip_smoke.py's
-    phase 15 at full width); α a number or HSLDA's per-row α·β."""
+@pytest.mark.parametrize("case", list(FOLDIN_SHAPES))
+def test_foldin_replays_equal_eager_sweeps(case, monkeypatch):
+    """Four ``FoldinSweep`` calls (eager, capture and replay, replays: one
+    fold-in kernel launch each) against four eager ``foldin_sweep`` calls
+    (the plain PyTorch body) from one state and seed: z, n_dk and the
+    running average bitwise after each (chip_smoke.py's phase 15 at full
+    width), and the kernel's counter one launch up per call, none for the
+    capture itself."""
     _needs_card()
-    z, n_dk, tok_v, tok_f, phi, alpha = _foldin_problem(0)
+    from lda_thesis_tpu_torch.ops import foldin_cuda
+
+    D, U, K, V, chains, form = FOLDIN_SHAPES[case]
+    z, n_dk, tok_v, tok_f, phi, alpha = _foldin_problem(0, D, U, K, V, chains, form,
+                                                        edges=True)
+    counts = []
+    real = tgibbs.FoldinSweep.__call__
+
+    def counted(self, *a, **k):
+        before = foldin_cuda.launches
+        real(self, *a, **k)
+        counts.append(foldin_cuda.launches - before)
+
+    monkeypatch.setattr(tgibbs.FoldinSweep, "__call__", counted)
     run, _ = chip_smoke.foldin_sweeps_case(
-        z, n_dk, tok_v, tok_f, phi, ALPHA if form == "scalar" else alpha, 0,
+        z, n_dk, tok_v, tok_f, phi, alpha, 0,
         lambda x: x / torch.clamp(x.sum(dim=1, keepdim=True), min=1.0), sweeps=4)
     torch.cuda.synchronize()
     assert run._graph is not None and run.calls == 4
+    assert counts == [1, 1, 1, 1]
 
 
 @pytest.mark.cuda
