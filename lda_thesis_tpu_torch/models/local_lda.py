@@ -46,6 +46,7 @@ from ..ops.gibbs_fused import (
     select_merge_block,
     theta_from_fused,
 )
+from ..utils.tracing import annotate
 from .labeled_lda import check_merge_block, exact_sweeps, fused_blocks
 from .state import phi_from_counts, theta_from_counts
 
@@ -170,7 +171,8 @@ class LocalLDA:
         merge block matches the uninterrupted run's.  Blocks, sweeps and
         saves run through the model's kept runners (on a card, replayed CUDA
         graphs); the means start anew at every call, in the save runner's
-        static buffers, and land in ``ph_hat``/``th_hat`` on the host.
+        static buffers, and land in ``ph_hat``/``th_hat`` on the host, where
+        ``_check_ph_hat`` guards them (the span ``local_lda.land``).
         """
         iters, thinning = int(iters), int(thinning)
         if self.sweep == "fused":
@@ -200,10 +202,11 @@ class LocalLDA:
             left -= m
         if self.sweep == "dense":
             blocks.doc_major()
-        self.ph_hat = saves.ph_hat[:, : self.K].T.cpu().numpy()
-        self.th_hat = self.buckets.scatter_rows(
-            [t.cpu().numpy() for t in saves.th_hat])[:, : self.K]
-        self._check_ph_hat()
+        with annotate("local_lda.land"):
+            self.ph_hat = saves.ph_hat[:, : self.K].T.cpu().numpy()
+            self.th_hat = self.buckets.scatter_rows(
+                [t.cpu().numpy() for t in saves.th_hat])[:, : self.K]
+            self._check_ph_hat()
 
     def _check_ph_hat(self) -> None:
         """Reference runtime guards (LocalLDA.py:102-109)."""

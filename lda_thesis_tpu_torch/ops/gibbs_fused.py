@@ -36,11 +36,12 @@ JAX package runs its blocks inside one jitted program
 
 from __future__ import annotations
 
+import sys
 from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
-from ..utils.tracing import annotate
+from ..utils.tracing import annotate, count
 from . import fused_block_cuda as fbc
 from .fused_block_cuda import fused_block
 from .gibbs import (
@@ -66,6 +67,11 @@ SAMPLER_FORMULA_VERSION = 1
 # The merge-block kernel takes its document count as a C int (its offsets
 # are size_t), so one launch holds fewer than 2^31 documents.
 MAX_KERNEL_DOCS = 2**31 - 1
+
+# Number of topic-word table entries that :func:`gather_cv` has read since
+# import (or since a caller reset it), one per element gathered.
+# :class:`FusedBlocks` names it among its replayed counters.
+table_entries = 0
 
 __all__ = [
     "SAMPLER_FORMULA_VERSION",
@@ -136,12 +142,16 @@ def gather_cv(n_vk: torch.Tensor, tok_v_t: torch.Tensor,
     An element gather is exact, so no one-hot contraction is needed.  With
     ``n_vk (L, V, K)``: ``(L·D, U, A)``, the chains' documents side by side.
     """
+    global table_entries
     v = tok_v_t.T.long()[:, :, None]
     a = lab_ids.long()[:, None, :]
     if n_vk.dim() == 2:
-        return n_vk[v, a]
-    chain = torch.arange(n_vk.shape[0], device=n_vk.device)[:, None, None, None]
-    return n_vk[chain, v, a].flatten(0, 1)
+        cv = n_vk[v, a]
+    else:
+        chain = torch.arange(n_vk.shape[0], device=n_vk.device)[:, None, None, None]
+        cv = n_vk[chain, v, a].flatten(0, 1)
+    table_entries += cv.numel()
+    return cv
 
 
 def slot_totals(n_k: torch.Tensor, lab_ids: torch.Tensor, vbeta: float) -> torch.Tensor:
@@ -340,10 +350,18 @@ class FusedBlocks(_StaticState, _Replayed):
     live in the graph's pool.  A state set from elsewhere is taken in by
     :meth:`load` (``holds``/``load``: ``ops/gibbs._StaticState``).  A call
     is the span ``merge_block``.
+
+    A call counts ``merge_block.table_entries``, the topic-word table
+    entries that its body read (the module counter ``table_entries``, which
+    :func:`gather_cv` counts: D·U·A per bucket, the chains' documents side
+    by side), and ``merge_block.live_table_entries``, the entries of live
+    positions (f > 0) on valid slots, which a block needs whatever reads
+    them: a number of the layout, taken at construction.
     """
 
     _layer = "merge_block"
-    _counters = ((fbc, ("launches", "warp_launches", "wide_launches", "general_launches")),)
+    _counters = ((fbc, ("launches", "warp_launches", "wide_launches", "general_launches")),
+                 (sys.modules[__name__], ("table_entries",)))
 
     def __init__(self, state: FusedBucketState, toks_v_t, toks_f_t, lab_ids_t, lab_valid_tt,
                  alpha: float, beta: float, vbeta: Optional[float] = None):
@@ -353,6 +371,10 @@ class FusedBlocks(_StaticState, _Replayed):
         self._consts = (float(alpha), float(beta))
         self._vbeta = vbeta
         self._u = {}  # M -> per-bucket static uniforms
+        chains = state.n_vk.shape[0] if state.n_vk.dim() == 3 else 1
+        self._live_entries = chains * sum(
+            int(((tf > 0).sum(dim=0) * (lv > 0).sum(dim=0)).sum())
+            for tf, lv in zip(toks_f_t, lab_valid_tt))
 
     def _body(self, u) -> None:
         M = u[0].shape[-3]
@@ -367,6 +389,7 @@ class FusedBlocks(_StaticState, _Replayed):
         ``generator``: a ``torch.Generator``, or one per chain; or
         ``uniforms`` per bucket."""
         M = int(M)
+        read = table_entries
         with annotate(self._layer):
             u = self._u.get(M)
             if u is None:
@@ -377,6 +400,8 @@ class FusedBlocks(_StaticState, _Replayed):
             for g, ug in enumerate(u):
                 fill_uniforms(ug, generator, None if uniforms is None else uniforms[g])
             self._run(M, lambda: self._body(u))
+        count(f"{self._layer}.table_entries", table_entries - read)
+        count(f"{self._layer}.live_table_entries", self._live_entries)
         return self.state
 
     def __getstate__(self):

@@ -56,9 +56,11 @@ def annotate(name: str) -> ContextManager[None]:
     The spans: ``<layer>`` around a call of each measured replay runner
     (``merge_block``, ``save_step``, ``hslda_cycle``, ``foldin_sweep``),
     ``<layer>.eager`` / ``.capture`` / ``.replay`` around the phase a
-    runner's call takes (``ops/gibbs._Replayed``), and a prediction
+    runner's call takes (``ops/gibbs._Replayed``), a prediction
     request's steps ``predict.prepare``, ``foldin.init``,
-    ``foldin.sweeps``, ``predict.scores`` and ``predict.rank``."""
+    ``foldin.sweeps``, ``predict.scores`` and ``predict.rank``, and
+    LocalLDA's landing of a training call's means on the host,
+    ``local_lda.land``."""
     if not _profiler_enabled():
         return _NULL
     return record_function(PREFIX + name)
@@ -67,7 +69,10 @@ def annotate(name: str) -> ContextManager[None]:
 def count(name: str, n: int = 1) -> None:
     """Add ``n`` to the process's counter ``name``: one per phase of each
     replay runner's call, ``<layer>.eager`` / ``.capture`` / ``.replay``
-    (a capturing call counts a capture and a replay)."""
+    (a capturing call counts a capture and a replay); and a merge block's
+    topic-word table entries read, ``merge_block.table_entries``, and
+    those of live positions on valid slots,
+    ``merge_block.live_table_entries``."""
     _COUNTS[name] = _COUNTS.get(name, 0) + n
 
 

@@ -6,12 +6,16 @@ keep the process's counters.  The replay runners (``ops/gibbs._Replayed``)
 record each call's phase as ``<layer>.eager``/``.capture``/``.replay`` in
 both, the four measured runners a span ``<layer>`` around a whole call, and
 a prediction request its steps ``predict.prepare``, ``foldin.init``,
-``foldin.sweeps``, ``predict.scores`` and ``predict.rank``.  Here, on the
-CPU: no scope is entered without a profiler, a profiler changes no output
-bit, each model's request and training call record exactly their spans,
-nested as stated, and the counters count each phase; stand-in graphs take
-the card's replay rule.  The ``cuda`` case counts a request's phases on a
-card:
+``foldin.sweeps``, ``predict.scores`` and ``predict.rank``, and a
+LocalLDA training call its landing ``local_lda.land``.  A merge block
+counts the table entries its gather reads (``merge_block.table_entries``;
+a replay adds what its captured body read) and those of live positions on
+valid slots (``.live_table_entries``).  Here, on the CPU: no scope is
+entered without a profiler, a profiler changes no output bit, each model's
+request and training call record exactly their spans, nested as stated,
+and the counters count each phase and entry; stand-in graphs take the
+card's replay rule.  The ``cuda`` cases count a request's phases and a
+LocalLDA call's blocks, route and entries on a card:
 
     LDA_TESTS_KEEP_PLATFORM=1 python -m pytest -m cuda tests/test_torch_tracing.py
 """
@@ -28,6 +32,8 @@ from lda_thesis_tpu_torch.data.synthetic import planted_corpus
 from lda_thesis_tpu_torch.data.vocab import Dictionary
 from lda_thesis_tpu_torch.models.hslda import HSLDA
 from lda_thesis_tpu_torch.models.labeled_lda import LabeledLDA
+from lda_thesis_tpu_torch.models.local_lda import LocalLDA
+from lda_thesis_tpu_torch.ops import fused_block_cuda as fbc
 from lda_thesis_tpu_torch.ops import gibbs as tgibbs
 from lda_thesis_tpu_torch.utils import tracing
 
@@ -117,6 +123,26 @@ def _profiled(fn):
 def _delta(before):
     return {k: n - before.get(k, 0) for k, n in tracing.counts().items()
             if n != before.get(k, 0)}
+
+
+def _entries(m, blocks):
+    """The merge-block counters of ``blocks`` blocks of ``m``, from its
+    layout: each document's positions times its slots, and its live
+    positions times its valid slots."""
+    total = live = 0
+    for tf, lv in zip(m.buckets.tok_f, m.lab_valid_t):
+        total += tf.size * lv.shape[1]
+        live += int(((tf > 0).sum(axis=1) * (lv.cpu().numpy() > 0).sum(axis=1)).sum())
+    return {"merge_block.table_entries": blocks * total,
+            "merge_block.live_table_entries": blocks * live}
+
+
+def _trained_counts(kind, m, phase):
+    """The counters of ``_train``: each runner call's phase, and for
+    Labeled LDA the entries of its 2 blocks."""
+    if kind == "labeled":
+        return {f"merge_block.{phase}": 2, f"save_step.{phase}": 2, **_entries(m, 2)}
+    return {f"hslda_cycle.{phase}": 4, f"save_step.{phase}": 2}
 
 
 def test_annotate_is_one_null_context_without_a_profiler():
@@ -209,10 +235,8 @@ def test_cpu_counts_each_runner_call_eager(kind):
     m, docs = _model(kind)
     before = tracing.counts()
     _train(kind, m)
-    trained = _delta(before)
-    layer = "merge_block" if kind == "labeled" else "hslda_cycle"
     # one merge block per save for Labeled LDA, one cycle per call for HSLDA
-    assert trained == {f"{layer}.eager": 2 if kind == "labeled" else 4, "save_step.eager": 2}
+    assert _delta(before) == _trained_counts(kind, m, "eager")
     before = tracing.counts()
     _request(kind, m, docs)
     assert _delta(before) == {"foldin_sweep.eager": IT}
@@ -234,9 +258,7 @@ def test_replay_rule_counts_and_records_each_phase(graphed, kind):
         assert all(any(_inside(p, s) for s in sweeps) for p in phases)
     before = tracing.counts()
     _train(kind, m)  # the training graphs were captured by the first call
-    layer = "merge_block" if kind == "labeled" else "hslda_cycle"
-    assert _delta(before) == {f"{layer}.replay": 2 if kind == "labeled" else 4,
-                              "save_step.replay": 2}
+    assert _delta(before) == _trained_counts(kind, m, "replay")
 
 
 def test_runner_layers():
@@ -264,3 +286,76 @@ def test_a_request_on_a_card_counts_one_capture(kind):
         torch.cuda.synchronize()
         assert _delta(before) == {"foldin_sweep.eager": 1, "foldin_sweep.capture": 1,
                                   "foldin_sweep.replay": IT - 1}
+
+
+def _local(K, device="cpu"):
+    c = planted_corpus(3, n_train=30, n_test=0, V=120, max_types=16, mean_types=6)
+    texts = [" ".join(chip_smoke.csv_word(int(w[1:])) for w in d) for d in c.train_docs]
+    return LocalLDA(texts, ALPHA, BETA, K=K, seed=1, device=device)
+
+
+@pytest.mark.parametrize("K", [20, 300])
+def test_a_merge_block_counts_its_table_entries(K):
+    """LocalLDA's identity slots: D·U·A entries a block, and the live
+    positions' K valid slots (A = 304 at K = 300: 4 pad slots)."""
+    m = _local(K)
+    before = tracing.counts()
+    m.run_training(6, 3)  # M = 1: six blocks of one sweep
+    assert m.A == -(-K // 8) * 8
+    got = _delta(before)
+    assert {k: got[k] for k in _entries(m, 6)} == _entries(m, 6)
+    (tf,) = m.buckets.tok_f
+    assert got["merge_block.live_table_entries"] == 6 * int((tf > 0).sum()) * K
+    assert got["merge_block.table_entries"] == 6 * tf.size * m.A
+
+
+def test_a_replayed_block_counts_what_its_gather_read(graphed):
+    """The gather's entries are counted where it reads them: by the eager
+    call, once by the capturing call, and by each replay (the stand-in
+    replay runs the body, as a card's replay reads the table)."""
+    m = _local(20)
+    before = tracing.counts()
+    m.run_training(6, 3)
+    got = _delta(before)
+    assert (got["merge_block.eager"], got["merge_block.capture"], got["merge_block.replay"]) \
+        == (1, 1, 5)
+    assert {k: got[k] for k in _entries(m, 6)} == _entries(m, 6)
+
+
+def test_a_local_lda_call_records_its_landing():
+    """The landing holds the means' copy to the host and their guards
+    (``_check_ph_hat``), after both saves."""
+    m = _local(20)
+    real = m._check_ph_hat
+
+    def check():
+        with tracing.annotate("check"):
+            real()
+
+    m._check_ph_hat = check
+    _, spans = _profiled(lambda: m.run_training(6, 3))
+    (land,) = _named(spans, "local_lda.land")
+    saves = _named(spans, "save_step")
+    assert len(saves) == 2 and all(s[2] <= land[1] for s in saves)
+    (check,) = _named(spans, "check")
+    assert _inside(check, land)
+    assert {s[0] for s in spans} == {"merge_block", "merge_block.eager", "save_step",
+                                     "save_step.eager", "local_lda.land", "check"}
+
+
+@pytest.mark.cuda
+def test_a_local_lda_call_on_a_card_counts_its_routes():
+    """K = 300 takes the wide route: every block, eager, captured or
+    replayed, is one wide launch (the wrapper's counters) and counts its
+    gather's D·U·A entries."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    m = _local(300, device="cuda")
+    for _ in range(2):
+        before = tracing.counts()
+        launches = (fbc.launches, fbc.wide_launches)
+        m.run_training(6, 3)
+        torch.cuda.synchronize()
+        assert (fbc.launches - launches[0], fbc.wide_launches - launches[1]) == (6, 6)
+        got = _delta(before)
+        assert {k: got[k] for k in _entries(m, 6)} == _entries(m, 6)

@@ -306,18 +306,19 @@ class _StandInGraph:
         self._fn = fn
 
     def replay(self):
-        n = fbc.launches
+        n, entries = fbc.launches, tfused.table_entries
         self._fn()
-        fbc.launches = n
+        fbc.launches, tfused.table_entries = n, entries
 
 
 def test_replay_rule_keeps_a_graph_per_block_length(monkeypatch):
     """``_Replayed``'s rule on ``FusedBlocks`` with a stand-in graph (the CPU
     cannot capture): the first block of each length runs eagerly, the
     second captures and replays, later ones replay; one graph per length;
-    the launches counted while capturing are taken back and each replay
-    adds them again, so the counter reads one launch per bucket per block;
-    the state equals the chained eager blocks after each call."""
+    the launches and the gathered table entries counted while capturing are
+    taken back and each replay adds them again, so the counter reads one
+    launch per bucket per block; the state equals the chained eager blocks
+    after each call."""
     state, *inputs = chip_smoke.fused_problem("cpu", 3, 21, 9, 13)
     run = tfused.FusedBlocks(state, *inputs, ALPHA, BETA)
     run._graphed = True
@@ -342,7 +343,8 @@ def test_replay_rule_keeps_a_graph_per_block_length(monkeypatch):
         fbc.launches -= 2  # the eager reference's
         assert _same(got, state) and fbc.launches == 2 * (i + 1)
     assert sorted(run._graphs) == [1, 2] and len(captured) == 2
-    assert [added for _, added in run._graphs.values()] == [[2, 0, 0, 0], [2, 0, 0, 0]]
+    entries = sum(tv.numel() * li.shape[1] for tv, li in zip(inputs[0], inputs[2]))
+    assert [added for _, added in run._graphs.values()] == [[2, 0, 0, 0, entries]] * 2
     clone = pickle.loads(pickle.dumps(run))
     assert clone._graphs == {} and clone._u == {} and clone.calls == 0
     assert _same(clone.state, run.state)
